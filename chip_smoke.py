@@ -6,21 +6,30 @@ Run from the repository root, with no arguments::
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
-1. build   -- compile the flash-attention forward kernel
-   (``mxtpu_torch/ops/csrc/flash_fwd.cu``) with nvcc for sm_90a.
-2. kernel  -- hold the kernel against its plain PyTorch version on the
-   card at the served shape (64, 1024, 128) bf16 causal, and in f32 and
-   bf16 at (6, 384, 64) causal and not, at the ragged (2, 100, 32) x
-   (2, 90, 32) causal and not, and at (3, 130, 16) causal, each with
-   and without the LSE.  Tolerances: f32 rtol 2e-4 / atol 2e-5, the
-   bounds tests/test_pallas_attention.py holds the TPU kernel to; bf16
-   one ulp of a probability plus one of the output, atol 2e-3 / rtol
-   2^-6 of ``error_scale``, a relative L2 error of at most 1e-2, and
-   that file's 0.05 (alone too loose: a typical output at the served
-   shape is about that size).  Prints the kernel's and the plain
-   version's times, the least time the card could take (bound), and
-   ``torch.nn.functional.scaled_dot_product_attention`` at the served
-   shape as a yardstick the port never calls.
+1. build   -- compile the flash-attention kernels
+   (``mxtpu_torch/ops/csrc/flash_fwd.cu`` and ``flash_bwd.cu``, one nvcc
+   each, started together) for sm_90a; prints each build's seconds and
+   the compiler's register and spill lines.
+2. kernel  -- hold each kernel against its plain PyTorch version on the
+   card at the served and trained shape (64, 1024, 128) bf16 causal,
+   and in f32 and bf16 at (6, 384, 64) causal and not, at the ragged
+   (2, 100, 32) x (2, 90, 32) causal and not, and at (3, 130, 16)
+   causal.  Forward, with and without the LSE: f32 rtol 2e-4 / atol
+   2e-5, the bounds tests/test_pallas_attention.py holds the TPU kernel
+   to; bf16 one ulp of a probability plus one of the output, atol 2e-3
+   / rtol 2^-6 of ``error_scale``, a relative L2 error of at most 1e-2,
+   and that file's 0.05 (alone too loose: a typical output at the
+   served shape is about that size).  Backward (dq from
+   ``flash_bwd_dq``, dk and dv from ``flash_bwd_dkv``, with a random
+   cotangent): f32 rtol 2e-3 / atol 2e-4, that file's multiblock
+   gradient bounds; bf16 atol 2e-3 / rtol 2^-6 of the sum before it
+   cancels (``bwd_error_scales``) and a relative L2 error of at most
+   1e-2 on each gradient.  Prints the kernels' and the plain versions'
+   times, the least time the card could take (bound), and at the
+   served shape ``torch.nn.functional.scaled_dot_product_attention``'s
+   forward, and its backward, as yardsticks the port never calls (their
+   device time under torch.profiler, which a slow host does not
+   inflate).
 3. serve   -- the full-width TransformerLM (vocab 8192, d_model 1024,
    8 heads, 8 layers, d_ff 4096, T 1024, bf16; random weights from seed
    0) hosted in ``mxtpu_torch.serve.Server`` as a next-token server
@@ -31,14 +40,31 @@ Phases, each of which fails the run (non-zero exit) on any error:
    row against the port's forward on the CPU (plain path, the same
    weights in float32).  Prints the clients' request latency p50/p99
    over all 1200 requests, the tokens per second served, and the
-   forward's device time by bucket and by block.
+   forward's device time by bucket and by block.  The backward kernels
+   must not launch.
+4. train   -- the same model trained as bench.py's transformer row: the
+   config above with ``remat="dots"``, Adam at lr 1e-3, K = 8 steps a
+   fused call (``make_fused_train_steps``), tokens and labels drawn from
+   ``np.random.RandomState(0)``.  One warm call and 3 timed calls on
+   the same stacks.  Checks that every loss is finite, that the last is
+   below the first, and that each kernel launched exactly its count
+   per step (``PER_STEP``) times the 32 steps.  Then one step at batch
+   1 and 2 layers against the port's step on the CPU in float32 (loss
+   and every gradient).  Prints tokens/s and ms per step (host clock,
+   synchronised by value), the device time of one step's forward and
+   loss, backward and update (CUDA events), the attention backward's
+   share of the backward, peak device memory, and one step's kernels
+   under torch.profiler (device busy time, idle share, the kernels with
+   the most device time).
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the card's name and power limit, the line
+before that the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
 """
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -52,9 +78,19 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5),
        torch.bfloat16: dict(rtol=2 ** -6, atol=2e-3)}
+BWD_TOL = {torch.float32: dict(rtol=2e-3, atol=2e-4),
+           torch.bfloat16: dict(rtol=2 ** -6, atol=2e-3)}
 BF16_REL_L2 = 1e-2
 SERVED = (64, 1024, 128)   # (batch*heads, T, head_dim) at batch 8
 CLIENTS, PER_CLIENT = 8, 150
+MODEL = dict(vocab=8192, d_model=1024, n_heads=8, n_layers=8, d_ff=4096,
+             max_len=1024, dtype="bfloat16")
+K_STEPS, TRAIN_CALLS = 8, 4
+# kernel launches per training step at 8 layers with remat="dots": the
+# forward of each layer, then its recompute in the backward (the policy
+# never sees the ctypes launch, so the Function's forward runs again),
+# then one launch of each backward kernel per layer
+PER_STEP = {"flash_fwd": 16, "flash_bwd_dq": 8, "flash_bwd_dkv": 8}
 
 if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke.py: no CUDA device is present\n")
@@ -63,6 +99,9 @@ if not torch.cuda.is_available():
 from mxtpu_torch import serve  # noqa: E402
 from mxtpu_torch.ops import flash_attention as fa  # noqa: E402
 from mxtpu_torch.parallel import transformer as tf  # noqa: E402
+
+KERNELS = {"flash_fwd": fa.FLASH_FWD, "flash_bwd_dq": fa.FLASH_BWD_DQ,
+           "flash_bwd_dkv": fa.FLASH_BWD_DKV}
 
 
 def log(*args):
@@ -87,18 +126,77 @@ def time_ms(fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
-def attention_bound_ms(bh, tq, tk, d, dtype, causal, want_lse):
-    """Least time for the function on these inputs: q, k, v read once,
-    o (and lse) written once, over the memory rate; 4*d flops per
-    (query, key) pair the mask keeps, over the peak rate of the type."""
-    esz = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (2 * bh * tq * d + 2 * bh * tk * d) * esz
-    nbytes += bh * tq * 4 if want_lse else 0
-    pairs = sum(min(i + 1, tk) for i in range(tq)) if causal else tq * tk
-    flops = 4.0 * d * bh * pairs
+def busy_us(spans):
+    """Microseconds covered by the union of (start, end) intervals."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for start, end in sorted(spans):
+        if cur_e is None or start > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = start, end
+        else:
+            cur_e = max(cur_e, end)
+    return busy + (0.0 if cur_e is None else cur_e - cur_s)
+
+
+def device_spans(fn):
+    """fn() under torch.profiler: its kernels' (start, end, name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.time_range.start, e.time_range.end, e.name)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, iters):
+    """The card's busy time per call of fn, from its kernels' intervals:
+    unlike time_ms it leaves out the gaps where the card waits for the
+    host, so a library call's time does not depend on the host's speed."""
+    fn()  # warm
+    spans = device_spans(lambda: [fn() for _ in range(iters)])
+    if not spans:
+        fail("the profiler saw no device time")
+    return busy_us([(a, b) for a, b, _ in spans]) / 1e3 / iters
+
+
+def bound_ms(nbytes, flops, dtype):
+    """The least time for nbytes of traffic and flops of work: the
+    larger of the bytes over the memory rate and the operations over the
+    peak rate of the type; and which of the two it is."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def kept_pairs(tq, tk, causal):
+    """(query, key) pairs the top-left-aligned causal mask keeps."""
+    return sum(min(i + 1, tk) for i in range(tq)) if causal else tq * tk
+
+
+def attention_bound_ms(bh, tq, tk, d, dtype, causal, want_lse):
+    """Forward: q, k, v read once, o (and lse) written once; 4*d flops
+    per kept (query, key) pair (Q K^T and P V)."""
+    esz = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * bh * tq * d + 2 * bh * tk * d) * esz
+    nbytes += bh * tq * 4 if want_lse else 0
+    return bound_ms(nbytes, 4.0 * d * bh * kept_pairs(tq, tk, causal), dtype)
+
+
+def backward_bound_ms(kernel, bh, tq, tk, d, dtype, causal):
+    """flash_bwd_dq: q, k, v, g, lse and delta read once, dq written
+    once; 6*d flops per kept pair (S, dP and dS K).  flash_bwd_dkv: the
+    same inputs, dk and dv written once; 8*d flops per kept pair (S, dP,
+    P^T G and dS^T Q)."""
+    esz = torch.tensor([], dtype=dtype).element_size()
+    outs, per_pair = ((bh * tq * d, 6.0) if kernel == "flash_bwd_dq"
+                      else (2 * bh * tk * d, 8.0))
+    nbytes = (2 * bh * tq * d + 2 * bh * tk * d + outs) * esz \
+        + 2 * bh * tq * 4
+    return bound_ms(nbytes, per_pair * d * bh * kept_pairs(tq, tk, causal),
+                    dtype)
 
 
 def error_scale(q, k, v, scale, causal, lse):
@@ -116,21 +214,145 @@ def error_scale(q, k, v, scale, causal, lse):
     return torch.exp(s - lse[..., None]) @ v.float().abs()
 
 
+def bwd_error_scales(q, k, v, g, out, lse, scale, causal):
+    """The sums behind dq, dk and dv before their terms cancel:
+    |dS| |K|, |dS|^T |Q| and P^T |G|, from the plain version's blocks.
+    bf16 rounds P and dS before these products, each version from its
+    own f32 values, so one term one ulp apart moves a gradient by up to
+    2^-8 of its term, and the gradient's own rounding adds 2^-9 of it:
+    hence bf16's rtol of 2^-6 of these scales."""
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if causal:
+        qi = torch.arange(q.shape[1], device=q.device)
+        ki = torch.arange(k.shape[1], device=q.device)
+        s = s.masked_fill(ki[None, :] > qi[:, None], float("-inf"))
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqd,bkd->bqk", g.float(), v.float())
+    ds = (p * (dp - fa._delta(out, g)[..., None]) * scale).abs()
+    return (ds @ k.float().abs(), ds.transpose(1, 2) @ q.float().abs(),
+            p.transpose(1, 2) @ g.float().abs())
+
+
 def phase_build():
-    t0 = time.monotonic()
-    fa.FLASH_FWD.load()
-    log("[build] flash_fwd.cu built and loaded in %.2f s"
-        % (time.monotonic() - t0))
-    for line in fa.FLASH_FWD.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("[build]   " + line.strip())
+    """One nvcc for each source, started together."""
+    secs, errors = {}, []
+
+    def build(kern):
+        t0 = time.monotonic()
+        try:
+            kern.load()
+        except BaseException as e:
+            errors.append("%s: %s" % (kern.source, e))
+        secs[kern.source] = time.monotonic() - t0
+
+    threads = [threading.Thread(target=build, args=(k,))
+               for k in (fa.FLASH_FWD, fa.FLASH_BWD_DQ)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        fail("build failed: %s" % errors)
+    fa.FLASH_BWD_DKV.load()  # the library flash_bwd_dq's build made
+    for kern in (fa.FLASH_FWD, fa.FLASH_BWD_DQ):
+        log("[build] %s built and loaded in %.2f s; registers a thread "
+            "and spill stores by kernel (-Xptxas -v): %s"
+            % (kern.source, secs[kern.source],
+               ", ".join(ptxas_summary(kern.build_log))))
+
+
+def ptxas_summary(build_log):
+    """'path<d[,mode]> R regs, spill S' per kernel from ptxas's lines
+    (tc = the bf16 tensor-core path, f32 = the CUDA-core path)."""
+    out, name, spill = [], None, "?"
+    for line in build_log.splitlines():
+        m = re.search(r"(tc|f32)6kernelILi(\d+)E(Lb([01])E)?", line)
+        if "Compiling entry" in line and m:
+            name = "%s<%s%s>" % (m.group(1), m.group(2),
+                                 {"1": ",dkv", "0": ",dq"}.get(m.group(4), ""))
+        elif name and "spill stores" in line:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append("%s %s regs, spill %s" % (name, regs, spill))
+            name, spill = None, "?"
+    return out
+
+
+def check_backward(q, k, v, out, lse, scale, causal, gen):
+    """Both backward kernels against the plain backward on the same
+    inputs and a random cotangent; returns a record per kernel."""
+    (bh, tq, d), tk, dtype = q.shape, k.shape[1], q.dtype
+    g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+    ref = fa._flash_bwd_reference(q, k, v, g, out, lse, scale, causal)
+    got = fa._flash_backward_cuda(q, k, v, g, out, lse, scale, causal)
+    torch.cuda.synchronize()
+    tol = BWD_TOL[dtype]
+    scales = bwd_error_scales(q, k, v, g, out, lse, scale, causal) \
+        if dtype == torch.bfloat16 else [r.float().abs() for r in ref]
+    errs = {}
+    for name, a, b, base in zip(("dq", "dk", "dv"), got, ref, scales):
+        diff = a.float() - b.float()
+        errs[name] = dict(
+            max_abs_err=diff.abs().max().item(),
+            err_over_tol=(diff.abs() / (tol["atol"] + tol["rtol"] * base))
+            .max().item(),
+            rel_l2=(diff.norm() / b.float().norm()).item())
+    ok = all(e["err_over_tol"] <= 1.0 and (dtype != torch.bfloat16 or
+                                          e["rel_l2"] <= BF16_REL_L2)
+             for e in errs.values())
+    delta = fa._delta(out, g)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    iters = 20 if tq >= 1024 else 50
+    plain_ms = time_ms(lambda: fa._flash_bwd_reference(
+        q, k, v, g, out, lse, scale, causal), 3)
+    # the backward as the autograd Function runs it: delta, the
+    # allocations and both launches
+    wrapper_ms = time_ms(lambda: fa._flash_backward_cuda(
+        q, k, v, g, out, lse, scale, causal), iters)
+    recs = {}
+    for name, outs, grads in (("flash_bwd_dq", (dq,), ("dq",)),
+                              ("flash_bwd_dkv", (dk, dv), ("dk", "dv"))):
+        ms = time_ms(lambda: fa._bwd_launch(
+            KERNELS[name], q, k, v, g, lse, delta, outs, scale, causal),
+            iters)
+        bms, bound_by = backward_bound_ms(name, bh, tq, tk, d, dtype,
+                                          causal)
+        e = [errs[n] for n in grads]
+        recs[name] = dict(
+            kernel=name, shape="(%d,%d,%d)x(%d,%d,%d)" % (bh, tq, d, bh, tk, d),
+            dtype=str(dtype).replace("torch.", ""), causal=causal,
+            grads={n: errs[n] for n in grads},
+            max_abs_err=max(x["max_abs_err"] for x in e),
+            ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=bound_by, library_ms=None)
+    if (bh, tq, d) == SERVED:
+        # SDPA's backward (dq, dk, dv in one call): fwd + bwd minus fwd,
+        # in device time
+        b, h = 8, bh // 8
+        q4, k4, v4 = (t.detach().view(b, h, tq, d).requires_grad_(True)
+                      for t in (q, k, v))
+        g4 = g.view(b, h, tq, d)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        both = device_ms(lambda: torch.autograd.grad(
+            sdpa(q4, k4, v4, is_causal=True), (q4, k4, v4), g4), iters)
+        fwd_only = device_ms(lambda: sdpa(q4, k4, v4, is_causal=True), iters)
+        for r in recs.values():
+            r["library_ms"] = both - fwd_only
+    for r in recs.values():
+        log("[kernel] " + json.dumps(r))
+    if not ok:
+        fail("backward kernels disagree with the plain version: %s" % errs)
+    return recs
 
 
 def phase_kernel():
-    """Kernel vs plain on the card; returns the served shape's record."""
+    """Kernels vs plain on the card; returns the served/trained shape's
+    record of each kernel."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # the served shape, then each path (f32 on the CUDA cores, bf16 on
-    # the tensor cores) at smaller head dims and ragged lengths
+    # the served and trained shape, then each path (f32 on the CUDA
+    # cores, bf16 on the tensor cores) at smaller head dims and ragged
+    # lengths
     cases = [(SERVED, 1024, torch.bfloat16, True)] + [
         (shape, tk, dtype, causal)
         for dtype in (torch.float32, torch.bfloat16)
@@ -138,7 +360,7 @@ def phase_kernel():
                                    ((2, 100, 32), 90, (False, True)),
                                    ((3, 130, 16), 130, (True,)))
         for causal in causals]
-    served = None
+    records = {}
     for (bh, tq, d), tk, dtype, causal in cases:
         q = torch.randn(bh, tq, d, device="cuda", generator=gen).to(dtype)
         k = torch.randn(bh, tk, d, device="cuda", generator=gen).to(dtype)
@@ -170,27 +392,32 @@ def phase_kernel():
                 q, k, v, scale, causal, want_lse), iters)
             plain_ms = time_ms(lambda: fa._reference_attention_lse(
                 q, k, v, scale, causal), 5)
-            bound_ms, bound_by = attention_bound_ms(bh, tq, tk, d, dtype,
-                                                    causal, want_lse)
+            bound, bound_by = attention_bound_ms(bh, tq, tk, d, dtype,
+                                                 causal, want_lse)
             rec = dict(shape="(%d,%d,%d)x(%d,%d,%d)" % (bh, tq, d, bh, tk, d),
                        dtype=str(dtype).replace("torch.", ""),
                        causal=causal, lse=want_lse,
                        max_abs_err=err.max().item(), err_over_tol=over,
                        rel_l2=rel_l2, err_over_0_05=over_005,
                        max_abs_err_lse=err_lse,
-                       ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       ms=ms, plain_ms=plain_ms, bound_ms=bound,
                        bound_by=bound_by, library_ms=None)
             if (bh, tq, d) == SERVED and not want_lse:
                 b, h = 8, bh // 8
                 q4, k4, v4 = (t.view(b, h, tq, d) for t in (q, k, v))
                 sdpa = torch.nn.functional.scaled_dot_product_attention
-                rec["library_ms"] = time_ms(
+                rec["library_ms"] = device_ms(
                     lambda: sdpa(q4, k4, v4, is_causal=True), iters)
-                served = rec
+                records["flash_fwd"] = rec
+            if (bh, tq, d) == SERVED and want_lse:
+                records["flash_fwd_lse_ms"] = ms
             log("[kernel] " + json.dumps(rec))
             if not ok:
                 fail("kernel disagrees with the plain version: %s" % rec)
-    return served
+        recs = check_backward(q, k, v, ref_o, ref_l, scale, causal, gen)
+        if (bh, tq, d) == SERVED:
+            records.update(recs)
+    return records
 
 
 def breakdown(cfg, params, fwd, tokens):
@@ -229,11 +456,9 @@ def check_answer(x, out, vocab):
 
 
 def phase_serve():
-    """The full-width next-token server; returns the kernel's launches
-    during the served run."""
-    cfg = tf.TransformerConfig(vocab=8192, d_model=1024, n_heads=8,
-                               n_layers=8, d_ff=4096, max_len=1024,
-                               dtype="bfloat16", remat="none")
+    """The full-width next-token server; returns the forward kernel's
+    launches during the served run."""
+    cfg = tf.TransformerConfig(remat="none", **MODEL)
     T = cfg.max_len
     params = tf.init_params(cfg, device="cuda", seed=0)
     log("[serve] %d parameters, %s" % (
@@ -281,7 +506,8 @@ def phase_serve():
         except BaseException as e:
             errors.append(repr(e))
 
-    fa.FLASH_FWD.launches = 0
+    for kern in KERNELS.values():
+        kern.launches = 0
     t0 = time.monotonic()
     threads = [threading.Thread(target=client, args=(i,))
                for i in range(CLIENTS)]
@@ -297,6 +523,7 @@ def phase_serve():
         x = rng.randint(0, cfg.vocab, (n, T)).astype(np.int32)
         check_answer(x, srv.infer("lm", x), cfg.vocab)
     launches = fa.FLASH_FWD.launches
+    bwd_launches = fa.FLASH_BWD_DQ.launches + fa.FLASH_BWD_DKV.launches
     drained = srv.drain(30)
     n_req = CLIENTS * PER_CLIENT
     if errors or any(t.is_alive() for t in threads) or not drained \
@@ -306,6 +533,8 @@ def phase_serve():
     if launches != 8 * len(dispatches) or not dispatches:
         fail("serve: %d kernel launches for %d dispatches (want 8 each)"
              % (launches, len(dispatches)))
+    if bwd_launches:
+        fail("serve: %d backward kernel launches (want none)" % bwd_launches)
     rows = sum(x.shape[0] for reqs in requests for x in reqs)
     padded = sum(b for b, _ in dispatches[:n_loop])
     busy = sum(s for _, s in dispatches[:n_loop])
@@ -314,7 +543,8 @@ def phase_serve():
     p50, p99 = np.percentile(np.array(latencies) * 1e3, [50, 99])
     log("[serve] closed loop, %d clients: %d requests, %d rows, %d "
         "dispatches (by bucket %s), %d kernel launches in all"
-        % (CLIENTS, n_req, rows, n_loop, buckets, launches))
+        % (CLIENTS, n_req, rows, n_loop, buckets, launches)
+        + ", 0 backward launches")
     log("[serve] request latency over all %d requests (host clock): "
         "p50 %.2f ms, p99 %.2f ms, max %.2f ms"
         % (n_req, p50, p99, max(latencies) * 1e3))
@@ -345,22 +575,193 @@ def phase_serve():
     return launches
 
 
+def step_breakdown(cfg, params, opt, tok, lab):
+    """Device time (CUDA events) of one step's forward and loss, its
+    backward and its Adam update, the parts of the port's step; the
+    second of two runs."""
+    loss_fn = tf._build_loss_fn(cfg, 1)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for _ in range(2):
+        leaves = {n: p.detach().requires_grad_(True)
+                  for n, p in params.items()}
+        ev[0].record()
+        loss = loss_fn(leaves, tok, lab)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        ev[2].record()
+        tf._update(params, opt, dict(zip(leaves, grads)), "adam", 1e-3)
+        ev[3].record()
+        torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+
+def step_profile(cfg, params, opt, tok, lab, top=8):
+    """One step under torch.profiler: the device's busy time (the union
+    of its kernels' intervals), the step's window from the first kernel
+    to the last, and the kernels with the most device time.  The
+    profiler's own host work widens the window, so the idle share it
+    gives is an upper bound."""
+    def step():
+        _, grads = tf._loss_and_grads(cfg, 1)(params, tok, lab)
+        tf._update(params, opt, grads, "adam", 1e-3)
+
+    spans = device_spans(step)
+    if not spans:
+        fail("train: the profiler saw no device time in a step")
+    by_name = {}
+    for start, end, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+    busy = busy_us([(a, b) for a, b, _ in spans])
+    window = max(b for _, b, _ in spans) - min(a for a, _, _ in spans)
+    heads = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    log("[train] one profiled step: %d kernels, device busy %.3f ms in a "
+        "%.3f ms window (idle share at most %.3f); most device time: %s"
+        % (len(spans), busy / 1e3, window / 1e3, 1 - busy / window,
+           "; ".join("%s %.3f ms" % (name[:60], t / 1e3)
+                     for name, t in heads)))
+
+
+def memory_reckoning(cfg, B):
+    """What the training step must hold, reckoned from the config (MB)."""
+    n = sum(int(np.prod(s)) for s in tf.param_shapes(cfg).values())
+    T, E, F_, V = cfg.max_len, cfg.d_model, cfg.d_ff, cfg.vocab
+    # saved per layer under "dots": the q, k, v and output projections
+    # and the down-projection (bf16 [B*T, E]), the f32 up-projection
+    saved = cfg.n_layers * (5 * B * T * E * 2 + B * T * F_ * 4)
+    return dict(params_bf16=n * 2 / 1e6, grads_bf16=n * 2 / 1e6,
+                adam_moments_f32=n * 8 / 1e6, logits_f32=B * T * V * 4 / 1e6,
+                saved_products=saved / 1e6)
+
+
+def cpu_step_check(cfg, tokens, labels):
+    """One step at batch 1 and 2 layers on the card (bf16, remat
+    "dots", the kernels) against the port's step on the CPU in float32
+    (plain versions), from the same weights: the loss and every
+    parameter's gradient.  The bounds are bf16's: the port's plain
+    bf16 path against its f32 path, measured on the CPU at this shape
+    over two seeds (loss within 9e-5, gradients' relative L2 at most
+    0.0104, in wq and wk), with margin."""
+    small = dataclasses.replace(cfg, n_layers=2)
+    params = tf.init_params(small, device="cuda", seed=0)
+    tok, lab = tokens[:1], labels[:1]
+    t0 = time.monotonic()
+    loss, grads = tf._loss_and_grads(small, 1)(
+        params, torch.from_numpy(tok).cuda().long(),
+        torch.from_numpy(lab).cuda().long())
+    ref_cfg = dataclasses.replace(small, dtype="float32", remat="none")
+    ref_loss, ref_grads = tf._loss_and_grads(ref_cfg, 1)(
+        {k: v.float().cpu() for k, v in params.items()},
+        torch.from_numpy(tok).long(), torch.from_numpy(lab).long())
+    d_loss = abs(loss.item() - ref_loss.item())
+    rel = {k: ((grads[k].float().cpu() - ref_grads[k]).norm()
+               / ref_grads[k].norm()).item() for k in ref_grads}
+    worst = max(rel, key=rel.get)
+    log("[train] one step vs the CPU float32 step (batch 1, 2 layers, "
+        "%.1f s): loss %.5f vs %.5f (|d| %.5f, bound 0.01); gradients' "
+        "relative L2 %s (worst %s %.5f, bound 0.03)"
+        % (time.monotonic() - t0, loss.item(), ref_loss.item(), d_loss,
+           json.dumps({k: round(v, 5) for k, v in sorted(rel.items())}),
+           worst, rel[worst]))
+    if not (d_loss <= 0.01 and rel[worst] <= 0.03):
+        fail("the card's training step disagrees with the CPU step")
+
+
+def phase_train(kernel_records):
+    """bench.py's transformer row trained on the card; returns each
+    kernel's launches in the 4 fused calls."""
+    cfg = tf.TransformerConfig(remat="dots", **MODEL)
+    B, T = 8, cfg.max_len
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(cfg, device="cuda", seed=0)
+    opt = tf.init_opt_state(cfg, device="cuda")
+    step, _ = tf.make_fused_train_steps(cfg, K_STEPS, device="cuda",
+                                        lr=1e-3, optimizer="adam")
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab, (K_STEPS, B, T)).astype(np.int32)
+    labs = rng.randint(0, cfg.vocab, (K_STEPS, B, T)).astype(np.int32)
+    toks_d, labs_d = torch.from_numpy(toks).cuda(), torch.from_numpy(labs).cuda()
+
+    def value_sync(losses):
+        # a value fetch: the last loss, and a scalar of the updated params
+        float(losses[-1])
+        float(params["embed"].view(-1)[0])
+
+    for kern in KERNELS.values():
+        kern.launches = 0
+    params, opt, warm = step(params, opt, toks_d, labs_d)
+    value_sync(warm)
+    losses = [warm]
+    t0 = time.monotonic()
+    for _ in range(TRAIN_CALLS - 1):
+        params, opt, out = step(params, opt, toks_d, labs_d)
+        losses.append(out)
+    value_sync(losses[-1])
+    wall = time.monotonic() - t0
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.cat(losses).float().cpu().numpy()
+    n_steps = TRAIN_CALLS * K_STEPS
+    timed = (TRAIN_CALLS - 1) * K_STEPS
+    log("[train] %s, Adam lr 1e-3, %d fused calls of K=%d at batch %d: "
+        "losses %s" % (cfg, TRAIN_CALLS, K_STEPS, B,
+                       " ".join("%.4f" % x for x in losses)))
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("train: losses not finite or not decreasing: %s" % losses)
+    want = {name: n * n_steps for name, n in PER_STEP.items()}
+    log("[train] kernel launches in the %d steps: %s (per step %s)"
+        % (n_steps, launches, PER_STEP))
+    if launches != want:
+        fail("train: launches %s, want %s" % (launches, want))
+    log("[train] %d timed steps in %.3f s (host clock, synchronised by "
+        "value): %.1f ms per step, %.0f tokens/s"
+        % (timed, wall, wall / timed * 1e3, timed * B * T / wall))
+    fwd_ms, bwd_ms, upd_ms = step_breakdown(cfg, params, opt,
+                                            toks_d[0].long(),
+                                            labs_d[0].long())
+    attn_bwd = cfg.n_layers * (kernel_records["flash_bwd_dq"]["ms"]
+                               + kernel_records["flash_bwd_dkv"]["ms"])
+    recompute = cfg.n_layers * kernel_records["flash_fwd_lse_ms"]
+    log("[train] one step's device time (CUDA events): forward and loss "
+        "%.3f ms, backward %.3f ms, Adam update %.3f ms; the attention "
+        "backward kernels (%d x (dq + dk/dv) at the kernel phase's times) "
+        "%.3f ms = %.1f%% of the backward, the flash forward's recompute "
+        "%.3f ms = %.1f%%"
+        % (fwd_ms, bwd_ms, upd_ms, cfg.n_layers, attn_bwd,
+           100 * attn_bwd / bwd_ms, recompute, 100 * recompute / bwd_ms))
+    log("[train] peak device memory %.1f MB (max_memory_allocated); "
+        "reckoned: %s" % (peak / 1e6, json.dumps(
+            {k: round(v, 1) for k, v in memory_reckoning(cfg, B).items()})))
+    step_profile(cfg, params, opt, toks_d[0].long(), labs_d[0].long())
+    cpu_step_check(cfg, toks[0], labs[0])
+    return launches
+
+
 def main():
     name_limit = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     phase_build()
-    served = phase_kernel()
-    launches = phase_serve()
-    record = dict(name="flash_fwd", route="cuda",
-                  source="mxtpu_torch/ops/csrc/flash_fwd.cu",
-                  replaces="mxtpu/ops/pallas_attention.py:149",
-                  launches=launches, max_abs_err=served["max_abs_err"],
-                  ms=served["ms"], plain_ms=served["plain_ms"],
-                  bound_ms=served["bound_ms"], bound_by=served["bound_by"],
-                  library_ms=served["library_ms"])
-    log(json.dumps({"kernels": [record]}))
+    records = phase_kernel()
+    served = phase_serve()
+    trained = phase_train(records)
+    sources = {"flash_fwd": ("flash_fwd.cu", 149),
+               "flash_bwd_dq": ("flash_bwd.cu", 277),
+               "flash_bwd_dkv": ("flash_bwd.cu", 309)}
+    kernels = []
+    for name, (src, line) in sources.items():
+        rec = records[name]
+        by_path = {"serve": served if name == "flash_fwd" else 0,
+                   "train": trained[name]}
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="mxtpu_torch/ops/csrc/" + src,
+            replaces="mxtpu/ops/pallas_attention.py:%d" % line,
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
+    log(json.dumps({"kernels": kernels}))
     log(name_limit)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Operators of the PyTorch port (counterpart of ``mxtpu/ops/``).
 
-Only the flash-attention forward is ported so far
+Only flash attention is ported so far, forward and backward
 (``mxtpu/ops/pallas_attention.py`` -> :mod:`.flash_attention`).
 """
 from . import flash_attention

@@ -5,8 +5,9 @@ Here each source under ``csrc/`` compiles into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), at
 first use, from the checkout's own sources, into ``mxtpu_torch/_build/``
 (listed in ``.gitignore``).  The library's name carries a hash of the
-source and the flags, so an edited source builds anew and an unchanged
-one is built once per checkout.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header builds anew and an unchanged one is built once per
+checkout.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from typing import List, Tuple
 
 from ..base import MXNetError
 
-__all__ = ["CudaKernel", "nvcc_path", "build"]
+__all__ = ["CudaKernel", "nvcc_path", "build", "library_key"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -46,14 +47,22 @@ def nvcc_path() -> str:
                      "kernels are built from source at first use")
 
 
+def library_key(source: str) -> str:
+    """Hash of ``csrc/<source>``, every ``csrc/*.cuh`` (in name order)
+    and the flags: the part of the library's name that changes with
+    what nvcc would compile."""
+    text = (CSRC / source).read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
+    return hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()) \
+        .hexdigest()[:16]
+
+
 def build(source: str) -> Tuple[Path, str]:
     """Compile ``csrc/<source>`` into ``_build/<stem>-<hash>.so`` unless
     that library exists.  Returns (library path, compiler output)."""
     src = CSRC / source
-    text = src.read_bytes()
-    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()) \
-        .hexdigest()[:16]
-    lib = BUILD_DIR / ("%s-%s.so" % (src.stem, key))
+    lib = BUILD_DIR / ("%s-%s.so" % (src.stem, library_key(source)))
     if lib.exists():
         return lib, ""
     nvcc = nvcc_path()

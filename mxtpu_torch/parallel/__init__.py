@@ -1,6 +1,6 @@
 """Parallel subsystem of the PyTorch port (counterpart of
 ``mxtpu/parallel/``), on one device so far: mesh axis names, the sp=1
-ring-attention route and the TransformerLM forward."""
+ring-attention route and the TransformerLM forward and training."""
 from . import mesh
 from . import ring_attention
 from . import transformer

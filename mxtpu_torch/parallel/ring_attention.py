@@ -4,10 +4,12 @@ Counterpart of ``mxtpu/parallel/ring_attention.py``: ``_online_block``,
 ``blockwise_attention``, ``ring_attention`` and ``ring_self_attention``.
 At sp=1 with square q/k, ``ring_attention`` routes to
 :func:`~mxtpu_torch.ops.flash_attention.flash_attention`, which launches
-the CUDA kernel for CUDA tensors and takes the plain version on the CPU.
-The ring itself (K/V rotating over an "sp" axis of several devices, and
-its recompute backward) waits for multi-GPU meshes (ROADMAP A15) and the
-training slice; sp > 1 raises.
+the CUDA kernels for CUDA tensors (its backward too, through the
+autograd Function) and takes the plain versions on the CPU.  The
+non-square blocked loop is differentiated by plain autograd; it is off
+the training path.  The ring itself (K/V rotating over an "sp" axis of
+several devices, and its recompute backward) waits for multi-GPU meshes
+(ROADMAP A15); sp > 1 raises.
 """
 from __future__ import annotations
 

@@ -1,11 +1,15 @@
-"""TransformerLM forward of the PyTorch port, on one device.
+"""TransformerLM of the PyTorch port, forward and training, on one device.
 
 Counterpart of ``mxtpu/parallel/transformer.py``: ``TransformerConfig``,
-``param_shapes``, ``init_params``, ``_rms_norm``, ``_attention``,
-``_dense_ffn``, the forward of ``_stage_fn`` and ``make_forward``.  The
-JAX module runs a manual-SPMD step over a dp x pp x tp x sp x ep mesh;
-here every axis is 1, so there is no shard_map and no collective, and
-``lax.scan`` over the layer axis is a Python loop.
+``param_shapes``, ``init_params``, ``init_opt_state``, ``_rms_norm``,
+``_attention``, ``_dense_ffn``, ``_stage_fn`` (with ``apply_remat``),
+``_sharded_xent`` (as :func:`_xent`), ``_build_loss_fn``, the SGD and
+Adam device steps, ``make_train_step``, ``make_fused_train_steps`` and
+``make_forward``.  The JAX module runs a manual-SPMD step over a
+dp x pp x tp x sp x ep mesh; here every axis is 1, so there is no
+shard_map and no collective, ``lax.scan`` over layers or steps is a
+Python loop, and ZeRO-1's slice of each Adam moment is the whole
+tensor.
 
 The parameters keep the JAX layout and names: a dict of tensors whose
 per-layer entries carry leading (pp, layers_per_stage) axes with pp = 1
@@ -13,11 +17,12 @@ per-layer entries carry leading (pp, layers_per_stage) axes with pp = 1
 parameters as numpy arrays, so both packages compute one function.
 
 Left out: the MoE FFN (``_moe_ffn``: ``n_experts > 0`` raises), meshes
-with an axis above 1, and training (loss, train steps, optimizer
-state), which the next slice ports.
+with an axis above 1 (the ring's recompute backward for sp > 1, ZeRO-1
+over dp > 1, the pp > 1 pipeline).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
@@ -27,15 +32,15 @@ import torch.nn.functional as F
 
 from ..base import MXNetError
 from ..context import resolve
+from ..executor import _REMAT_POLICIES, apply_remat
 from .mesh import AXIS_SP
 from .ring_attention import ring_attention
 
 __all__ = ["TransformerConfig", "param_shapes", "init_params",
-           "params_from_jax", "make_forward"]
+           "params_from_jax", "init_opt_state", "make_forward",
+           "make_train_step", "make_fused_train_steps"]
 
-# the names of mxtpu/executor.py's _REMAT_POLICIES, which the config
-# validates against (the policies themselves act in the backward pass)
-_REMAT_POLICIES = ("dots", "dots_no_batch", "full")
+_LAYER_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w2")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -50,7 +55,9 @@ class TransformerConfig:
     capacity_factor: float = 2.0
     max_len: int = 128
     dtype: Any = "bfloat16"
-    remat: str = "none"        # "none" or a remat policy name
+    remat: str = "none"        # "none" or an executor remat policy
+    # ("full" | "dots" | "dots_no_batch"): per-layer rematerialization
+    # in the backward pass (mxtpu_torch.executor.apply_remat)
 
     def __post_init__(self):
         if self.remat != "none" and self.remat not in _REMAT_POLICIES:
@@ -136,6 +143,18 @@ def params_from_jax(np_params: Dict[str, np.ndarray],
     return out
 
 
+def init_opt_state(cfg: TransformerConfig, device=None):
+    """Adam state: per-parameter first and second moments, f32 zeros on
+    ``device`` (default the card), and the step counter ``t`` (an f32
+    scalar).  At dp = 1 the ZeRO-1 slice of each moment is all of it."""
+    dev = resolve(device)
+    shapes = param_shapes(cfg)
+    state = {key: {name: torch.zeros(shape, dtype=torch.float32, device=dev)
+                   for name, shape in shapes.items()} for key in ("m", "v")}
+    state["t"] = torch.zeros((), dtype=torch.float32, device=dev)
+    return state
+
+
 def _rms_norm(x, scale):
     """x * rsqrt(mean(x^2) + 1e-6) in f32, cast to x's dtype, THEN the
     scale multiplies in x's dtype (the JAX package's cast order)."""
@@ -160,16 +179,38 @@ def _attention(cfg, x, wq, wk, wv, wo):
     return o @ wo
 
 
-def _matmul_f32(x, w):
-    """x @ w with f32 accumulation and an f32 result (JAX's
-    ``preferred_element_type=float32``).  bf16 operands on the card go
-    to cuBLAS's bf16 product with f32 output, on the tensor cores;
-    elsewhere the operands are widened to f32, which is exact, so both
-    compute the same products and f32 sums."""
-    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+class _MatmulF32(torch.autograd.Function):
+    """bf16 x @ w with an f32 result on the card: cuBLAS's bf16 product
+    with f32 output (``aten::mm.dtype``, which has no derivative in
+    torch).  The backward makes the products of JAX's transpose rule,
+    as autograd makes them on the widened path: the f32 cotangent meets
+    the other operand widened to f32, and each gradient is rounded to
+    its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
         out = torch.mm(x.reshape(-1, x.shape[-1]), w,
                        out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).float()
+        dx = (g2 @ w.float().t()).to(x.dtype).reshape(x.shape)
+        dw = (x.reshape(-1, x.shape[-1]).float().t() @ g2).to(w.dtype)
+        return dx, dw
+
+
+def _matmul_f32(x, w):
+    """x @ w with f32 accumulation and an f32 result (JAX's
+    ``preferred_element_type=float32``).  bf16 operands on the card go
+    to cuBLAS's bf16 product with f32 output, on the tensor cores
+    (:class:`_MatmulF32`); elsewhere the operands are widened to f32,
+    which is exact, so both compute the same products and f32 sums."""
+    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+        return _MatmulF32.apply(x, w)
     return torch.matmul(x.float(), w.float())
 
 
@@ -182,14 +223,69 @@ def _dense_ffn(x, w1, w2):
     return h.to(x.dtype) @ w2
 
 
+def _layer(cfg, x, ln1, wq, wk, wv, wo, ln2, w1, w2):
+    h = x + _attention(cfg, _rms_norm(x, ln1), wq, wk, wv, wo)
+    return h + _dense_ffn(_rms_norm(h, ln2), w1, w2)
+
+
 def _stage_fn(cfg, params_stage, x):
-    """This stage's layers over x (weights stacked on the layer axis)."""
+    """This stage's layers over x (weights stacked on the layer axis),
+    a Python loop in place of ``lax.scan``.  When the call is
+    differentiated and ``cfg.remat`` names a policy, each layer runs
+    under :func:`~mxtpu_torch.executor.apply_remat`; without a gradient
+    remat has nothing to save and the layers run as they are."""
+    layer = functools.partial(_layer, cfg)
+    if cfg.remat != "none" and torch.is_grad_enabled():
+        layer = apply_remat(layer, cfg.remat)
     for i in range(params_stage["wq"].shape[0]):
-        lw = {name: w[i] for name, w in params_stage.items()}
-        h = x + _attention(cfg, _rms_norm(x, lw["ln1"]), lw["wq"],
-                           lw["wk"], lw["wv"], lw["wo"])
-        x = h + _dense_ffn(_rms_norm(h, lw["ln2"]), lw["w1"], lw["w2"])
+        x = layer(x, *(params_stage[name][i] for name in _LAYER_PARAMS))
     return x
+
+
+def _embed(cfg, params, tokens):
+    """Token plus position embedding of tokens [B, T] (a long tensor),
+    in the param dtype, cast to ``cfg.dtype``.  A token outside
+    [0, vocab) embeds as zeros, as the JAX package's vocab-sharded
+    lookup does; its gradient is a scatter-add into ``embed`` in the
+    param dtype (JAX's gather transpose)."""
+    T = tokens.shape[1]
+    if T > cfg.max_len:
+        raise MXNetError("sequence length %d exceeds max_len %d"
+                         % (T, cfg.max_len))
+    valid = (tokens >= 0) & (tokens < cfg.vocab)
+    emb = params["embed"][tokens.clamp(0, cfg.vocab - 1)]
+    emb = torch.where(valid[..., None], emb, torch.zeros_like(emb))
+    return (emb + params["pos"][:T][None]).to(cfg.torch_dtype)
+
+
+def _logits(cfg, params, tokens, n_micro=1):
+    """The model on tokens [B, T]: logits [B, T, V] in the config's
+    dtype.  The batch runs through the layer stack in ``n_micro``
+    microbatches, one after another (the JAX pipeline loop at pp = 1)."""
+    B = tokens.shape[0]
+    if B % n_micro:
+        raise MXNetError("local batch %d %% n_micro %d" % (B, n_micro))
+    x = _embed(cfg, params, tokens)
+    stage = {name: params[name][0] for name in _LAYER_PARAMS}
+    mb = B // n_micro
+    h = torch.cat([_stage_fn(cfg, stage, x[i * mb:(i + 1) * mb])
+                   for i in range(n_micro)])
+    return _rms_norm(h, params["ln_f"]) @ params["unembed"]
+
+
+def _xent(logits, labels):
+    """Softmax cross-entropy per row, ``_sharded_xent`` at tp = 1:
+    logits [N, V] widened to f32, the logsumexp shifted by the row max
+    (held constant for the gradient, as JAX's stop_gradient does), minus
+    the label's logit; a label outside [0, V) picks no logit."""
+    lg = logits.float()
+    V = lg.shape[-1]
+    gmax = lg.max(-1).values.detach()
+    lse = torch.log(torch.exp(lg - gmax[:, None]).sum(-1)) + gmax
+    in_range = (labels >= 0) & (labels < V)
+    label_logit = lg.gather(1, labels.clamp(0, V - 1)[:, None])[:, 0]
+    return lse - torch.where(in_range, label_logit,
+                             torch.zeros_like(label_logit))
 
 
 def _set_matmul_numerics():
@@ -214,21 +310,142 @@ def make_forward(cfg: TransformerConfig, device=None):
         if dev.type == "cuda":
             _set_matmul_numerics()
         with torch.inference_mode():
-            tokens = torch.as_tensor(tokens, device=dev).long()
-            B, T = tokens.shape
-            if T > cfg.max_len:
-                raise MXNetError("sequence length %d exceeds max_len %d"
-                                 % (T, cfg.max_len))
-            embed = params["embed"]
-            valid = (tokens >= 0) & (tokens < cfg.vocab)
-            emb = embed[tokens.clamp(0, cfg.vocab - 1)]
-            emb = torch.where(valid[..., None], emb, torch.zeros_like(emb))
-            x = (emb + params["pos"][:T][None]).to(cfg.torch_dtype)
-            stage = {k: params[k][0] for k in params
-                     if params[k].dim() >= 3 and k not in
-                     ("embed", "pos", "unembed")}
-            x = _stage_fn(cfg, stage, x)
-            h = _rms_norm(x, params["ln_f"])
-            return h @ params["unembed"]
+            return _logits(cfg, params,
+                           torch.as_tensor(tokens, device=dev).long())
 
     return fwd
+
+
+def _build_loss_fn(cfg: TransformerConfig, n_micro: int):
+    """loss(params, tokens, labels): the mean next-token nll over the
+    B * T positions, f32 scalar (``_build_loss_fn`` at pp = tp = sp =
+    ep = dp = 1)."""
+    def loss_fn(params, tokens, labels):
+        logits = _logits(cfg, params, tokens, n_micro)
+        B, T, V = logits.shape
+        return _xent(logits.reshape(B * T, V), labels.reshape(B * T)).mean()
+
+    return loss_fn
+
+
+def _loss_and_grads(cfg, n_micro):
+    """fn(params, tokens, labels) -> (loss, {name: gradient}): the loss
+    and its gradients with respect to every parameter, in the param
+    dtypes.  The parameters themselves are not marked: the gradients
+    are taken through detached aliases of them."""
+    loss_fn = _build_loss_fn(cfg, n_micro)
+
+    def loss_and_grads(params, tokens, labels):
+        leaves = {n: p.detach().requires_grad_(True)
+                  for n, p in params.items()}
+        loss = loss_fn(leaves, tokens, labels)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
+
+    return loss_and_grads
+
+
+@torch.no_grad()
+def _update(params, opt_state, grads, optimizer, lr, betas=(0.9, 0.999),
+            eps=1e-8):
+    """SGD (``_build_device_step``) or Adam (``_build_adam_zero1_step``
+    at dp = 1) in place.  Gradients are cast to f32; the update is
+    ``(p.float() - delta).to(p.dtype)``; Adam's moments are f32 and its
+    bias corrections use t + 1."""
+    if optimizer == "adam":
+        b1, b2 = betas
+        t = opt_state["t"] + 1.0
+        bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+    for name, g in grads.items():
+        p, g32 = params[name], g.float()
+        if optimizer == "sgd":
+            delta = lr * g32
+        else:
+            m, v = opt_state["m"][name], opt_state["v"][name]
+            m.copy_(b1 * m + (1.0 - b1) * g32)
+            v.copy_(b2 * v + (1.0 - b2) * g32 * g32)
+            delta = lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        p.copy_((p.float() - delta).to(p.dtype))
+    if optimizer == "adam":
+        opt_state["t"].copy_(t)
+
+
+def _make_step_common(cfg, device, n_micro, lr, optimizer, betas, eps,
+                      k_steps):
+    """Shared plumbing of :func:`make_train_step` and
+    :func:`make_fused_train_steps`: builds the device step (looped
+    ``k_steps`` times when k_steps is not None) and returns
+    (step, info)."""
+    if optimizer not in ("sgd", "adam"):
+        raise MXNetError("optimizer must be 'sgd' or 'adam' (got %r)"
+                         % (optimizer,))
+    dev = resolve(device)
+    loss_and_grads = _loss_and_grads(cfg, int(n_micro))
+
+    def device_step(params, opt_state, tokens, labels):
+        loss, grads = loss_and_grads(params, tokens, labels)
+        _update(params, opt_state, grads, optimizer, lr, betas, eps)
+        return loss
+
+    def run(params, opt_state, tokens, labels):
+        """Parameters, moments and t are updated in place (JAX donates
+        them); returns the loss or the K losses."""
+        if dev.type == "cuda":
+            _set_matmul_numerics()
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        labels = torch.as_tensor(labels, device=dev).long()
+        if k_steps is None:
+            return device_step(params, opt_state, tokens, labels)
+        return torch.stack([device_step(params, opt_state, tokens[i],
+                                        labels[i]) for i in range(k_steps)])
+
+    if optimizer == "sgd":
+        def step(params, tokens, labels):
+            return params, run(params, None, tokens, labels)
+    else:
+        def step(params, opt_state, tokens, labels):
+            loss = run(params, opt_state, tokens, labels)
+            return params, opt_state, loss
+    info = {"device": dev, "optimizer": optimizer, "n_micro": int(n_micro),
+            "k_steps": k_steps}
+    return step, info
+
+
+def make_train_step(cfg: TransformerConfig, device=None, n_micro: int = 1,
+                    lr: float = 1e-2, optimizer: str = "sgd",
+                    betas=(0.9, 0.999), eps: float = 1e-8):
+    """Training step on ``device`` (default the card).
+
+    optimizer="sgd" (default): (params, tokens, labels) ->
+    (params, loss).
+
+    optimizer="adam": (params, opt_state, tokens, labels) ->
+    (params, opt_state, loss), with :func:`init_opt_state` building the
+    moments.  tokens/labels are [B, T] int arrays or tensors; the loss
+    is an f32 scalar tensor on the device.  Parameters and optimizer
+    state are updated in place and returned (JAX donates them), so the
+    caller's dicts hold the new values.  Returns (step, info)."""
+    return _make_step_common(cfg, device, n_micro, lr, optimizer, betas,
+                             eps, k_steps=None)
+
+
+def make_fused_train_steps(cfg: TransformerConfig, k_steps: int,
+                           device=None, n_micro: int = 1, lr: float = 1e-2,
+                           optimizer: str = "adam", betas=(0.9, 0.999),
+                           eps: float = 1e-8):
+    """K training steps in one call (JAX's ``lax.scan`` over steps is a
+    Python loop here).  Data arrives stacked: tokens/labels are
+    [K, B, T].
+
+    adam: (params, opt_state, toks_stack, labs_stack) ->
+    (params, opt_state, losses[K]).
+    sgd:  (params, toks_stack, labs_stack) -> (params, losses[K]).
+    Updates in place, as :func:`make_train_step`.  Returns
+    (step, info)."""
+    k_steps = int(k_steps)
+    if k_steps < 1:
+        raise MXNetError("make_fused_train_steps: k_steps must be >= 1 "
+                         "(got %d): a zero-length loop would train "
+                         "nothing" % k_steps)
+    return _make_step_common(cfg, device, n_micro, lr, optimizer, betas,
+                             eps, k_steps=k_steps)

@@ -1,6 +1,7 @@
 """The PyTorch port's flash-attention forward
 (`mxtpu_torch/ops/flash_attention.py`) against the JAX package's
-(`mxtpu/ops/pallas_attention.py`).
+(`mxtpu/ops/pallas_attention.py`), and the wrappers of all three CUDA
+kernels (the backward's numerics: `test_torch_flash_backward.py`).
 
 The same numpy inputs go through the Pallas kernel in interpreter mode
 (as `tests/test_pallas_attention.py` runs it on the CPU) and through the
@@ -8,7 +9,7 @@ port on the CPU, which takes the plain PyTorch version; O and the LSE
 are compared at the bounds `test_pallas_attention.py` holds the kernel
 to (f32 rtol 2e-4 / atol 2e-5, bf16 0.05).  The CUDA kernel itself runs
 only on the card: `chip_smoke.py` holds it against the plain version
-there.  Its argument checks run here, on CPU tensors.
+there.  The wrappers' argument checks run here, on CPU tensors.
 """
 import numpy as np
 import pytest
@@ -174,9 +175,26 @@ def test_plain_version_matches_jax_reference():
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **F32_TOL)
 
 
+KERNELS = {"flash_fwd": tfa.FLASH_FWD, "flash_bwd_dq": tfa.FLASH_BWD_DQ,
+           "flash_bwd_dkv": tfa.FLASH_BWD_DKV}
+
+
+def _wrapper_checks(kernel, q, k, v, g=None, out=None, lse=None):
+    """The argument checks the wrapper launching `kernel` makes: the
+    forward's, or the backward's (shared by its two kernels) with a
+    cotangent, an output and an LSE that fit q unless given."""
+    if kernel == "flash_fwd":
+        return tfa._check_kernel_args(q, k, v)
+    g = q.clone() if g is None else g
+    out = q.clone() if out is None else out
+    lse = torch.zeros(q.shape[:2]) if lse is None else lse
+    return tfa._check_bwd_args(q, k, v, g, out, lse)
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
 @pytest.mark.parametrize("bad", ["strided", "misaligned", "float16", "mixed",
                                  "head_dim", "mismatch", "empty", "rank"])
-def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
+def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad, kernel):
     q, k, v = _port(*_qkv((2, 64, 32), 64, seed=2))
     if bad == "strided":
         q = q.transpose(0, 1).contiguous().transpose(0, 1)
@@ -196,25 +214,56 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "rank":
         q = q[None]
     with pytest.raises(MXNetError):
-        tfa._check_kernel_args(q, k, v)
+        _wrapper_checks(kernel, q, k, v)
 
 
-def test_kernel_launcher_refuses_cpu_tensors():
-    """The CUDA launcher never computes on the CPU: the plain version is
-    reached only through `_flash_impl`'s routing, for CPU tensors."""
+@pytest.mark.parametrize("bad", ["g_strided", "g_dtype", "out_shape",
+                                 "out_misaligned", "lse_dtype", "lse_shape"])
+def test_backward_wrapper_rejects_bad_cotangent_output_or_lse(bad):
+    """The backward kernels also read g and O like q, and the LSE as a
+    contiguous (bh, Tq) float32 array."""
     q, k, v = _port(*_qkv((2, 64, 32), 64, seed=2))
-    before = tfa.FLASH_FWD.launches
+    _wrapper_checks("flash_bwd_dq", q, k, v)  # the good arguments pass
+    g = out = lse = None
+    if bad == "g_strided":
+        g = q.transpose(0, 1).contiguous().transpose(0, 1)
+    elif bad == "g_dtype":
+        g = q.to(torch.bfloat16)
+    elif bad == "out_shape":
+        out = q[:, :32].contiguous()
+    elif bad == "out_misaligned":
+        out = torch.zeros(q.numel() + 1)[1:].view(q.shape)
+    elif bad == "lse_dtype":
+        lse = torch.zeros(2, 64, dtype=torch.float64)
+    elif bad == "lse_shape":
+        lse = torch.zeros(2, 64, 1)
+    with pytest.raises(MXNetError):
+        _wrapper_checks("flash_bwd_dkv", q, k, v, g, out, lse)
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_kernel_launcher_refuses_cpu_tensors(kernel):
+    """The CUDA launchers never compute on the CPU: the plain versions
+    are reached only through the routing (`_flash_impl`, the autograd
+    Function's backward), for CPU tensors."""
+    q, k, v = _port(*_qkv((2, 64, 32), 64, seed=2))
+    before = {name: kern.launches for name, kern in KERNELS.items()}
     with pytest.raises(MXNetError, match="CUDA"):
-        tfa._flash_forward_cuda(q, k, v, 0.2, True, False)
-    assert tfa.FLASH_FWD.launches == before
+        if kernel == "flash_fwd":
+            tfa._flash_forward_cuda(q, k, v, 0.2, True, False)
+        else:
+            tfa._flash_backward_cuda(q, k, v, q.clone(), q.clone(),
+                                     torch.zeros(2, 64), 0.2, True)
+    assert {name: kern.launches for name, kern in KERNELS.items()} == before
 
 
-def test_launch_counter_counts_successful_launches_only():
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_launch_counter_counts_successful_launches_only(kernel):
     """`CudaKernel` raises on a non-zero CUDA error from its C entry
     point and counts only the launches that returned 0."""
     from mxtpu_torch.ops.kernel_build import CudaKernel
 
-    kern = CudaKernel("flash_fwd.cu", "flash_fwd", [])
+    kern = CudaKernel(KERNELS[kernel].source, KERNELS[kernel].symbol, [])
     codes = iter([0, 700, 0])
     kern._fn = lambda *args: next(codes)
     kern(1, 2)
@@ -226,9 +275,9 @@ def test_launch_counter_counts_successful_launches_only():
 
 def test_build_reuses_the_library_of_an_unchanged_source(tmp_path,
                                                          monkeypatch):
-    """The library's name hashes the source and the flags: an existing
-    one is reused without nvcc, and a missing one with no nvcc raises
-    typed."""
+    """The library's name hashes the source, the shared headers and the
+    flags: an existing one is reused without nvcc, a missing one with no
+    nvcc raises typed, and an edited header changes the name."""
     import hashlib
 
     from mxtpu_torch.ops import kernel_build as kb
@@ -239,8 +288,20 @@ def test_build_reuses_the_library_of_an_unchanged_source(tmp_path,
     monkeypatch.setattr(kb.os.path, "isfile", lambda p: False)
     with pytest.raises(MXNetError, match="nvcc not found"):
         kb.build("flash_fwd.cu")
-    key = hashlib.sha256((kb.CSRC / "flash_fwd.cu").read_bytes()
-                         + " ".join(kb.NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = sorted(kb.CSRC.glob("*.cuh"))
+    assert [h.name for h in headers] == ["mma_bf16.cuh"]
+    text = (kb.CSRC / "flash_fwd.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in headers)
+    key = hashlib.sha256(text + " ".join(kb.NVCC_FLAGS).encode()) \
+        .hexdigest()[:16]
     lib = tmp_path / ("flash_fwd-%s.so" % key)
     lib.write_bytes(b"")
     assert kb.build("flash_fwd.cu") == (lib, "")
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in kb.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(kb, "CSRC", csrc)
+    assert kb.library_key("flash_fwd.cu") == key
+    (csrc / "mma_bf16.cuh").write_bytes(b"// edited\n")
+    assert kb.library_key("flash_fwd.cu") != key

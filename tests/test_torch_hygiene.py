@@ -74,6 +74,10 @@ def test_entry_points_without_a_device_need_a_card(monkeypatch):
     for call in (lambda: ttf.init_params(cfg),
                  lambda: ttf.make_forward(cfg),
                  lambda: ttf.params_from_jax({}, cfg),
+                 lambda: ttf.init_opt_state(cfg),
+                 lambda: ttf.make_train_step(cfg),
+                 lambda: ttf.make_train_step(cfg, optimizer="adam"),
+                 lambda: ttf.make_fused_train_steps(cfg, 2),
                  lambda: tmesh.create_mesh(),
                  lambda: context.resolve("cuda")):
         with pytest.raises(MXNetError, match="no CUDA device"):
