@@ -8,28 +8,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. build   -- compile the flash-attention kernels
    (``mxtpu_torch/ops/csrc/flash_fwd.cu`` and ``flash_bwd.cu``, one nvcc
-   each, started together) for sm_90a; prints each build's seconds and
-   the compiler's register and spill lines.
+   each, started together) for sm_90a; prints each build's seconds, the
+   compiler's register and spill lines and its notes of a performance
+   loss (``kernel_build.ptxas_summary``).
 2. kernel  -- hold each kernel against its plain PyTorch version on the
    card at the served and trained shape (64, 1024, 128) bf16 causal,
    and in f32 and bf16 at (6, 384, 64) causal and not, at the ragged
-   (2, 100, 32) x (2, 90, 32) causal and not, and at (3, 130, 16)
-   causal.  Forward, with and without the LSE: f32 rtol 2e-4 / atol
-   2e-5, the bounds tests/test_pallas_attention.py holds the TPU kernel
-   to; bf16 one ulp of a probability plus one of the output, atol 2e-3
-   / rtol 2^-6 of ``error_scale``, a relative L2 error of at most 1e-2,
-   and that file's 0.05 (alone too loose: a typical output at the
-   served shape is about that size).  Backward (dq from
-   ``flash_bwd_dq``, dk and dv from ``flash_bwd_dkv``, with a random
-   cotangent): f32 rtol 2e-3 / atol 2e-4, that file's multiblock
-   gradient bounds; bf16 atol 2e-3 / rtol 2^-6 of the sum before it
-   cancels (``bwd_error_scales``) and a relative L2 error of at most
-   1e-2 on each gradient.  Prints the kernels' and the plain versions'
-   times, the least time the card could take (bound), and at the
-   served shape ``torch.nn.functional.scaled_dot_product_attention``'s
-   forward, and its backward, as yardsticks the port never calls (their
-   device time under torch.profiler, which a slow host does not
-   inflate).
+   (2, 100, 32) x (2, 90, 32) causal and not, at (3, 130, 16) causal,
+   and at d = 128 with partial 128-row tiles: (4, 1000, 128) causal and
+   (2, 200, 128) x (2, 330, 128) not.  Forward, with and without the
+   LSE: f32 rtol 2e-4 / atol 2e-5, the bounds
+   tests/test_pallas_attention.py holds the TPU kernel to; bf16 one ulp
+   of a probability plus one of the output, atol 2e-3 / rtol 2^-6 of
+   ``error_scale``, a relative L2 error of at most 1e-2, and that file's
+   0.05 (alone too loose: a typical output at the served shape is about
+   that size).  Backward (dq from ``flash_bwd_dq``, dk and dv from
+   ``flash_bwd_dkv``, with a random cotangent): f32 rtol 2e-3 / atol
+   2e-4, that file's multiblock gradient bounds; bf16 atol 2e-3 / rtol
+   2^-6 of the sum before it cancels (``bwd_error_scales``) and a
+   relative L2 error of at most 1e-2 on each gradient.  Prints each
+   kernel's time as a CUDA-event loop around its wrapper (``ms``) and as
+   the card's busy time under torch.profiler (``device_ms``, which a slow
+   host does not inflate), the plain versions' times, the least time the
+   card could take (bound), and at the served shape
+   ``torch.nn.functional.scaled_dot_product_attention``'s forward, and
+   its backward, as yardsticks the port never calls (device time), with
+   the forward's ratio to SDPA's on device time.
 3. serve   -- the full-width TransformerLM (vocab 8192, d_model 1024,
    8 heads, 8 layers, d_ff 4096, T 1024, bf16; random weights from seed
    0) hosted in ``mxtpu_torch.serve.Server`` as a next-token server
@@ -61,14 +65,27 @@ The line before the last is the card's name and power limit, the line
 before that the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
+
+Options (none by default): ``--baseline DIR`` also builds the forward
+kernel of the checkout
+DIR (such as the parent commit unpacked by ``git archive``) and times it
+against this one at the served shape, in turns, on device time;
+``--fault-run`` builds copies of the sources with planted faults
+(``MUTANTS``) in a temporary directory and runs the forward check on
+each and on the committed kernel, which alone must pass; ``--ablate``
+times the forward kernel against copies with a part taken out or a
+choice undone (``ABLATIONS``), in turns, on device time.
 """
+import argparse
 import dataclasses
 import json
-import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -98,6 +115,7 @@ if not torch.cuda.is_available():
 
 from mxtpu_torch import serve  # noqa: E402
 from mxtpu_torch.ops import flash_attention as fa  # noqa: E402
+from mxtpu_torch.ops import kernel_build as kb  # noqa: E402
 from mxtpu_torch.parallel import transformer as tf  # noqa: E402
 
 KERNELS = {"flash_fwd": fa.FLASH_FWD, "flash_bwd_dq": fa.FLASH_BWD_DQ,
@@ -258,25 +276,7 @@ def phase_build():
         log("[build] %s built and loaded in %.2f s; registers a thread "
             "and spill stores by kernel (-Xptxas -v): %s"
             % (kern.source, secs[kern.source],
-               ", ".join(ptxas_summary(kern.build_log))))
-
-
-def ptxas_summary(build_log):
-    """'path<d[,mode]> R regs, spill S' per kernel from ptxas's lines
-    (tc = the bf16 tensor-core path, f32 = the CUDA-core path)."""
-    out, name, spill = [], None, "?"
-    for line in build_log.splitlines():
-        m = re.search(r"(tc|f32)6kernelILi(\d+)E(Lb([01])E)?", line)
-        if "Compiling entry" in line and m:
-            name = "%s<%s%s>" % (m.group(1), m.group(2),
-                                 {"1": ",dkv", "0": ",dq"}.get(m.group(4), ""))
-        elif name and "spill stores" in line:
-            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
-        elif name and "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            out.append("%s %s regs, spill %s" % (name, regs, spill))
-            name, spill = None, "?"
-    return out
+               "; ".join(kb.ptxas_summary(kern.build_log))))
 
 
 def check_backward(q, k, v, out, lse, scale, causal, gen):
@@ -313,9 +313,9 @@ def check_backward(q, k, v, out, lse, scale, causal, gen):
     recs = {}
     for name, outs, grads in (("flash_bwd_dq", (dq,), ("dq",)),
                               ("flash_bwd_dkv", (dk, dv), ("dk", "dv"))):
-        ms = time_ms(lambda: fa._bwd_launch(
-            KERNELS[name], q, k, v, g, lse, delta, outs, scale, causal),
-            iters)
+        launch = (lambda name=name, outs=outs: fa._bwd_launch(
+            KERNELS[name], q, k, v, g, lse, delta, outs, scale, causal))
+        ms, dev = time_ms(launch, iters), device_ms(launch, iters)
         bms, bound_by = backward_bound_ms(name, bh, tq, tk, d, dtype,
                                           causal)
         e = [errs[n] for n in grads]
@@ -324,7 +324,8 @@ def check_backward(q, k, v, out, lse, scale, causal, gen):
             dtype=str(dtype).replace("torch.", ""), causal=causal,
             grads={n: errs[n] for n in grads},
             max_abs_err=max(x["max_abs_err"] for x in e),
-            ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bms,
+            ms=ms, device_ms=dev, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+            bound_ms=bms,
             bound_by=bound_by, library_ms=None)
     if (bh, tq, d) == SERVED:
         # SDPA's backward (dq, dk, dv in one call): fwd + bwd minus fwd,
@@ -346,62 +347,100 @@ def check_backward(q, k, v, out, lse, scale, causal, gen):
     return recs
 
 
+def make_case(shape, tk, dtype, gen):
+    """q (bh, tq, d), k and v (bh, tk, d), normal, on the card."""
+    bh, tq, d = shape
+    return [torch.randn(bh, t, d, device="cuda", generator=gen).to(dtype)
+            for t in (tq, tk, tk)]
+
+
+def reference(q, k, v, scale, causal):
+    """The plain version's output and LSE, and the scale each output
+    element's bound is taken against (|o| in f32, the sum before it
+    cancels in bf16)."""
+    ref_o, ref_l = fa._reference_attention_lse(q, k, v, scale, causal)
+    base = ref_o.float().abs() if q.dtype == torch.float32 else \
+        error_scale(q, k, v, scale, causal, ref_l)
+    return ref_o, ref_l, base
+
+
+def check_forward(q, k, v, scale, causal, want_lse, ref):
+    """One launch of the forward kernel (``fa.FLASH_FWD``) against the
+    plain version ``ref`` (from ``reference``); returns its errors and
+    whether they keep to the bounds."""
+    ref_o, ref_l, base = ref
+    dtype = q.dtype
+    o, lse = fa._flash_forward_cuda(q, k, v, scale, causal, want_lse)
+    torch.cuda.synchronize()
+    d_o = o.float() - ref_o.float()
+    err = d_o.abs()
+    over = (err / (TOL[dtype]["atol"] + TOL[dtype]["rtol"] * base)).max().item()
+    rel_l2 = (d_o.norm() / ref_o.float().norm()).item()
+    # bf16 also keeps to the 0.05 bound of the TPU tests
+    over_005 = (err / (0.05 + 0.05 * ref_o.float().abs())).max().item()
+    ok = over <= 1.0 and (dtype != torch.bfloat16 or (
+        rel_l2 <= BF16_REL_L2 and over_005 <= 1.0))
+    err_lse = 0.0
+    if want_lse:
+        el = (lse - ref_l).abs()
+        err_lse = el.max().item()
+        ok = ok and torch.all(el <= 2e-5 + 2e-4 * ref_l.abs()).item()
+    return dict(max_abs_err=err.max().item(), err_over_tol=over,
+                rel_l2=rel_l2, err_over_0_05=over_005,
+                max_abs_err_lse=err_lse), bool(ok)
+
+
+class use_forward(object):
+    """Within the block, ``fa._flash_forward_cuda`` launches ``kernel``
+    (another build of ``flash_fwd``) in place of ``fa.FLASH_FWD``."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+
+    def __enter__(self):
+        self.saved, fa.FLASH_FWD = fa.FLASH_FWD, self.kernel
+
+    def __exit__(self, *exc):
+        fa.FLASH_FWD = self.saved
+
+
 def phase_kernel():
     """Kernels vs plain on the card; returns the served/trained shape's
     record of each kernel."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     # the served and trained shape, then each path (f32 on the CUDA
-    # cores, bf16 on the tensor cores) at smaller head dims and ragged
-    # lengths
+    # cores, bf16 on wgmma at d 64 and 128, on mma.sync at d 16 and 32)
+    # at smaller head dims and ragged lengths; at d = 128, partial tiles
+    # of 128 rows and keys, so the second 64-column box meets a ragged edge
     cases = [(SERVED, 1024, torch.bfloat16, True)] + [
         (shape, tk, dtype, causal)
         for dtype in (torch.float32, torch.bfloat16)
         for shape, tk, causals in (((6, 384, 64), 384, (False, True)),
                                    ((2, 100, 32), 90, (False, True)),
-                                   ((3, 130, 16), 130, (True,)))
+                                   ((3, 130, 16), 130, (True,)),
+                                   ((4, 1000, 128), 1000, (True,)),
+                                   ((2, 200, 128), 330, (False,)))
         for causal in causals]
     records = {}
     for (bh, tq, d), tk, dtype, causal in cases:
-        q = torch.randn(bh, tq, d, device="cuda", generator=gen).to(dtype)
-        k = torch.randn(bh, tk, d, device="cuda", generator=gen).to(dtype)
-        v = torch.randn(bh, tk, d, device="cuda", generator=gen).to(dtype)
+        q, k, v = make_case((bh, tq, d), tk, dtype, gen)
         scale = d ** -0.5
-        ref_o, ref_l = fa._reference_attention_lse(q, k, v, scale, causal)
-        base = ref_o.float().abs() if dtype == torch.float32 else \
-            error_scale(q, k, v, scale, causal, ref_l)
+        ref = reference(q, k, v, scale, causal)
         for want_lse in (False, True):
-            o, lse = fa._flash_forward_cuda(q, k, v, scale, causal,
-                                            want_lse)
-            torch.cuda.synchronize()
-            d_o = o.float() - ref_o.float()
-            err = d_o.abs()
-            over = (err / (TOL[dtype]["atol"] + TOL[dtype]["rtol"]
-                           * base)).max().item()
-            rel_l2 = (d_o.norm() / ref_o.float().norm()).item()
-            # bf16 also keeps to the 0.05 bound of the TPU tests
-            over_005 = (err / (0.05 + 0.05 * ref_o.float().abs())).max().item()
-            ok = over <= 1.0 and (dtype != torch.bfloat16 or (
-                rel_l2 <= BF16_REL_L2 and over_005 <= 1.0))
-            err_lse = 0.0
-            if want_lse:
-                el = (lse - ref_l).abs()
-                err_lse = el.max().item()
-                ok = ok and torch.all(el <= 2e-5 + 2e-4 * ref_l.abs()).item()
+            errs, ok = check_forward(q, k, v, scale, causal, want_lse, ref)
             iters = 20 if tq >= 1024 else 50
-            ms = time_ms(lambda: fa._flash_forward_cuda(
-                q, k, v, scale, causal, want_lse), iters)
+            launch = (lambda want_lse=want_lse: fa._flash_forward_cuda(
+                q, k, v, scale, causal, want_lse))
+            ms, dev = time_ms(launch, iters), device_ms(launch, iters)
             plain_ms = time_ms(lambda: fa._reference_attention_lse(
                 q, k, v, scale, causal), 5)
             bound, bound_by = attention_bound_ms(bh, tq, tk, d, dtype,
                                                  causal, want_lse)
             rec = dict(shape="(%d,%d,%d)x(%d,%d,%d)" % (bh, tq, d, bh, tk, d),
                        dtype=str(dtype).replace("torch.", ""),
-                       causal=causal, lse=want_lse,
-                       max_abs_err=err.max().item(), err_over_tol=over,
-                       rel_l2=rel_l2, err_over_0_05=over_005,
-                       max_abs_err_lse=err_lse,
-                       ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                       bound_by=bound_by, library_ms=None)
+                       causal=causal, lse=want_lse, **errs,
+                       ms=ms, device_ms=dev, plain_ms=plain_ms,
+                       bound_ms=bound, bound_by=bound_by, library_ms=None)
             if (bh, tq, d) == SERVED and not want_lse:
                 b, h = 8, bh // 8
                 q4, k4, v4 = (t.view(b, h, tq, d) for t in (q, k, v))
@@ -411,13 +450,225 @@ def phase_kernel():
                 records["flash_fwd"] = rec
             if (bh, tq, d) == SERVED and want_lse:
                 records["flash_fwd_lse_ms"] = ms
+                records["flash_fwd_lse_device_ms"] = dev
             log("[kernel] " + json.dumps(rec))
             if not ok:
                 fail("kernel disagrees with the plain version: %s" % rec)
-        recs = check_backward(q, k, v, ref_o, ref_l, scale, causal, gen)
+        recs = check_backward(q, k, v, ref[0], ref[1], scale, causal, gen)
         if (bh, tq, d) == SERVED:
             records.update(recs)
+    fwd = records["flash_fwd"]
+    log("[kernel] flash_fwd at %s bf16 causal, device time: %.4f ms (with "
+        "the LSE %.4f), SDPA's forward %.4f ms: %.2fx SDPA; %.2fx the "
+        "bound %.4f ms (%s)"
+        % (fwd["shape"], fwd["device_ms"], records["flash_fwd_lse_device_ms"],
+           fwd["library_ms"], fwd["device_ms"] / fwd["library_ms"],
+           fwd["device_ms"] / fwd["bound_ms"], fwd["bound_ms"],
+           fwd["bound_by"]))
     return records
+
+
+def phase_baseline(root):
+    """The forward kernel of another checkout (``root``, such as the
+    parent commit unpacked by ``git archive``) against this one at the
+    served shape, on device time, in turns (baseline, this, this,
+    baseline), with and without the LSE; both are also held against the
+    plain version."""
+    csrc = Path(root) / "mxtpu_torch" / "ops" / "csrc"
+    tmp = Path(tempfile.mkdtemp(prefix="baseline-"))
+    other = kb.CudaKernel("flash_fwd.cu", "flash_fwd", fa.FLASH_FWD.argtypes,
+                          csrc=csrc, build_dir=tmp)
+    t0 = time.monotonic()
+    other.load()
+    log("[baseline] %s built in %.2f s: %s" % (
+        csrc / "flash_fwd.cu", time.monotonic() - t0,
+        "; ".join(kb.ptxas_summary(other.build_log))))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = make_case(SERVED, SERVED[1], torch.bfloat16, gen)
+    scale = SERVED[2] ** -0.5
+    ref = reference(q, k, v, scale, True)
+    for want_lse in (False, True):
+        times, errs = {"baseline": [], "this": []}, {}
+        for who in ("baseline", "this", "this", "baseline"):
+            with use_forward(other if who == "baseline" else fa.FLASH_FWD):
+                errs[who] = check_forward(q, k, v, scale, True, want_lse,
+                                          ref)
+                times[who].append(device_ms(lambda: fa._flash_forward_cuda(
+                    q, k, v, scale, True, want_lse), 50))
+        mean = {w: sum(t) / len(t) for w, t in times.items()}
+        log("[baseline] %s bf16 causal%s, device ms in turns (baseline, "
+            "this, this, baseline): %s; baseline %.4f, this %.4f: %.2fx "
+            "faster; errors %s"
+            % (SERVED, " with the LSE" if want_lse else "", json.dumps(
+                [times["baseline"][0], times["this"][0], times["this"][1],
+                 times["baseline"][1]]), mean["baseline"], mean["this"],
+               mean["baseline"] / mean["this"], json.dumps(errs)))
+        if not all(ok for _, ok in errs.values()):
+            fail("baseline: a forward disagrees with the plain version")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+# Faults planted in copies of the sources by phase_fault_run: each is a
+# list of (file, text, replacement), and the text must occur exactly once.
+MUTANTS = {
+    "key tile 4 skipped": [
+        ("flash_fwd.cu", "      fence_regs(sacc);\n      {\n",
+         "      fence_regs(sacc);\n      if (n_tiles - 1 == 4)\n"
+         "        for (int i = 0; i < BK / 2; ++i) sacc[i] = -INFINITY;\n"
+         "      {\n"),
+        ("flash_fwd.cu",
+         "        fence_regs(sacc);\n        softmax_step(sacc, m, l, alpha, "
+         "abs_scale);\n",
+         "        fence_regs(sacc);\n        if (n_tiles - 1 - j == 4)\n"
+         "          for (int i = 0; i < BK / 2; ++i) sacc[i] = -INFINITY;\n"
+         "        softmax_step(sacc, m, l, alpha, abs_scale);\n")],
+    "K box 1 never loaded or read": [
+        ("flash_fwd.cu", "mbar_arrive_expect_tx(&full_k[s], T::KV_BYTES);",
+         "mbar_arrive_expect_tx(&full_k[s], T::KV_BOX);"),
+        ("flash_fwd.cu", "tma_load_3d(sk + ", "if (b == 0) tma_load_3d(sk + "),
+        ("flash_fwd.cu", "for (int kk = 0; kk < D / 16; ++kk) {",
+         "for (int kk = 0; kk < 4; ++kk) {")],
+    "V transpose bit cleared": [
+        ("flash_fwd.cu", "constexpr int V_TRANS = 1;",
+         "constexpr int V_TRANS = 0;")],
+}
+FAULT_CASES = [(SERVED, SERVED[1], True), ((4, 1000, 128), 1000, True),
+               ((2, 200, 128), 330, False)]
+# Copies of the forward kernel with one part taken out or one choice
+# undone, timed against it by phase_ablate (same form as MUTANTS): where
+# the committed kernel's time goes.  Those without a product or the
+# softmax compute garbage.
+HEAVIEST_FIRST = "const Item item((w % n_bh) * n_qt + w / n_bh, n_qt, tk, causal);"
+ABLATIONS = {
+    "no wgmma (loads, softmax)": [
+        ("flash_fwd.cu", "    wgmma_rs<V_TRANS>(oacc, pa[kk],",
+         "    if (false) wgmma_rs<V_TRANS>(oacc, pa[kk],"),
+        ("flash_fwd.cu", "    wgmma_ss<SIGN>(\n", "    if (false) wgmma_ss<SIGN>(\n")],
+    "no softmax (loads, products)": [
+        ("flash_fwd.cu", "        softmax_step(sacc, m, l, alpha, abs_scale);\n"
+         "        pack_p(pa, sacc);\n      }\n", "      }\n")],
+    "loads only": [
+        ("flash_fwd.cu", "    wgmma_rs<V_TRANS>(oacc, pa[kk],",
+         "    if (false) wgmma_rs<V_TRANS>(oacc, pa[kk],"),
+        ("flash_fwd.cu", "    wgmma_ss<SIGN>(\n", "    if (false) wgmma_ss<SIGN>(\n"),
+        ("flash_fwd.cu", "        softmax_step(sacc, m, l, alpha, abs_scale);\n"
+         "        pack_p(pa, sacc);\n      }\n", "      }\n")],
+    "items heaviest first across heads": [
+        ("flash_fwd.cu", "        const Item item(w, n_qt, tk, causal);",
+         "        " + HEAVIEST_FIRST),
+        ("flash_fwd.cu", "      const Item item(w, n_qt, tk, causal);",
+         "      " + HEAVIEST_FIRST)],
+    "no ping-pong": [
+        ("flash_fwd.cu",
+         "      if (cw == 1 && n_tiles > 1) named_arrive(1, 256);\n", ""),
+        ("flash_fwd.cu",
+         "        named_sync(1 + cw, 256);  // this warpgroup's turn\n", ""),
+        ("flash_fwd.cu",
+         "        if (cw == 0 || j < n_tiles - 1) named_arrive(2 - cw, 256);\n",
+         "")],
+}
+
+
+def mutant_kernel(edits, tmp):
+    """``flash_fwd`` built from a copy of the sources under ``tmp`` with
+    ``edits`` applied."""
+    csrc = tmp / "csrc"
+    shutil.copytree(kb.CSRC, csrc)
+    for name, text, replacement in edits:
+        src = (csrc / name).read_text()
+        if src.count(text) != 1:
+            fail("fault run: %r occurs %d times in %s"
+                 % (text, src.count(text), name))
+        (csrc / name).write_text(src.replace(text, replacement))
+    return kb.CudaKernel("flash_fwd.cu", "flash_fwd", fa.FLASH_FWD.argtypes,
+                         csrc=csrc, build_dir=tmp / "build")
+
+
+def build_copies(named_edits, prefix):
+    """``flash_fwd`` built from copies of the sources, one for each
+    (name, edits) of ``named_edits`` (see ``mutant_kernel``), started
+    together; returns ({name: kernel}, the temporary directory)."""
+    tmp = Path(tempfile.mkdtemp(prefix=prefix))
+    kernels = {name: mutant_kernel(edits, tmp / ("c%d" % i))
+               for i, (name, edits) in enumerate(named_edits.items())}
+    errors = []
+
+    def load(kern):
+        try:
+            kern.load()
+        except BaseException as e:
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=load, args=(k,))
+               for k in kernels.values()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        fail("%s: build failed: %s" % (prefix, errors))
+    return kernels, tmp
+
+
+def phase_fault_run():
+    """The forward check (``check_forward``) on the committed kernel and
+    on each of ``MUTANTS``, bf16 at ``FAULT_CASES``, with and without the
+    LSE: the committed kernel must pass every case and each mutant fail
+    at least one.  The copies are built in a temporary directory and
+    removed."""
+    mutants, tmp = build_copies(MUTANTS, "fault-run-")
+    kernels = dict({"as committed": fa.FLASH_FWD}, **mutants)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {name: [] for name in kernels}
+    for shape, tk, causal in FAULT_CASES:
+        q, k, v = make_case(shape, tk, torch.bfloat16, gen)
+        scale = shape[2] ** -0.5
+        ref = reference(q, k, v, scale, causal)
+        for want_lse in (False, True):
+            for name, kern in kernels.items():
+                with use_forward(kern):
+                    errs, ok = check_forward(q, k, v, scale, causal,
+                                             want_lse, ref)
+                results[name].append(dict(
+                    shape="%sx%d" % (shape, tk), causal=causal,
+                    lse=want_lse, err_over_tol=errs["err_over_tol"],
+                    rel_l2=errs["rel_l2"],
+                    max_abs_err_lse=errs["max_abs_err_lse"], ok=ok))
+    shutil.rmtree(tmp, ignore_errors=True)
+    verdict = {name: all(r["ok"] for r in rs) for name, rs in results.items()}
+    for name, rs in results.items():
+        log("[fault] %s: %s; %s" % (name, json.dumps(rs), "passes"
+                                    if verdict[name] else "fails"))
+    if not verdict["as committed"] or any(
+            verdict[name] for name in MUTANTS):
+        fail("fault run: the committed kernel must pass and every mutant "
+             "fail: %s" % verdict)
+
+
+def phase_ablate():
+    """The committed forward kernel and each of ``ABLATIONS`` at the
+    served shape (bf16, causal, no LSE), on device time, in turns (the
+    list, then the list reversed); prints each one's mean and whether it
+    still agrees with the plain version."""
+    copies, tmp = build_copies(ABLATIONS, "ablate-")
+    kernels = dict({"as committed": fa.FLASH_FWD}, **copies)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = make_case(SERVED, SERVED[1], torch.bfloat16, gen)
+    scale = SERVED[2] ** -0.5
+    ref = reference(q, k, v, scale, True)
+    times, right = {name: [] for name in kernels}, {}
+    for name in list(kernels) + list(reversed(list(kernels))):
+        with use_forward(kernels[name]):
+            right[name] = check_forward(q, k, v, scale, True, False, ref)[1]
+            times[name].append(device_ms(lambda: fa._flash_forward_cuda(
+                q, k, v, scale, True, False), 50))
+    shutil.rmtree(tmp, ignore_errors=True)
+    for name, t in times.items():
+        log("[ablate] %s: device ms %s, mean %.4f (%s the plain version)"
+            % (name, json.dumps(t), sum(t) / len(t),
+               "agrees with" if right[name] else "disagrees with"))
+    if not right["as committed"]:
+        fail("ablate: the committed kernel disagrees with the plain version")
 
 
 def breakdown(cfg, params, fwd, tokens):
@@ -736,13 +987,39 @@ def phase_train(kernel_records):
     return launches
 
 
+def parse_args():
+    ap = argparse.ArgumentParser(
+        description="Chip smoke test of mxtpu_torch on one H100; with no "
+        "arguments, every phase.")
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="also time the flash_fwd kernel of the checkout "
+                    "DIR against this one, in turns, on device time")
+    ap.add_argument("--fault-run", action="store_true",
+                    help="build and the fault run only: the forward check "
+                    "on the committed kernel and on mutated copies")
+    ap.add_argument("--ablate", action="store_true",
+                    help="build and the ablations only: the forward kernel "
+                    "against copies with a part taken out, on device time")
+    return ap.parse_args()
+
+
 def main():
+    args = parse_args()
     name_limit = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    log("[card] %s" % name_limit)
     phase_build()
+    if args.fault_run:
+        phase_fault_run()
+        return
+    if args.ablate:
+        phase_ablate()
+        return
     records = phase_kernel()
+    if args.baseline:
+        phase_baseline(args.baseline)
     served = phase_serve()
     trained = phase_train(records)
     sources = {"flash_fwd": ("flash_fwd.cu", 149),
@@ -759,8 +1036,9 @@ def main():
             replaces="mxtpu/ops/pallas_attention.py:%d" % line,
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
-            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
+            device_ms=rec["device_ms"], plain_ms=rec["plain_ms"],
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+            library_ms=rec["library_ms"]))
     log(json.dumps({"kernels": kernels}))
     log(name_limit)
     log(json.dumps({"ok": True, "device": {

@@ -10,37 +10,66 @@
 // final divide with l clamped at 1e-30, O in Q's dtype, and, when asked,
 // the per-row LSE = m + log(l) in f32 of shape (bh, Tq).
 //
-// Design for the GPU (not a block-by-block copy of the Pallas grid):
-//   * grid (bh, ceil(Tq / 64)); one block owns 64 query rows and loops
-//     over 64-row key tiles itself, so the running max, sum and
-//     accumulator never leave the block (the TPU kernel carried them in
-//     VMEM scratch across a sequential grid axis);
-//   * key tiles wholly above the causal diagonal are never loaded;
-//   * ragged Tq and Tk are masked in the kernel (rows past Tq are not
-//     written, keys past Tk score -1e30), so the caller pads nothing;
-//   * head dims 16, 32, 64 and 128.
-// Two paths, by dtype:
-//   * bf16 (the served path): tensor cores.  4 warps, 16 query rows a
-//     warp; both products are mma.sync m16n8k16 with bf16 operands and
-//     f32 accumulation, as the TPU kernel's native-dtype MXU products.
-//     S, P and O stay in registers: the S accumulator's layout is P's
-//     operand layout, so P is rounded to bf16 in place.  K/V tiles are
-//     double-buffered in shared memory by cp.async (the next tile loads
-//     while this one computes); V enters P V through ldmatrix.trans.
+// Design for the GPU (not a block-by-block copy of the Pallas grid): a
+// block owns a tile of query rows and loops over key tiles itself, so the
+// running max, sum and accumulator never leave the block (the TPU kernel
+// carried them in VMEM scratch across a sequential grid axis); key tiles
+// wholly above the causal diagonal are never loaded; ragged Tq and Tk are
+// handled in the kernel (rows past Tq are not written, keys past Tk score
+// as masked), so the caller pads nothing.  Head dims 16, 32, 64 and 128.
+// Three paths, chosen by dtype and head dim at compile time:
+//   * bf16, d = 64 and 128 (the served and trained path; namespace wg):
+//     warp-specialised wgmma.  A block of 384 threads owns 128 query rows
+//     at a time: one producer warpgroup (one thread of it issues every
+//     copy; the warpgroup gives up its registers with setmaxnreg) and two
+//     consumer warpgroups of 64 rows each.  Q and 128-key tiles of K and V
+//     come in by TMA (3-D tensor maps over (d, T, bh), 64-column boxes
+//     with the 128-byte swizzle: out-of-range rows read as zeros and the
+//     next head is never read), K and V through a ring of shared-memory
+//     stages; each stage has a `full` mbarrier for K, one for V (with
+//     expect_tx byte counts) and an `empty` one the 8 consumer warps
+//     arrive on, and phase parities alone order producer and consumers.
+//     S = Q K^T is wgmma m64n128k16 with both operands from shared memory
+//     (K is K-major, as wgmma's B wants it); the online softmax runs in
+//     registers in the log2 domain, p = 2^(s * sm_scale * log2(e) - m)
+//     in one FFMA and one ex2 (the scale still applies to the f32 score,
+//     and the LSE goes back to the natural log); P is rounded to bf16
+//     from the S accumulators into wgmma's register A fragment, and
+//     O += P V is wgmma m64n{d}k16 with V read MN-major (transposed) from
+//     the same tiles.  Key tiles run from the last to the first, so that
+//     only the first tile processed can need a mask.  The kernel is
+//     persistent: one block an SM walks (q tile, head) items, the q tiles
+//     of a head together, and its producer loads the next item's Q and
+//     K/V while the consumers finish the current one.
+//     Each consumer warpgroup runs its products one after the other (P V
+//     of the previous tile, S of this one, then the softmax), and the two
+//     warpgroups take turns on the tensor cores through named barriers.
+//     Overlapping one warpgroup's softmax with its own next S (FA3's
+//     intra-warpgroup pipelining) needs S, O and P live at once: ptxas
+//     then spills and serialises every wgmma, and with P staged through
+//     shared memory instead it inserts waits; both were slower on the
+//     card (PERF.md, PR 3).
+//   * bf16, d = 16 and 32 (namespace tc): the earlier mma.sync design,
+//     kept because those widths need the 32- and 64-byte swizzles on the
+//     wgmma path and no served or trained model uses them: 4 warps x 16
+//     query rows, mma.sync m16n8k16, cp.async double-buffered K/V tiles,
+//     V through ldmatrix.trans.
 //   * f32: every product is an f32 FMA on the CUDA cores (no TF32: JAX's
 //     f32 path is exact f32).  16 x 16 threads, S and P in shared memory.
 //
 // Bound at the served shape (bh 64, T 1024, d 128, bf16, causal):
-//   operations 4 * bh * T^2 * d / 2 = 17.2 GFLOP -> 17 us at 989 TFLOP/s;
-//   bytes q, k, v and o = 4 * 64 * 1024 * 128 * 2 B = 67 MB -> 20 us at
-//   3.35 TB/s; so the least time is about 20 us and memory bounds it,
-//   with the operations close behind.  The design reads each q tile once
-//   and writes each o tile once, and keeps S and P on chip, so
-//   device-memory traffic stays near those 67 MB (the K/V tiles that
-//   the q tiles of one head share are re-read from the 50 MB L2).  For
-//   the operations it runs both products on the tensor cores; mma.sync
-//   reaches a fraction of the wgmma rate, and wgmma with TMA-fed tiles
-//   is the next step for speed.
+//   operations 4 * d per kept (query, key) pair = 17.2 GFLOP -> 17 us at
+//   989 TFLOP/s; bytes q, k, v and o = 4 * 64 * 1024 * 128 * 2 B = 67 MB
+//   -> 20 us at 3.35 TB/s; so the least time is about 20 us and memory
+//   bounds it, with the operations close behind.  The design reads each
+//   q tile once and writes each o tile once and keeps S and P on chip,
+//   so device-memory traffic stays near those 67 MB.  The K/V tiles that
+//   the q tiles of one head share are re-read from L2, 151 MB of it at
+//   this shape, each tile serving 128 query rows; that stream, not the
+//   products, sets most of the kernel's time on the card (PERF.md).
+#include <math.h>
+
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -224,7 +253,7 @@ __global__ void __launch_bounds__(NTHREADS)
 
 }  // namespace f32
 
-// ------------------------------------------------- bf16 tensor-core path
+// ------------------------------------ bf16 mma.sync path (d = 16 and 32)
 
 namespace tc {
 
@@ -429,6 +458,349 @@ __global__ void __launch_bounds__(NTHREADS)
 
 }  // namespace tc
 
+// ------------------------------- bf16 wgmma path (d = 64 and 128, sm_90a)
+
+namespace wg {
+
+using namespace hopper;
+using bf16 = __nv_bfloat16;
+using mma_bf16::pack;
+
+constexpr int BQ = 128;             // query rows a block: 2 warpgroups x 64
+constexpr int BK = 128;             // keys a tile
+constexpr int NTHREADS = 384;       // producer warpgroup, 2 consumer ones
+constexpr int CONSUMER_WARPS = 8;   // arrivals that release a stage
+constexpr float LN2 = 0.69314718055994531f;
+// V's rows are keys, so as wgmma's B (keys x d) it is MN-major: read it
+// transposed
+constexpr int V_TRANS = 1;
+
+template <int D>
+struct Tile {
+  static constexpr int BOXES = D / 64;  // 64-column (128-byte) boxes a row
+  static constexpr int STAGES = D == 128 ? 3 : 4;  // K/V tiles in flight
+  static constexpr uint32_t Q_BYTES = BQ * D * 2;
+  static constexpr uint32_t KV_BYTES = BK * D * 2;  // one K or V tile
+  static constexpr uint32_t Q_BOX = BQ * 128;       // one box of Q
+  static constexpr uint32_t KV_BOX = BK * 128;      // one box of K or V
+  // Q, the K stages, the V stages, the barriers; and room to align the
+  // base to 1024 bytes (the swizzle atom)
+  static constexpr size_t smem_bytes() {
+    return 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + (2 + 3 * STAGES) * 8;
+  }
+};
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// SIGN * S = SIGN * Q K^T (64 rows of Q at qw, the K tile at
+// kt), 16 deep a step; at d = 128 steps 4-7 read the second box.  A
+// negative scale negates S through wgmma's scale-a (exact: it negates
+// the bf16 products).  One committed group.
+template <int D, int SIGN>
+__device__ __forceinline__ void issue_qk(float (&sacc)[BK / 2],
+                                         const unsigned char* qw,
+                                         const unsigned char* kt) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss<SIGN>(
+        sacc, desc_sw128(qw + (kk / 4) * Tile<D>::Q_BOX + off, 16, 1024),
+        desc_sw128(kt + (kk / 4) * Tile<D>::KV_BOX + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V (P in registers, the V tile at vt), 16 keys a step: two
+// 8-row groups of V 1024 bytes apart; at d = 128 the second 64 columns
+// are the next box.  One committed group.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
+                                         const uint32_t (&pa)[BK / 16][4],
+                                         const unsigned char* vt) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs<V_TRANS>(oacc, pa[kk],
+                      desc_sw128(vt + kk * 16 * 128, Tile<D>::KV_BOX, 1024));
+  wgmma_commit();
+}
+
+// One tile's step of the online softmax in the log2 domain, in place:
+// sacc holds t = sign(scale) * s (masked keys at -inf) and becomes
+// p = 2^(t * |scale_log2| - m), one FFMA and one ex2 a score, with m the
+// running max of t * |scale_log2| = s * scale_log2.  Returns in alpha
+// the rescale of the rows' earlier sums.  A row's 4 threads are one
+// quad.  Straight-line code: it runs while a wgmma is in flight.
+__device__ __forceinline__ void softmax_step(float (&sacc)[BK / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2],
+                                             float abs_scale) {
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+      mx = fmaxf(mx, fmaxf(sacc[4 * j + 2 * h], sacc[4 * j + 2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // a row with every key of the tile masked keeps its max
+    const float m_new = fmaxf(m[h], abs_scale * mx);
+    alpha[h] = exp2_approx(m[h] - m_new);
+    m[h] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    sacc[i] = exp2_approx(fmaf(sacc[i], abs_scale, -m[(i / 2) & 1]));
+    sum[(i / 2) & 1] += sacc[i];
+  }
+  // the running sum keeps the f32 probabilities; alpha is the same in
+  // the whole quad, so the shares add up to the row's sum
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + sum[h];
+}
+
+// P rounded to bf16 (V's dtype): the accumulators of 8-key groups 2kk and
+// 2kk+1 are the A fragment of the 16-key step kk of P V
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4],
+                                       const float (&sacc)[BK / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = pack(sacc[8 * kk + 2 * r], sacc[8 * kk + 2 * r + 1]);
+}
+
+// The w-th work item: query tile n_qt - 1 - w % n_qt of head w / n_qt, so
+// that the q tiles of a head run close together in time and re-read its
+// K and V from L2 (heaviest first across all heads instead was 5% slower
+// at the served shape, on an H100).  Block b takes items b, 2G - 1 - b,
+// 2G + b, ... (G = gridDim.x): a zigzag that evens out the causal
+// tiles' unequal work.
+struct Item {
+  int bh, q0, n_tiles;
+  __device__ __forceinline__ Item(int w, int n_qt, int tk, int causal) {
+    bh = w / n_qt;
+    q0 = (n_qt - 1 - w % n_qt) * BQ;
+    // causal: this q tile's last row sees keys up to q0 + BQ - 1
+    const int k_end = causal ? min(tk, q0 + BQ) : tk;
+    n_tiles = (k_end + BK - 1) / BK;
+  }
+};
+
+__device__ __forceinline__ int item_of(int round, int n_items) {
+  const int g = gridDim.x, b = blockIdx.x;
+  const int w = round * g + (round % 2 == 0 ? b : g - 1 - b);
+  return w < n_items ? w : -1;
+}
+
+// abs_scale = |sm_scale| * log2(e), SIGN = the sign of sm_scale, 1 or -1
+// (the host makes a zero scale a tiny positive one).  A persistent kernel:
+// one block an SM walks its work items (item_of), and the producer loads
+// the next item's Q and K/V tiles while the consumers finish this one.
+template <int D, int SIGN>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    kernel(const __grid_constant__ CUtensorMap tm_q,
+           const __grid_constant__ CUtensorMap tm_k,
+           const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+           float* __restrict__ lse, int n_bh, int tq, int tk,
+           float abs_scale, int causal) {
+  using T = Tile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sk = sq + T::Q_BYTES;                // K stages
+  unsigned char* sv = sk + T::STAGES * T::KV_BYTES;   // V stages
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sv + T::STAGES * T::KV_BYTES);
+  uint64_t* empty_q = full_q + 1;
+  uint64_t* full_k = empty_q + 1;
+  uint64_t* full_v = full_k + T::STAGES;
+  uint64_t* empty = full_v + T::STAGES;
+
+  const int n_qt = (tq + BQ - 1) / BQ;
+  const int n_items = n_bh * n_qt;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(full_q, 1);
+    mbar_init(empty_q, CONSUMER_WARPS);
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Within an item, key tiles go from the last to the first: the last is
+  // the only one that can reach past Tk or above the diagonal (BQ = BK,
+  // so the diagonal tile is the last), so only the first tile processed
+  // is masked, before anything is in flight.  Tiles are counted across
+  // items (it): the it-th tile is in stage it % STAGES, on that stage's
+  // barriers' (it / STAGES)-th phase.
+  if (tid < 128) {
+    // ---- producer warpgroup: one thread issues every TMA copy
+    reg_dealloc<24>();
+    if (tid == 0) {
+      prefetch_tensormap(&tm_q);
+      prefetch_tensormap(&tm_k);
+      prefetch_tensormap(&tm_v);
+      int it = 0;
+      for (int r = 0;; ++r) {
+        const int w = item_of(r, n_items);
+        if (w < 0) break;
+        const Item item(w, n_qt, tk, causal);
+        // every consumer warp is done with the previous item's Q
+        if (r > 0) mbar_wait(empty_q, (r - 1) & 1);
+        mbar_arrive_expect_tx(full_q, T::Q_BYTES);
+#pragma unroll
+        for (int b = 0; b < T::BOXES; ++b)
+          tma_load_3d(sq + b * T::Q_BOX, &tm_q, full_q, 64 * b, item.q0,
+                      item.bh);
+        for (int j = 0; j < item.n_tiles; ++j, ++it) {
+          const int s = it % T::STAGES;
+          const int k0 = (item.n_tiles - 1 - j) * BK;
+          // every consumer warp released this stage's previous tile
+          if (it >= T::STAGES) mbar_wait(&empty[s], (it / T::STAGES - 1) & 1);
+          // the full box is counted, rows past Tk too (TMA writes zeros)
+          mbar_arrive_expect_tx(&full_k[s], T::KV_BYTES);
+#pragma unroll
+          for (int b = 0; b < T::BOXES; ++b)
+            tma_load_3d(sk + s * T::KV_BYTES + b * T::KV_BOX, &tm_k,
+                        &full_k[s], 64 * b, k0, item.bh);
+          mbar_arrive_expect_tx(&full_v[s], T::KV_BYTES);
+#pragma unroll
+          for (int b = 0; b < T::BOXES; ++b)
+            tma_load_3d(sv + s * T::KV_BYTES + b * T::KV_BOX, &tm_v,
+                        &full_v[s], 64 * b, k0, item.bh);
+        }
+      }
+    }
+  } else {
+    // ---- two consumer warpgroups, 64 query rows of each item each
+    reg_alloc<240>();
+    // the warpgroup index, read from lane 0 so that the compiler sees
+    // it uniform and keeps the wgmma descriptors in uniform registers
+    const int cw = __shfl_sync(0xffffffffu, tid / 128, 0) - 1;
+    const int warp = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane / 4, c = lane % 4;
+    const unsigned char* qw = sq + cw * 64 * 128;  // this warpgroup's Q rows
+    int it = 0;
+    for (int r = 0;; ++r) {
+      const int w = item_of(r, n_items);
+      if (w < 0) break;
+      const Item item(w, n_qt, tk, causal);
+      const int n_tiles = item.n_tiles;
+      const int rbase = item.q0 + cw * 64 + warp * 16;  // this warp's 1st row
+      const int row0 = rbase + g;  // this thread's rows: row0 and row0 + 8
+
+      float oacc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+      float m[2] = {-1e30f, -1e30f};  // running max of s * scale_log2
+      float l[2] = {0.f, 0.f};        // this thread's share of the row sums
+      float alpha[2];
+      float sacc[BK / 2];
+      uint32_t pa[BK / 16][4];
+
+      // the last key tile: S, its mask, the softmax, P
+      mbar_wait(full_q, r & 1);
+      mbar_wait(&full_k[it % T::STAGES], (it / T::STAGES) & 1);
+      issue_qk<D, SIGN>(sacc, qw, sk + (it % T::STAGES) * T::KV_BYTES);
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      {
+        // mask keys past Tk and, causal, above the diagonal, where this
+        // warp's rows can meet either
+        const int k0 = (n_tiles - 1) * BK;
+        const bool edge = k0 + BK > tk || (causal && k0 + BK - 1 > rbase);
+        if (edge) {
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i) {
+            const int key = k0 + (i / 4) * 8 + 2 * c + (i & 1);
+            const int row = row0 + 8 * ((i / 2) & 1);
+            if (key >= tk || (causal && row < key)) sacc[i] = -INFINITY;
+          }
+        }
+      }
+      softmax_step(sacc, m, l, alpha, abs_scale);
+      pack_p(pa, sacc);
+
+      // Then, a tile a step: the previous tile's P V (it needs that
+      // tile's P and this row max), then this tile's S and softmax.  Each
+      // product is one batch of 8 wgmmas waited on at once.  The two
+      // consumer warpgroups take turns to issue theirs (named barriers 1
+      // and 2, warpgroup 0 first), so that one's softmax runs while the
+      // other's products do; the arrivals on each barrier match its
+      // syncs within an item.
+      if (cw == 1 && n_tiles > 1) named_arrive(1, 256);
+      for (int j = 1; j < n_tiles; ++j) {
+        const int s = (it + j) % T::STAGES, sp = (it + j - 1) % T::STAGES;
+        mbar_wait(&full_v[sp], ((it + j - 1) / T::STAGES) & 1);
+        // O to tile j-1's running max before P V adds to it
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i / 2) & 1];
+        named_sync(1 + cw, 256);  // this warpgroup's turn
+        issue_pv<D>(oacc, pa, sv + sp * T::KV_BYTES);
+        wgmma_wait<0>();
+        fence_regs(oacc);
+        // this warp is done with stage sp (its wgmmas retired)
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[sp]);
+        mbar_wait(&full_k[s], ((it + j) / T::STAGES) & 1);
+        issue_qk<D, SIGN>(sacc, qw, sk + s * T::KV_BYTES);
+        // the other warpgroup's turn
+        if (cw == 0 || j < n_tiles - 1) named_arrive(2 - cw, 256);
+        wgmma_wait<0>();
+        fence_regs(sacc);
+        softmax_step(sacc, m, l, alpha, abs_scale);
+        pack_p(pa, sacc);
+      }
+      // every S of the item is in: Q may be replaced by the next item's
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_q);
+
+      // the first key tile's P V
+      {
+        const int sp = (it + n_tiles - 1) % T::STAGES;
+        mbar_wait(&full_v[sp], ((it + n_tiles - 1) / T::STAGES) & 1);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i / 2) & 1];
+        issue_pv<D>(oacc, pa, sv + sp * T::KV_BYTES);
+        wgmma_wait<0>();
+        fence_regs(oacc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[sp]);
+      }
+      it += n_tiles;
+
+      bf16* ob = o + (size_t)item.bh * tq * D;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        const int row = row0 + 8 * h;
+        if (row >= tq) continue;
+        const float lc = fmaxf(l[h], 1e-30f);
+        const float inv = 1.f / lc;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<uint32_t*>(ob + (size_t)row * D + 8 * j + 2 * c) =
+              pack(oacc[4 * j + 2 * h] * inv, oacc[4 * j + 2 * h + 1] * inv);
+        if (lse != nullptr && c == 0)
+          lse[(size_t)item.bh * tq + row] = m[h] * LN2 + logf(lc);
+      }
+    }
+  }
+}
+
+}  // namespace wg
+
 struct Args {
   const void *q, *k, *v;
   void *o, *lse;
@@ -453,13 +825,91 @@ cudaError_t run(void (*kern)(const T*, const T*, const T*, T*, float*, int,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled from the driver, found at run time so that the
+// library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A (bh, t, d) bf16 tensor read in boxes of 64 columns by `rows` rows of
+// one head, with the 128-byte swizzle; rows past t read as zeros.
+bool tensor_map(CUtensorMap* map, const void* p, int bh, int t, int d,
+                int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int SIGN>
+cudaError_t run_wg(const Args& a, const CUtensorMap (&maps)[3],
+                   float abs_scale) {
+  const size_t smem = wg::Tile<D>::smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      wg::kernel<D, SIGN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  // one block an SM (the kernel is persistent), or one an item
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long items = (long long)a.bh * ((a.tq + wg::BQ - 1) / wg::BQ);
+  const int grid = (int)(items < sms ? items : sms);
+  wg::kernel<D, SIGN><<<grid, wg::NTHREADS, smem, a.stream>>>(
+      maps[0], maps[1], maps[2], static_cast<wg::bf16*>(a.o),
+      static_cast<float*>(a.lse), a.bh, a.tq, a.tk, abs_scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t run_wg(const Args& a) {
+  CUtensorMap maps[3];
+  if (!tensor_map(&maps[0], a.q, a.bh, a.tq, D, wg::BQ) ||
+      !tensor_map(&maps[1], a.k, a.bh, a.tk, D, wg::BK) ||
+      !tensor_map(&maps[2], a.v, a.bh, a.tk, D, wg::BK))
+    return cudaErrorInvalidValue;
+  // sm_scale * log2(e); a zero scale (every score 0) becomes a tiny one,
+  // which gives the same uniform weights and keeps masked keys at 0
+  float scale_log2 = a.sm_scale * 1.44269504088896341f;
+  if (scale_log2 == 0.f) scale_log2 = 1e-30f;
+  return scale_log2 < 0.f ? run_wg<D, -1>(a, maps, -scale_log2)
+                          : run_wg<D, 1>(a, maps, scale_log2);
+}
+
 template <int D>
 cudaError_t launch(int dtype, const Args& a) {
   if (dtype == 0)
     return run<float>(f32::kernel<D>, f32::NTHREADS,
                       f32::Tile<D>::smem_bytes(), a);
-  return run<tc::bf16>(tc::kernel<D>, tc::NTHREADS, tc::Tile<D>::smem_bytes(),
-                       a);
+  if constexpr (D >= 64)
+    return run_wg<D>(a);
+  else
+    return run<tc::bf16>(tc::kernel<D>, tc::NTHREADS,
+                         tc::Tile<D>::smem_bytes(), a);
 }
 
 }  // namespace

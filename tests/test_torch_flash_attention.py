@@ -289,7 +289,7 @@ def test_build_reuses_the_library_of_an_unchanged_source(tmp_path,
     with pytest.raises(MXNetError, match="nvcc not found"):
         kb.build("flash_fwd.cu")
     headers = sorted(kb.CSRC.glob("*.cuh"))
-    assert [h.name for h in headers] == ["mma_bf16.cuh"]
+    assert [h.name for h in headers] == ["hopper.cuh", "mma_bf16.cuh"]
     text = (kb.CSRC / "flash_fwd.cu").read_bytes() + b"".join(
         h.read_bytes() for h in headers)
     key = hashlib.sha256(text + " ".join(kb.NVCC_FLAGS).encode()) \
@@ -305,3 +305,72 @@ def test_build_reuses_the_library_of_an_unchanged_source(tmp_path,
     assert kb.library_key("flash_fwd.cu") == key
     (csrc / "mma_bf16.cuh").write_bytes(b"// edited\n")
     assert kb.library_key("flash_fwd.cu") != key
+
+
+def test_build_from_another_source_directory(tmp_path, monkeypatch):
+    """A copy of the sources with one line changed (as chip_smoke.py's
+    fault run makes) has its own library name, and is built into the
+    build directory given, never into the package's."""
+    from mxtpu_torch.ops import kernel_build as kb
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in kb.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    assert kb.library_key("flash_fwd.cu", csrc) == \
+        kb.library_key("flash_fwd.cu")
+    src = (csrc / "flash_fwd.cu").read_text()
+    (csrc / "flash_fwd.cu").write_text(
+        src.replace("constexpr int V_TRANS = 1;", "constexpr int V_TRANS = 0;"))
+    key = kb.library_key("flash_fwd.cu", csrc)
+    assert key != kb.library_key("flash_fwd.cu")
+    build_dir = tmp_path / "build"
+    build_dir.mkdir()
+    lib = build_dir / ("flash_fwd-%s.so" % key)
+    lib.write_bytes(b"")
+    monkeypatch.setattr(kb, "nvcc_path", lambda: pytest.fail("nvcc ran"))
+    assert kb.build("flash_fwd.cu", csrc, build_dir) == (lib, "")
+    kern = kb.CudaKernel("flash_fwd.cu", "flash_fwd", [], csrc=csrc,
+                         build_dir=build_dir)
+    assert (kern.csrc, kern.build_dir) == (csrc, build_dir)
+
+
+def test_ptxas_summary_names_kernels_and_keeps_performance_notes():
+    """`kernel_build.ptxas_summary` on lines as `nvcc -Xptxas -v` prints
+    them: one entry a kernel of the port, in order, named by path and
+    template arguments (the wgmma forward's sign of the scale, the
+    backward's mode), then ptxas's notes of a performance loss; a kernel
+    from elsewhere is left out."""
+    from mxtpu_torch.ops import kernel_build as kb
+
+    ns = "_GLOBAL__N__9b5d88fb_12_flash_fwd_cu_b294bfd0"
+
+    def entry(path, args):
+        return "_ZN%d%s%d%s6kernelI%sEEv14CUtensorMap_st" % (
+            len(ns), ns, len(path), path, args)
+
+    def lines(name, regs, spill):
+        return ["ptxas info    : Compiling entry function '%s' for "
+                "'sm_90a'" % name,
+                "ptxas info    : Function properties for %s" % name,
+                "    %d bytes stack frame, %d bytes spill stores, %d bytes "
+                "spill loads" % (spill, spill, spill),
+                "ptxas info    : Used %d registers, used 1 barriers, 400 "
+                "bytes cmem[0]" % regs]
+
+    fwd = entry("wg", "Li128ELi1E")
+    note = ("ptxas info    : (C7512) Potential Performance Loss: "
+            "wgmma.mma_async instructions are serialized due to "
+            "insufficient register resources for the function '%s'" % fwd)
+    log = "\n".join(["ptxas info    : 0 bytes gmem"]
+                     + lines(fwd, 168, 216) + [note]
+                     + lines(entry("wg", "Li64ELin1E"), 168, 0)
+                     + lines(entry("tc", "Li128ELb1E"), 255, 20)
+                     + lines(entry("f32", "Li16ELb0E"), 56, 0)
+                     + lines(entry("tc", "Li32E"), 96, 0)
+                     + lines("_Z6othervPf", 32, 8))
+    assert kb.ptxas_summary(log) == [
+        "wg<128,1> 168 regs, spill 216", "wg<64,-1> 168 regs, spill 0",
+        "tc<128,dkv> 255 regs, spill 20", "f32<16,dq> 56 regs, spill 0",
+        "tc<32> 96 regs, spill 0", note.strip()]
+    assert kb.ptxas_summary("") == []
