@@ -15,8 +15,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    card at the served and trained shape (64, 1024, 128) bf16 causal,
    and in f32 and bf16 at (6, 384, 64) causal and not, at the ragged
    (2, 100, 32) x (2, 90, 32) causal and not, at (3, 130, 16) causal,
-   and at d = 128 with partial 128-row tiles: (4, 1000, 128) causal and
-   (2, 200, 128) x (2, 330, 128) not.  Forward, with and without the
+   at d = 128 with partial 128-row tiles: (4, 1000, 128) causal and
+   (2, 200, 128) x (2, 330, 128) not, and where a whole 64-row
+   warpgroup of the backward's last block lies past the end:
+   (3, 130, 128) causal and (2, 200, 64) x (2, 330, 64) not; then bf16
+   (6, 384, 64) causal with a negative scale.  Forward, with and without the
    LSE: f32 rtol 2e-4 / atol 2e-5, the bounds
    tests/test_pallas_attention.py holds the TPU kernel to; bf16 one ulp
    of a probability plus one of the output, atol 2e-3 / rtol 2^-6 of
@@ -66,15 +69,20 @@ before that the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
 
-Options (none by default): ``--baseline DIR`` also builds the forward
-kernel of the checkout
-DIR (such as the parent commit unpacked by ``git archive``) and times it
-against this one at the served shape, in turns, on device time;
-``--fault-run`` builds copies of the sources with planted faults
-(``MUTANTS``) in a temporary directory and runs the forward check on
-each and on the committed kernel, which alone must pass; ``--ablate``
-times the forward kernel against copies with a part taken out or a
-choice undone (``ABLATIONS``), in turns, on device time.
+Options (none by default): ``--baseline DIR`` also builds the kernels
+of the checkout DIR (such as the parent commit unpacked by ``git
+archive``) and times each (the forward with and without the LSE, dq,
+dk/dv) against this one's at the served shape, in turns, on device time,
+after holding both against the plain version; ``--fault-run`` builds
+copies of the sources with planted faults (``MUTANTS``: three in the
+forward, four in the backward) in a temporary directory and runs the
+forward or the backward check on each and on the committed kernels,
+which alone must pass; ``--ablate`` times the kernels against copies
+with a part taken out or a choice undone (``ABLATIONS``: the forward's
+products, softmax, item order and ping-pong; the backward's products,
+its P and dS, its output stores and how they are made, its stats copy,
+its register split, its ring depth and its item order), in turns, on
+device time.
 """
 import argparse
 import dataclasses
@@ -120,6 +128,13 @@ from mxtpu_torch.parallel import transformer as tf  # noqa: E402
 
 KERNELS = {"flash_fwd": fa.FLASH_FWD, "flash_bwd_dq": fa.FLASH_BWD_DQ,
            "flash_bwd_dkv": fa.FLASH_BWD_DKV}
+BWD_NAMES = ("flash_bwd_dq", "flash_bwd_dkv")
+# the attribute of ``fa`` that holds each kernel's wrapper, and the source
+# each is built from
+ATTRS = {"flash_fwd": "FLASH_FWD", "flash_bwd_dq": "FLASH_BWD_DQ",
+         "flash_bwd_dkv": "FLASH_BWD_DKV"}
+SOURCE_OF = {"flash_fwd": "flash_fwd.cu", "flash_bwd_dq": "flash_bwd.cu",
+             "flash_bwd_dkv": "flash_bwd.cu"}
 
 
 def log(*args):
@@ -279,19 +294,27 @@ def phase_build():
                "; ".join(kb.ptxas_summary(kern.build_log))))
 
 
-def check_backward(q, k, v, out, lse, scale, causal, gen):
-    """Both backward kernels against the plain backward on the same
-    inputs and a random cotangent; returns a record per kernel."""
-    (bh, tq, d), tk, dtype = q.shape, k.shape[1], q.dtype
-    g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+def backward_reference(q, k, v, g, out, lse, scale, causal):
+    """The plain backward's (dq, dk, dv) and the scales each gradient's
+    bound is taken against (|grad| in f32, the sums before they cancel
+    in bf16)."""
     ref = fa._flash_bwd_reference(q, k, v, g, out, lse, scale, causal)
+    scales = bwd_error_scales(q, k, v, g, out, lse, scale, causal) \
+        if q.dtype == torch.bfloat16 else [r.float().abs() for r in ref]
+    return ref, scales
+
+
+def backward_errors(q, k, v, g, out, lse, scale, causal, ref):
+    """One launch of each backward kernel (``fa.FLASH_BWD_DQ``,
+    ``fa.FLASH_BWD_DKV``, through ``_flash_backward_cuda``) against the
+    plain backward ``ref`` (from ``backward_reference``); returns each
+    gradient's errors and whether all keep to the bounds."""
+    dtype = q.dtype
     got = fa._flash_backward_cuda(q, k, v, g, out, lse, scale, causal)
     torch.cuda.synchronize()
     tol = BWD_TOL[dtype]
-    scales = bwd_error_scales(q, k, v, g, out, lse, scale, causal) \
-        if dtype == torch.bfloat16 else [r.float().abs() for r in ref]
     errs = {}
-    for name, a, b, base in zip(("dq", "dk", "dv"), got, ref, scales):
+    for name, a, b, base in zip(("dq", "dk", "dv"), got, *ref):
         diff = a.float() - b.float()
         errs[name] = dict(
             max_abs_err=diff.abs().max().item(),
@@ -301,8 +324,30 @@ def check_backward(q, k, v, out, lse, scale, causal, gen):
     ok = all(e["err_over_tol"] <= 1.0 and (dtype != torch.bfloat16 or
                                           e["rel_l2"] <= BF16_REL_L2)
              for e in errs.values())
+    return errs, ok
+
+
+def backward_launches(q, k, v, g, out, lse, scale, causal):
+    """{kernel name: a function that launches it once on these inputs}
+    for both backward kernels, through ``fa``'s current wrappers (delta
+    and the outputs are made once)."""
     delta = fa._delta(out, g)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    outs = {"flash_bwd_dq": (torch.empty_like(q),),
+            "flash_bwd_dkv": (torch.empty_like(k), torch.empty_like(v))}
+    return {n: (lambda n=n: fa._bwd_launch(
+        getattr(fa, ATTRS[n]), q, k, v, g, lse, delta, outs[n], scale,
+        causal)) for n in BWD_NAMES}
+
+
+def check_backward(q, k, v, out, lse, scale, causal, gen):
+    """Both backward kernels against the plain backward on the same
+    inputs and a random cotangent; returns a record per kernel."""
+    (bh, tq, d), tk, dtype = q.shape, k.shape[1], q.dtype
+    g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+    errs, ok = backward_errors(q, k, v, g, out, lse, scale, causal,
+                               backward_reference(q, k, v, g, out, lse,
+                                                  scale, causal))
+    launches = backward_launches(q, k, v, g, out, lse, scale, causal)
     iters = 20 if tq >= 1024 else 50
     plain_ms = time_ms(lambda: fa._flash_bwd_reference(
         q, k, v, g, out, lse, scale, causal), 3)
@@ -311,10 +356,9 @@ def check_backward(q, k, v, out, lse, scale, causal, gen):
     wrapper_ms = time_ms(lambda: fa._flash_backward_cuda(
         q, k, v, g, out, lse, scale, causal), iters)
     recs = {}
-    for name, outs, grads in (("flash_bwd_dq", (dq,), ("dq",)),
-                              ("flash_bwd_dkv", (dk, dv), ("dk", "dv"))):
-        launch = (lambda name=name, outs=outs: fa._bwd_launch(
-            KERNELS[name], q, k, v, g, lse, delta, outs, scale, causal))
+    for name, grads in (("flash_bwd_dq", ("dq",)),
+                        ("flash_bwd_dkv", ("dk", "dv"))):
+        launch = launches[name]
         ms, dev = time_ms(launch, iters), device_ms(launch, iters)
         bms, bound_by = backward_bound_ms(name, bh, tq, tk, d, dtype,
                                           causal)
@@ -322,6 +366,7 @@ def check_backward(q, k, v, out, lse, scale, causal, gen):
         recs[name] = dict(
             kernel=name, shape="(%d,%d,%d)x(%d,%d,%d)" % (bh, tq, d, bh, tk, d),
             dtype=str(dtype).replace("torch.", ""), causal=causal,
+            scale=scale,
             grads={n: errs[n] for n in grads},
             max_abs_err=max(x["max_abs_err"] for x in e),
             ms=ms, device_ms=dev, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
@@ -390,18 +435,23 @@ def check_forward(q, k, v, scale, causal, want_lse, ref):
                 max_abs_err_lse=err_lse), bool(ok)
 
 
-class use_forward(object):
-    """Within the block, ``fa._flash_forward_cuda`` launches ``kernel``
-    (another build of ``flash_fwd``) in place of ``fa.FLASH_FWD``."""
+class use_kernels(object):
+    """Within the block, the wrappers in ``kernels`` ({name: CudaKernel},
+    other builds of the same entry points) take the place of ``fa``'s,
+    so that ``fa._flash_forward_cuda`` and ``fa._flash_backward_cuda``
+    launch them."""
 
-    def __init__(self, kernel):
-        self.kernel = kernel
+    def __init__(self, kernels):
+        self.kernels = kernels
 
     def __enter__(self):
-        self.saved, fa.FLASH_FWD = fa.FLASH_FWD, self.kernel
+        self.saved = {n: getattr(fa, ATTRS[n]) for n in self.kernels}
+        for n, kern in self.kernels.items():
+            setattr(fa, ATTRS[n], kern)
 
     def __exit__(self, *exc):
-        fa.FLASH_FWD = self.saved
+        for n, kern in self.saved.items():
+            setattr(fa, ATTRS[n], kern)
 
 
 def phase_kernel():
@@ -411,20 +461,27 @@ def phase_kernel():
     # the served and trained shape, then each path (f32 on the CUDA
     # cores, bf16 on wgmma at d 64 and 128, on mma.sync at d 16 and 32)
     # at smaller head dims and ragged lengths; at d = 128, partial tiles
-    # of 128 rows and keys, so the second 64-column box meets a ragged edge
-    cases = [(SERVED, 1024, torch.bfloat16, True)] + [
-        (shape, tk, dtype, causal)
+    # of 128 rows and keys, so the second 64-column box meets a ragged
+    # edge; (3, 130, 128) and (2, 200, 64) x 330, where a whole warpgroup
+    # of the backward's last 128-row block has no row before the end;
+    # and a negative scale (the forward's other sign, the backward's
+    # FFMA with a negative factor)
+    cases = [(SERVED, 1024, torch.bfloat16, True, 1)] + [
+        (shape, tk, dtype, causal, 1)
         for dtype in (torch.float32, torch.bfloat16)
         for shape, tk, causals in (((6, 384, 64), 384, (False, True)),
                                    ((2, 100, 32), 90, (False, True)),
                                    ((3, 130, 16), 130, (True,)),
                                    ((4, 1000, 128), 1000, (True,)),
-                                   ((2, 200, 128), 330, (False,)))
-        for causal in causals]
+                                   ((2, 200, 128), 330, (False,)),
+                                   ((3, 130, 128), 130, (True,)),
+                                   ((2, 200, 64), 330, (False,)))
+        for causal in causals] + [((6, 384, 64), 384, torch.bfloat16, True,
+                                   -1)]
     records = {}
-    for (bh, tq, d), tk, dtype, causal in cases:
+    for (bh, tq, d), tk, dtype, causal, sign in cases:
         q, k, v = make_case((bh, tq, d), tk, dtype, gen)
-        scale = d ** -0.5
+        scale = sign * d ** -0.5
         ref = reference(q, k, v, scale, causal)
         for want_lse in (False, True):
             errs, ok = check_forward(q, k, v, scale, causal, want_lse, ref)
@@ -438,7 +495,7 @@ def phase_kernel():
                                                  causal, want_lse)
             rec = dict(shape="(%d,%d,%d)x(%d,%d,%d)" % (bh, tq, d, bh, tk, d),
                        dtype=str(dtype).replace("torch.", ""),
-                       causal=causal, lse=want_lse, **errs,
+                       causal=causal, scale=scale, lse=want_lse, **errs,
                        ms=ms, device_ms=dev, plain_ms=plain_ms,
                        bound_ms=bound, bound_by=bound_by, library_ms=None)
             if (bh, tq, d) == SERVED and not want_lse:
@@ -468,48 +525,88 @@ def phase_kernel():
     return records
 
 
+TURNS = ("baseline", "this", "this", "baseline")
+
+
+def report_turns(what, times, errs):
+    """One [baseline] line: device ms in turns, the means, the factor."""
+    mean = {w: sum(t) / len(t) for w, t in times.items()}
+    log("[baseline] %s at %s bf16 causal, device ms in turns (baseline, "
+        "this, this, baseline): %s; baseline %.4f, this %.4f: %.2fx "
+        "faster; errors %s"
+        % (what, SERVED, json.dumps(
+            [times["baseline"][0], times["this"][0], times["this"][1],
+             times["baseline"][1]]), mean["baseline"], mean["this"],
+           mean["baseline"] / mean["this"], json.dumps(errs)))
+
+
 def phase_baseline(root):
-    """The forward kernel of another checkout (``root``, such as the
-    parent commit unpacked by ``git archive``) against this one at the
-    served shape, on device time, in turns (baseline, this, this,
-    baseline), with and without the LSE; both are also held against the
-    plain version."""
+    """The kernels of another checkout (``root``, such as the parent
+    commit unpacked by ``git archive``) against this one's at the served
+    shape, on device time, in turns (``TURNS``): the forward with and
+    without the LSE, then each backward kernel.  Every version is also
+    held against the plain version."""
     csrc = Path(root) / "mxtpu_torch" / "ops" / "csrc"
     tmp = Path(tempfile.mkdtemp(prefix="baseline-"))
-    other = kb.CudaKernel("flash_fwd.cu", "flash_fwd", fa.FLASH_FWD.argtypes,
-                          csrc=csrc, build_dir=tmp)
+    other = copy_kernels(csrc, tmp, ("flash_fwd.cu", "flash_bwd.cu"))
     t0 = time.monotonic()
-    other.load()
-    log("[baseline] %s built in %.2f s: %s" % (
-        csrc / "flash_fwd.cu", time.monotonic() - t0,
-        "; ".join(kb.ptxas_summary(other.build_log))))
+    load_all([other])
+    for src in ("flash_fwd.cu", "flash_bwd.cu"):
+        kern = next(k for n, k in other.items() if SOURCE_OF[n] == src)
+        log("[baseline] %s built (both sources together in %.2f s): %s"
+            % (csrc / src, time.monotonic() - t0,
+               "; ".join(kb.ptxas_summary(kern.build_log))))
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = make_case(SERVED, SERVED[1], torch.bfloat16, gen)
     scale = SERVED[2] ** -0.5
     ref = reference(q, k, v, scale, True)
+    ok = True
     for want_lse in (False, True):
         times, errs = {"baseline": [], "this": []}, {}
-        for who in ("baseline", "this", "this", "baseline"):
-            with use_forward(other if who == "baseline" else fa.FLASH_FWD):
+        for who in TURNS:
+            with use_kernels({"flash_fwd": other["flash_fwd"]}
+                             if who == "baseline" else {}):
                 errs[who] = check_forward(q, k, v, scale, True, want_lse,
                                           ref)
+                ok = ok and errs[who][1]
                 times[who].append(device_ms(lambda: fa._flash_forward_cuda(
                     q, k, v, scale, True, want_lse), 50))
-        mean = {w: sum(t) / len(t) for w, t in times.items()}
-        log("[baseline] %s bf16 causal%s, device ms in turns (baseline, "
-            "this, this, baseline): %s; baseline %.4f, this %.4f: %.2fx "
-            "faster; errors %s"
-            % (SERVED, " with the LSE" if want_lse else "", json.dumps(
-                [times["baseline"][0], times["this"][0], times["this"][1],
-                 times["baseline"][1]]), mean["baseline"], mean["this"],
-               mean["baseline"] / mean["this"], json.dumps(errs)))
-        if not all(ok for _, ok in errs.values()):
-            fail("baseline: a forward disagrees with the plain version")
+        report_turns("flash_fwd" + (" with the LSE" if want_lse else ""),
+                     times, errs)
+    # the backward from the plain forward's output and LSE, as
+    # check_backward takes them
+    out, lse = ref[0], ref[1]
+    g = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    bref = backward_reference(q, k, v, g, out, lse, scale, True)
+    launches = backward_launches(q, k, v, g, out, lse, scale, True)
+    times = {n: {"baseline": [], "this": []} for n in BWD_NAMES}
+    errs = {}
+    for who in TURNS:
+        with use_kernels({n: other[n] for n in BWD_NAMES}
+                         if who == "baseline" else {}):
+            errs[who] = backward_errors(q, k, v, g, out, lse, scale, True,
+                                        bref)
+            ok = ok and errs[who][1]
+            for n in BWD_NAMES:
+                times[n][who].append(device_ms(launches[n], 50))
+    for n in BWD_NAMES:
+        report_turns(n, times[n], errs)
+    pair = {w: sum(sum(times[n][w]) / 2 for n in BWD_NAMES)
+            for w in ("baseline", "this")}
+    log("[baseline] the backward pair (dq + dk/dv), device ms: baseline "
+        "%.4f, this %.4f: %.2fx faster" % (pair["baseline"], pair["this"],
+                                           pair["baseline"] / pair["this"]))
     shutil.rmtree(tmp, ignore_errors=True)
+    if not ok:
+        fail("baseline: a kernel disagrees with the plain version")
 
 
 # Faults planted in copies of the sources by phase_fault_run: each is a
 # list of (file, text, replacement), and the text must occur exactly once.
+# A fault in flash_fwd.cu is held to the forward check, one in
+# flash_bwd.cu to the backward check.
+BWD_MASK = ("        {\n          // P = 0 for columns past the end and, "
+            "causal, for q < k, where\n")
 MUTANTS = {
     "key tile 4 skipped": [
         ("flash_fwd.cu", "      fence_regs(sacc);\n      {\n",
@@ -531,28 +628,63 @@ MUTANTS = {
     "V transpose bit cleared": [
         ("flash_fwd.cu", "constexpr int V_TRANS = 1;",
          "constexpr int V_TRANS = 0;")],
+    "dk/dv: query tile 4 skipped": [
+        ("flash_bwd.cu", BWD_MASK,
+         "        if (DKV && c0 == 4 * BC)\n"
+         "          for (int i = 0; i < BC / 2; ++i) sacc[i] = 0.f;\n"
+         + BWD_MASK)],
+    "dq: key tile 4 skipped": [
+        ("flash_bwd.cu", BWD_MASK,
+         "        if (!DKV && c0 == 4 * BC)\n"
+         "          for (int i = 0; i < BC / 2; ++i) sacc[i] = 0.f;\n"
+         + BWD_MASK)],
+    # at d = 128; the box's bytes are no longer expected
+    "dk/dv: Q's second 64-column box never loaded": [
+        ("flash_bwd.cu", "mbar_arrive_expect_tx(&full[s], 2 * T::COL_BYTES);",
+         "mbar_arrive_expect_tx(&full[s], 2 * T::COL_BYTES - "
+         "(DKV && D == 128 ? T::COL_BOX : 0));"),
+        ("flash_bwd.cu", "              tma_load_3d(sc1 + s * T::COL_BYTES",
+         "              if (!DKV || b == 0) tma_load_3d(sc1 + s * T::COL_BYTES")],
+    # (G read K-major reaches 6 KB past its tile, into the stats and the
+    # output buffers that follow the stages)
+    "dk/dv: G's transpose bit cleared in the dv product": [
+        ("flash_bwd.cu", "issue_ac<D, C_TRANS>(acc2, pa, c2t)",
+         "issue_ac<D, 0>(acc2, pa, c2t)")],
 }
 FAULT_CASES = [(SERVED, SERVED[1], True), ((4, 1000, 128), 1000, True),
                ((2, 200, 128), 330, False)]
-# Copies of the forward kernel with one part taken out or one choice
-# undone, timed against it by phase_ablate (same form as MUTANTS): where
-# the committed kernel's time goes.  Those without a product or the
-# softmax compute garbage.
+BWD_FAULT_CASES = [(SERVED, SERVED[1], True), ((3, 130, 128), 130, True),
+                   ((2, 200, 128), 330, False)]
+# Copies of the kernels with one part taken out or one choice undone,
+# timed against them by phase_ablate (same form as MUTANTS): where the
+# committed kernels' time goes.  Those without a product, the softmax or
+# P and dS compute garbage.
 HEAVIEST_FIRST = "const Item item((w % n_bh) * n_qt + w / n_bh, n_qt, tk, causal);"
+BWD_HEAVIEST_FIRST = ("const Item<DKV> item((w % n_bh) * n_rb + w / n_bh, "
+                      "n_rb, tq, tk, causal);")
+FWD_NO_WGMMA = [
+    ("flash_fwd.cu", "    wgmma_rs<V_TRANS>(oacc, pa[kk],",
+     "    if (false) wgmma_rs<V_TRANS>(oacc, pa[kk],"),
+    ("flash_fwd.cu", "    wgmma_ss<SIGN>(\n", "    if (false) wgmma_ss<SIGN>(\n")]
+FWD_NO_SOFTMAX = [
+    ("flash_fwd.cu", "        softmax_step(sacc, m, l, alpha, abs_scale);\n"
+     "        pack_p(pa, sacc);\n      }\n", "      }\n")]
+BWD_NO_WGMMA = [
+    ("flash_bwd.cu", "    wgmma_ss(acc, desc_sw128(",
+     "    if (false) wgmma_ss(acc, desc_sw128("),
+    ("flash_bwd.cu", "    wgmma_rs<TRANS>(acc, a[kk],",
+     "    if (false) wgmma_rs<TRANS>(acc, a[kk],")]
+BWD_NO_P_DS = [
+    ("flash_bwd.cu", "            sacc[4 * jj + e] =\n"
+     "                exp2_approx(fmaf(sacc[4 * jj + e], scale_log2, nl));",
+     "            (void)nl;"),
+    ("flash_bwd.cu", "            dpacc[i] = sacc[i] * (dpacc[i] - dl) * sm_scale;",
+     "            (void)dl;"),
+    ("flash_bwd.cu", "          if (edge) {", "          if (false) {")]
 ABLATIONS = {
-    "no wgmma (loads, softmax)": [
-        ("flash_fwd.cu", "    wgmma_rs<V_TRANS>(oacc, pa[kk],",
-         "    if (false) wgmma_rs<V_TRANS>(oacc, pa[kk],"),
-        ("flash_fwd.cu", "    wgmma_ss<SIGN>(\n", "    if (false) wgmma_ss<SIGN>(\n")],
-    "no softmax (loads, products)": [
-        ("flash_fwd.cu", "        softmax_step(sacc, m, l, alpha, abs_scale);\n"
-         "        pack_p(pa, sacc);\n      }\n", "      }\n")],
-    "loads only": [
-        ("flash_fwd.cu", "    wgmma_rs<V_TRANS>(oacc, pa[kk],",
-         "    if (false) wgmma_rs<V_TRANS>(oacc, pa[kk],"),
-        ("flash_fwd.cu", "    wgmma_ss<SIGN>(\n", "    if (false) wgmma_ss<SIGN>(\n"),
-        ("flash_fwd.cu", "        softmax_step(sacc, m, l, alpha, abs_scale);\n"
-         "        pack_p(pa, sacc);\n      }\n", "      }\n")],
+    "no wgmma (loads, softmax)": FWD_NO_WGMMA,
+    "no softmax (loads, products)": FWD_NO_SOFTMAX,
+    "loads only": FWD_NO_WGMMA + FWD_NO_SOFTMAX,
     "items heaviest first across heads": [
         ("flash_fwd.cu", "        const Item item(w, n_qt, tk, causal);",
          "        " + HEAVIEST_FIRST),
@@ -566,12 +698,55 @@ ABLATIONS = {
         ("flash_fwd.cu",
          "        if (cw == 0 || j < n_tiles - 1) named_arrive(2 - cw, 256);\n",
          "")],
+    "backward: no wgmma (loads, P and dS)": BWD_NO_WGMMA,
+    "backward: no P and dS (loads, products)": BWD_NO_P_DS,
+    "backward: loads only": BWD_NO_WGMMA + BWD_NO_P_DS,
+    "backward: no output stores": [
+        ("flash_bwd.cu", "    if (rbase + r < n_rows)\n", "    if (false)\n")],
+    "backward: stores straight from the fragments": [
+        ("flash_bwd.cu",
+         "      *reinterpret_cast<uint32_t*>(buf + (g + 8 * h) * T::OUT_STRIDE +\n"
+         "                                   16 * j + 4 * c) =\n",
+         "      if (rbase + g + 8 * h < n_rows)\n"
+         "        *reinterpret_cast<uint32_t*>(out + (size_t)(rbase + g + 8 * h)"
+         " * D +\n                                     8 * j + 2 * c) =\n"),
+        ("flash_bwd.cu", "    if (rbase + r < n_rows)\n", "    if (false)\n")],
+    "backward: column stats through registers": [
+        ("flash_bwd.cu",
+         "              cp_async4(st + lane + 32 * h, l + (in ? col : 0), in);\n"
+         "              cp_async4(st + BC + lane + 32 * h, dl + (in ? col : 0),"
+         " in);\n",
+         "              st[lane + 32 * h] = in ? l[col] : 0.f;\n"
+         "              st[BC + lane + 32 * h] = in ? dl[col] : 0.f;\n"),
+        ("flash_bwd.cu", "            cp_async_arrive(&full[s]);\n",
+         "            mbar_arrive(&full[s]);\n")],
+    "backward: setmaxnreg 24 / 240": [
+        ("flash_bwd.cu", "reg_dealloc<32>();", "reg_dealloc<24>();"),
+        ("flash_bwd.cu", "reg_alloc<232>();", "reg_alloc<240>();")],
+    "backward: 2 stages": [
+        ("flash_bwd.cu", "  static constexpr int STAGES = D == 128 ? 3 : 4;",
+         "  static constexpr int STAGES = 2;")],
+    "backward: items heaviest first across heads": [
+        ("flash_bwd.cu", "        const Item<DKV> item(w, n_rb, tq, tk, causal);\n"
+         "        if (lane == 0) {", "        " + BWD_HEAVIEST_FIRST
+         + "\n        if (lane == 0) {"),
+        ("flash_bwd.cu", "      const Item<DKV> item(w, n_rb, tq, tk, causal);\n"
+         "      const int n_tiles", "      " + BWD_HEAVIEST_FIRST
+         + "\n      const int n_tiles")],
 }
 
 
-def mutant_kernel(edits, tmp):
-    """``flash_fwd`` built from a copy of the sources under ``tmp`` with
-    ``edits`` applied."""
+def copy_kernels(csrc, build_dir, sources):
+    """Wrappers ({name: CudaKernel}) of the entry points of ``sources``
+    (file names), built from the directory ``csrc`` into ``build_dir``."""
+    return {n: kb.CudaKernel(src, n, KERNELS[n].argtypes, csrc=csrc,
+                             build_dir=build_dir)
+            for n, src in SOURCE_OF.items() if src in sources}
+
+
+def mutant_kernels(edits, tmp):
+    """The wrappers of the sources that ``edits`` changes, built from a
+    copy of the sources under ``tmp`` with ``edits`` applied."""
     csrc = tmp / "csrc"
     shutil.copytree(kb.CSRC, csrc)
     for name, text, replacement in edits:
@@ -580,17 +755,16 @@ def mutant_kernel(edits, tmp):
             fail("fault run: %r occurs %d times in %s"
                  % (text, src.count(text), name))
         (csrc / name).write_text(src.replace(text, replacement))
-    return kb.CudaKernel("flash_fwd.cu", "flash_fwd", fa.FLASH_FWD.argtypes,
-                         csrc=csrc, build_dir=tmp / "build")
+    return copy_kernels(csrc, tmp / "build", {name for name, _, _ in edits})
 
 
-def build_copies(named_edits, prefix):
-    """``flash_fwd`` built from copies of the sources, one for each
-    (name, edits) of ``named_edits`` (see ``mutant_kernel``), started
-    together; returns ({name: kernel}, the temporary directory)."""
-    tmp = Path(tempfile.mkdtemp(prefix=prefix))
-    kernels = {name: mutant_kernel(edits, tmp / ("c%d" % i))
-               for i, (name, edits) in enumerate(named_edits.items())}
+def load_all(kernel_sets):
+    """Build every library of ``kernel_sets`` (dicts from
+    ``copy_kernels``), one nvcc for each, started together; then bind
+    every entry point."""
+    firsts = [next(k for n, k in ks.items() if SOURCE_OF[n] == src)
+              for ks in kernel_sets for src in sorted(
+                  {SOURCE_OF[n] for n in ks})]
     errors = []
 
     def load(kern):
@@ -599,34 +773,49 @@ def build_copies(named_edits, prefix):
         except BaseException as e:
             errors.append(repr(e))
 
-    threads = [threading.Thread(target=load, args=(k,))
-               for k in kernels.values()]
+    threads = [threading.Thread(target=load, args=(k,)) for k in firsts]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
-        fail("%s: build failed: %s" % (prefix, errors))
+        fail("build failed: %s" % errors)
+    for ks in kernel_sets:
+        for kern in ks.values():
+            kern.load()
+
+
+def build_copies(named_edits, prefix):
+    """Kernels built from copies of the sources, one copy for each
+    (name, edits) of ``named_edits`` (see ``mutant_kernels``), started
+    together; returns ({name: {kernel name: CudaKernel}}, the temporary
+    directory)."""
+    tmp = Path(tempfile.mkdtemp(prefix=prefix))
+    kernels = {name: mutant_kernels(edits, tmp / ("c%d" % i))
+               for i, (name, edits) in enumerate(named_edits.items())}
+    load_all(list(kernels.values()))
     return kernels, tmp
 
 
 def phase_fault_run():
-    """The forward check (``check_forward``) on the committed kernel and
-    on each of ``MUTANTS``, bf16 at ``FAULT_CASES``, with and without the
-    LSE: the committed kernel must pass every case and each mutant fail
-    at least one.  The copies are built in a temporary directory and
-    removed."""
+    """The committed kernels and each of ``MUTANTS``: a forward mutant
+    against the forward check (``check_forward``) at ``FAULT_CASES``,
+    with and without the LSE; a backward mutant against the backward
+    check (``backward_errors``) at ``BWD_FAULT_CASES``; all bf16.  The
+    committed kernels must pass every case and each mutant fail at least
+    one.  The copies are built in a temporary directory and removed."""
     mutants, tmp = build_copies(MUTANTS, "fault-run-")
-    kernels = dict({"as committed": fa.FLASH_FWD}, **mutants)
+    fwd = [n for n in MUTANTS if "flash_fwd" in mutants[n]]
+    bwd = [n for n in MUTANTS if "flash_bwd_dq" in mutants[n]]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = {name: [] for name in kernels}
+    results = {name: [] for name in ["as committed"] + list(MUTANTS)}
     for shape, tk, causal in FAULT_CASES:
         q, k, v = make_case(shape, tk, torch.bfloat16, gen)
         scale = shape[2] ** -0.5
         ref = reference(q, k, v, scale, causal)
         for want_lse in (False, True):
-            for name, kern in kernels.items():
-                with use_forward(kern):
+            for name in ["as committed"] + fwd:
+                with use_kernels(mutants.get(name, {})):
                     errs, ok = check_forward(q, k, v, scale, causal,
                                              want_lse, ref)
                 results[name].append(dict(
@@ -634,6 +823,20 @@ def phase_fault_run():
                     lse=want_lse, err_over_tol=errs["err_over_tol"],
                     rel_l2=errs["rel_l2"],
                     max_abs_err_lse=errs["max_abs_err_lse"], ok=ok))
+    for shape, tk, causal in BWD_FAULT_CASES:
+        q, k, v = make_case(shape, tk, torch.bfloat16, gen)
+        scale = shape[2] ** -0.5
+        out, lse = fa._reference_attention_lse(q, k, v, scale, causal)
+        g = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+        bref = backward_reference(q, k, v, g, out, lse, scale, causal)
+        for name in ["as committed"] + bwd:
+            with use_kernels(mutants.get(name, {})):
+                errs, ok = backward_errors(q, k, v, g, out, lse, scale,
+                                           causal, bref)
+            results[name].append(dict(
+                shape="%sx%d" % (shape, tk), causal=causal, backward={
+                    n: [e["err_over_tol"], e["rel_l2"]]
+                    for n, e in errs.items()}, ok=ok))
     shutil.rmtree(tmp, ignore_errors=True)
     verdict = {name: all(r["ok"] for r in rs) for name, rs in results.items()}
     for name, rs in results.items():
@@ -641,34 +844,55 @@ def phase_fault_run():
                                     if verdict[name] else "fails"))
     if not verdict["as committed"] or any(
             verdict[name] for name in MUTANTS):
-        fail("fault run: the committed kernel must pass and every mutant "
+        fail("fault run: the committed kernels must pass and every mutant "
              "fail: %s" % verdict)
 
 
 def phase_ablate():
-    """The committed forward kernel and each of ``ABLATIONS`` at the
-    served shape (bf16, causal, no LSE), on device time, in turns (the
-    list, then the list reversed); prints each one's mean and whether it
-    still agrees with the plain version."""
+    """The committed kernels and each of ``ABLATIONS`` at the served
+    shape (bf16, causal; the forward without the LSE), on device time,
+    in turns (the list, then the list reversed); prints each copy's
+    ptxas summary, each one's mean and whether it still agrees with the
+    plain version.  A copy of flash_fwd.cu times the forward, one of
+    flash_bwd.cu each backward kernel."""
     copies, tmp = build_copies(ABLATIONS, "ablate-")
-    kernels = dict({"as committed": fa.FLASH_FWD}, **copies)
+    for name, kernels in copies.items():
+        kern = next(iter(kernels.values()))
+        log("[ablate] %s: %s" % (name, "; ".join(
+            kb.ptxas_summary(kern.build_log))))
+    committed = {n: getattr(fa, ATTRS[n]) for n in ATTRS}
+    kernels = dict({"as committed": committed}, **copies)
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = make_case(SERVED, SERVED[1], torch.bfloat16, gen)
     scale = SERVED[2] ** -0.5
     ref = reference(q, k, v, scale, True)
-    times, right = {name: [] for name in kernels}, {}
+    out, lse = ref[0], ref[1]
+    g = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    bref = backward_reference(q, k, v, g, out, lse, scale, True)
+    launches = backward_launches(q, k, v, g, out, lse, scale, True)
+    times, right = {}, {}
     for name in list(kernels) + list(reversed(list(kernels))):
-        with use_forward(kernels[name]):
-            right[name] = check_forward(q, k, v, scale, True, False, ref)[1]
-            times[name].append(device_ms(lambda: fa._flash_forward_cuda(
-                q, k, v, scale, True, False), 50))
+        with use_kernels(kernels[name]):
+            if "flash_fwd" in kernels[name]:
+                right[name] = check_forward(q, k, v, scale, True, False,
+                                            ref)[1]
+                times.setdefault((name, "flash_fwd"), []).append(device_ms(
+                    lambda: fa._flash_forward_cuda(q, k, v, scale, True,
+                                                   False), 50))
+            if "flash_bwd_dq" in kernels[name]:
+                ok = backward_errors(q, k, v, g, out, lse, scale, True,
+                                     bref)[1]
+                right[name] = right.get(name, True) and ok
+                for n in BWD_NAMES:
+                    times.setdefault((name, n), []).append(device_ms(
+                        launches[n], 50))
     shutil.rmtree(tmp, ignore_errors=True)
-    for name, t in times.items():
-        log("[ablate] %s: device ms %s, mean %.4f (%s the plain version)"
-            % (name, json.dumps(t), sum(t) / len(t),
+    for (name, n), t in times.items():
+        log("[ablate] %s, %s: device ms %s, mean %.4f (%s the plain version)"
+            % (name, n, json.dumps(t), sum(t) / len(t),
                "agrees with" if right[name] else "disagrees with"))
     if not right["as committed"]:
-        fail("ablate: the committed kernel disagrees with the plain version")
+        fail("ablate: the committed kernels disagree with the plain version")
 
 
 def breakdown(cfg, params, fwd, tokens):
@@ -992,13 +1216,14 @@ def parse_args():
         description="Chip smoke test of mxtpu_torch on one H100; with no "
         "arguments, every phase.")
     ap.add_argument("--baseline", metavar="DIR",
-                    help="also time the flash_fwd kernel of the checkout "
-                    "DIR against this one, in turns, on device time")
+                    help="also time the kernels of the checkout DIR "
+                    "against this one's, in turns, on device time")
     ap.add_argument("--fault-run", action="store_true",
-                    help="build and the fault run only: the forward check "
-                    "on the committed kernel and on mutated copies")
+                    help="build and the fault run only: the forward and "
+                    "backward checks on the committed kernels and on "
+                    "mutated copies")
     ap.add_argument("--ablate", action="store_true",
-                    help="build and the ablations only: the forward kernel "
+                    help="build and the ablations only: the kernels "
                     "against copies with a part taken out, on device time")
     return ap.parse_args()
 

@@ -20,27 +20,64 @@
 // kernels keep the cast-down rule at every length, so in f32 they equal
 // those sweeps and in bf16 they equal the block kernels' math.
 //
-// Design for the GPU: one kernel template, two modes.  A block owns 64
-// "rows" and loops over 64-wide "column" tiles, so each output is
+// Design for the GPU: one kernel template, two modes.  A block owns a
+// block of "rows" and loops over "column" tiles, so each output is
 // accumulated in f32 registers and written once, with no atomics (the
 // result is deterministic):
-//   * dq: grid (bh, ceil(Tq / 64)); rows are queries, columns keys.  The
-//     row operands are Q and G, the column tiles K and V, and
-//     dq += dS K.  Key tiles past the causal diagonal are skipped.
-//   * dk/dv: grid (bh, ceil(Tk / 64)); rows are keys, columns queries.
-//     The row operands are K and V, the column tiles Q and G, and the
-//     transposed blocks S^T = K Q^T and dP^T = V G^T give
-//     dv += P^T G and dk += dS^T Q.  Query tiles before the causal
-//     diagonal are skipped.
+//   * dq: rows are queries, columns keys.  The row operands are Q and G,
+//     the column tiles K and V, and dq += dS K.  Key tiles past the
+//     causal diagonal are skipped.
+//   * dk/dv: rows are keys, columns queries.  The row operands are K and
+//     V, the column tiles Q and G, and the transposed blocks S^T = K Q^T
+//     and dP^T = V G^T give dv += P^T G and dk += dS^T Q.  Query tiles
+//     before the causal diagonal are skipped.
 // Ragged Tq and Tk are masked in the kernel: rows past the end are read
-// as zeros and not written, and columns past the end score -1e30.
-// Head dims 16, 32, 64 and 128.  Two paths, by dtype:
-//   * bf16: tensor cores.  4 warps, 16 rows a warp.  All products are
-//     mma.sync m16n8k16 (mma_bf16.cuh).  The two score-like products
-//     leave their blocks in registers in the C layout, which after P and
+// as zeros and not written, and columns past the end get P = 0.  Head
+// dims 16, 32, 64 and 128.  Three paths, chosen by dtype and head dim at
+// compile time:
+//   * bf16, d = 64 and 128 (the trained path; namespace wg): warp-
+//     specialised wgmma.  A block of 384 threads owns 128 rows at a time:
+//     one producer warpgroup (one thread of it issues every TMA copy; the
+//     warpgroup gives up its registers with setmaxnreg) and two consumer
+//     warpgroups of 64 rows each.  The row operands come in once an item
+//     by TMA (3-D tensor maps over (d, T, bh), 64-column boxes with the
+//     128-byte swizzle: rows past the end read as zeros and the next head
+//     is never read); 64-wide column tiles stream through a ring of 3
+//     (d = 128) or 4 shared-memory stages, each with a `full` mbarrier
+//     (expect_tx) and an `empty` one the 8 consumer warps arrive on.
+//     In dk/dv the
+//     producer's warp also copies each tile's column stats (lse and
+//     delta) into its stage by cp.async, which the `full` barrier tracks
+//     (cp.async.mbarrier.arrive): a tensor map cannot take their 4-byte
+//     rows at every Tq, and copies through registers would put a round
+//     trip to memory into every tile's issue.  Per tile, S and dP are
+//     wgmma m64n64k16 with both operands K-major in shared memory, two
+//     groups, so that P = 2^(s * sm_scale * log2(e) - lse * log2(e)) (one
+//     FFMA and one ex2) runs while dP is in flight; then the mask, dS in
+//     f32, P and dS rounded to bf16 straight from the accumulators into
+//     wgmma's register A fragment, and the accumulating products are
+//     wgmma m64n{d}k16 with the column tile read MN-major (transposed)
+//     from the same stage.  A warpgroup skips (waits for and releases)
+//     the tiles wholly above its part of the diagonal, which are the
+//     first it visits: dk/dv visits query tiles ascending, dq key tiles
+//     descending.  No branch surrounds a wgmma issue or wait, so ptxas
+//     keeps them asynchronous.  Each warp's 16 output rows go out
+//     through a padded buffer of its own in shared memory, as whole rows
+//     in 16-byte pieces (straight from the fragments, a warp's store
+//     touches 8 rows, and both kernels were slower on an H100: PERF.md).
+//     Setmaxnreg gives the producer 32 registers (24 spilled in dk/dv)
+//     and each consumer thread 232.  Persistent: one block an SM walks
+//     (row block, head) items, heaviest first within a head, in a zigzag
+//     over blocks; the rows are released after the item's last score
+//     products, so the next item's rows load under its last products and
+//     its output stores.
+//   * bf16, d = 16 and 32 (namespace tc): the earlier mma.sync design,
+//     kept because those widths need the 32- and 64-byte swizzles on the
+//     wgmma path and no model uses them: 4 warps, 16 rows a warp, 64-row
+//     blocks and 64-wide column tiles double-buffered by cp.async; the
+//     score blocks stay in registers in the C layout, which after P and
 //     dS are rounded to bf16 is the A layout of the next product; the
-//     column tiles enter that product through ldmatrix.trans.  Column
-//     tiles are double-buffered in shared memory by cp.async.
+//     column tiles enter that product through ldmatrix.trans.
 //   * f32: every product is an f32 FMA on the CUDA cores (no TF32: JAX's
 //     f32 path is exact f32).  16 x 16 threads, P and dS in shared memory.
 //
@@ -53,11 +90,12 @@
 //          35 us; bytes q, k, v, g read, dk and dv written (6 * 16.8 MB)
 //          plus lse and delta = 101 MB -> 30 us.
 // Both are bound by operations, just, so the design keeps every product
-// on the tensor cores and every score block on chip: S, P, dP and dS
-// never touch device memory, the row operands are read once, and the
-// column tiles a head's blocks share are re-read from the 50 MB L2.
-// mma.sync reaches a fraction of the wgmma rate; wgmma with TMA-fed
-// tiles, and one fused sweep, are the next steps for speed.
+// on the tensor cores (wgmma, the only way to their full rate on this
+// card) and every score block on chip: S, P, dP and dS never touch
+// device memory, the row operands are read once, and the column tiles a
+// head's blocks share are re-read from the 50 MB L2, each by 128 rows
+// (with 64-row blocks, twice as often).
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -505,6 +543,466 @@ __global__ void __launch_bounds__(NTHREADS) kernel(Args a) {
 
 }  // namespace tc
 
+// ------------------------------- bf16 wgmma path (d = 64 and 128, sm_90a)
+
+namespace wg {
+
+using namespace hopper;
+using bf16 = __nv_bfloat16;
+using mma_bf16::pack;
+
+constexpr int BR = 128;            // rows a work item: 2 warpgroups x 64
+constexpr int BC = 64;             // columns a tile
+constexpr int NTHREADS = 384;      // producer warpgroup, 2 consumer ones
+constexpr int CONSUMER_WARPS = 8;  // arrivals that release a stage
+constexpr float LOG2E = 1.44269504088896341f;
+// A column tile's rows are the reduction of the accumulating products
+// (dq += dS K, dk += dS^T Q, dv += P^T G), so as their B (rows x d) it is
+// MN-major: read it transposed
+constexpr int C_TRANS = 1;
+
+template <int D>
+struct Tile {
+  static constexpr int BOXES = D / 64;  // 64-column (128-byte) boxes a row
+  // column tiles in flight (at d = 128, 4 leave no room for the output
+  // buffers, and 3 were as fast on an H100)
+  static constexpr int STAGES = D == 128 ? 3 : 4;
+  static constexpr uint32_t ROW_BOX = BR * 128;     // one box of X1 or X2
+  static constexpr uint32_t ROW_BYTES = BR * D * 2;
+  static constexpr uint32_t COL_BOX = BC * 128;     // one box of C1 or C2
+  static constexpr uint32_t COL_BYTES = BC * D * 2;
+  static constexpr uint32_t STAT_BYTES = 2 * BC * 4;  // a tile's lse, delta
+  // a consumer warp's 16 output rows, each padded by 16 bytes so that
+  // the fragment's 4-byte writes meet 32 banks
+  static constexpr uint32_t OUT_STRIDE = D * 2 + 16;
+  static constexpr uint32_t OUT_WARP_BYTES = 16 * OUT_STRIDE;
+  // X1, X2, the C1 stages, the C2 stages, the column stats, the output
+  // buffers, the barriers; and room to align the base to 1024 bytes (the
+  // swizzle atom)
+  static constexpr size_t smem_bytes() {
+    return 1024 + 2 * ROW_BYTES + STAGES * (2 * COL_BYTES + STAT_BYTES) +
+           CONSUMER_WARPS * OUT_WARP_BYTES + (2 + 2 * STAGES) * 8;
+  }
+};
+
+// 4 bytes from global memory into shared memory, asynchronously (zeros
+// where `in` is false; src must be a valid address all the same)
+__device__ __forceinline__ void cp_async4(void* dst, const float* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// one arrival on bar once this thread's earlier cp.async copies have
+// landed (counted among the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// The w-th work item: row block rb of head w / n_rb, where the row blocks
+// of a head are ordered heaviest first under a causal mask (dk/dv: the
+// low key blocks see the most queries; dq: the high query blocks see the
+// most keys).  Its column tiles [c_begin, c_begin + n_tiles * BC) are
+// visited ascending in dk/dv and descending in dq, so that the tiles a
+// warpgroup skips (wholly above its part of the causal diagonal) come
+// first in both.
+template <bool DKV>
+struct Item {
+  int bh, r0, c_begin, n_tiles;
+  __device__ __forceinline__ Item(int w, int n_rb, int tq, int tk,
+                                  int causal) {
+    bh = w / n_rb;
+    const int rb = w % n_rb;
+    if (DKV) {
+      r0 = rb * BR;
+      c_begin = causal ? r0 : 0;  // queries before the block's first key
+      n_tiles = c_begin < tq ? (tq - c_begin + BC - 1) / BC : 0;
+    } else {
+      r0 = (n_rb - 1 - rb) * BR;
+      c_begin = 0;
+      // causal: the block's last row sees keys up to r0 + BR - 1
+      const int c_end = causal ? min(tk, r0 + BR) : tk;
+      n_tiles = (c_end + BC - 1) / BC;
+    }
+  }
+  // the first column of the j-th tile visited
+  __device__ __forceinline__ int col0(int j) const {
+    return DKV ? c_begin + j * BC : (n_tiles - 1 - j) * BC;
+  }
+  // the tiles warpgroup cw (rows r0 + 64 cw ..) skips at the start: all of
+  // them if it has no row before the end, else those wholly above its
+  // part of the causal diagonal (dk/dv: the query tile at r0 for the
+  // second warpgroup; dq: the last key tile for the first, where the
+  // second sees one more)
+  __device__ __forceinline__ int skip(int cw, int tq, int tk,
+                                      int causal) const {
+    const int rw = r0 + 64 * cw;
+    if (rw >= (DKV ? tk : tq)) return n_tiles;
+    if (!causal) return 0;
+    if (DKV) return min(cw, n_tiles);
+    return n_tiles - (min(tk, rw + 64) + BC - 1) / BC;
+  }
+};
+
+__device__ __forceinline__ int item_of(int round, int n_items) {
+  const int g = gridDim.x, b = blockIdx.x;
+  const int w = round * g + (round % 2 == 0 ? b : g - 1 - b);
+  return w < n_items ? w : -1;
+}
+
+// acc (+)= X C^T for the warpgroup's 64 rows of X (at xw) and the column
+// tile at ct, 16 deep a step; at d = 128 steps 4-7 read the second box.
+// One committed group.
+template <int D>
+__device__ __forceinline__ void issue_xc(float (&acc)[BC / 2],
+                                         const unsigned char* xw,
+                                         const unsigned char* ct) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss(acc, desc_sw128(xw + (kk / 4) * Tile<D>::ROW_BOX + off, 16, 1024),
+             desc_sw128(ct + (kk / 4) * Tile<D>::COL_BOX + off, 16, 1024),
+             kk > 0);
+  }
+  wgmma_commit();
+}
+
+// acc += A C for A in registers (bf16, 64 columns) and the column tile at
+// ct read transposed (TRANS = C_TRANS), 16 of its rows a step: two 8-row
+// groups 1024 bytes apart; at d = 128 the second 64 columns are the next
+// box (the leading offset).  Not committed.
+template <int D, int TRANS>
+__device__ __forceinline__ void issue_ac(float (&acc)[D / 2],
+                                         const uint32_t (&a)[BC / 16][4],
+                                         const unsigned char* ct) {
+#pragma unroll
+  for (int kk = 0; kk < BC / 16; ++kk)
+    wgmma_rs<TRANS>(acc, a[kk],
+                    desc_sw128(ct + kk * 16 * 128, Tile<D>::COL_BOX, 1024));
+}
+
+// A 64 x 64 block of f32 accumulators rounded to bf16 in wgmma's register
+// A layout: 8-column groups 2kk and 2kk+1 are the 16-deep step kk
+__device__ __forceinline__ void pack_a(uint32_t (&a)[BC / 16][4],
+                                       const float (&acc)[BC / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BC / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack(acc[8 * kk + 2 * r], acc[8 * kk + 2 * r + 1]);
+}
+
+// A warp's 16 rows of an output (acc, the accumulator of m64n{d}) to
+// rows rbase.. of out, those before n_rows: rounded to bf16 into the
+// warp's buffer buf in the fragment layout, then read back and stored
+// 16 bytes a thread, whole rows a warp instruction (written straight
+// from the fragments, each store of a warp would touch 8 rows).
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           unsigned char* buf, bf16* out,
+                                           int rbase, int n_rows, int lane) {
+  using T = Tile<D>;
+  constexpr int CHUNKS = D * 2 / 16;        // 16-byte pieces a row
+  constexpr int ROWS_A_STEP = 32 / CHUNKS;  // rows a warp instruction
+  const int g = lane / 4, c = lane % 4;
+  __syncwarp();  // the buffer's earlier reads are done
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(buf + (g + 8 * h) * T::OUT_STRIDE +
+                                   16 * j + 4 * c) =
+          pack(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 16 / ROWS_A_STEP; ++i) {
+    const int r = i * ROWS_A_STEP + lane / CHUNKS, k = lane % CHUNKS;
+    const uint4 v =
+        *reinterpret_cast<const uint4*>(buf + r * T::OUT_STRIDE + 16 * k);
+    if (rbase + r < n_rows)
+      *reinterpret_cast<uint4*>(
+          reinterpret_cast<unsigned char*>(out + (size_t)(rbase + r) * D) +
+          16 * k) = v;
+  }
+}
+
+// One kernel, two modes, as the tc path: rows are queries and columns
+// keys in dq (X1 = Q, X2 = G, C1 = K, C2 = V), rows keys and columns
+// queries in dk/dv (X1 = K, X2 = V, C1 = Q, C2 = G).  Each tile gives
+// S = X1 C1^T and dP = X2 C2^T (transposed blocks in dk/dv), P and dS,
+// then out1 += dS C1 and, in dk/dv, out2 += P C2.  scale_log2 = sm_scale
+// * log2(e).  Persistent: one block an SM walks its work items
+// (item_of), and the producer loads the next item's rows while the
+// consumers finish this one.
+template <int D, bool DKV>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    kernel(const __grid_constant__ CUtensorMap tm_x1,
+           const __grid_constant__ CUtensorMap tm_x2,
+           const __grid_constant__ CUtensorMap tm_c1,
+           const __grid_constant__ CUtensorMap tm_c2,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           bf16* __restrict__ out1, bf16* __restrict__ out2, int n_bh,
+           int tq, int tk, float scale_log2, float sm_scale, int causal) {
+  using T = Tile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sx1 =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sx2 = sx1 + T::ROW_BYTES;
+  unsigned char* sc1 = sx2 + T::ROW_BYTES;          // C1 stages
+  unsigned char* sc2 = sc1 + T::STAGES * T::COL_BYTES;  // C2 stages
+  // per stage (dk/dv): lse, then delta, of the tile's 64 columns
+  float* sst = reinterpret_cast<float*>(sc2 + T::STAGES * T::COL_BYTES);
+  unsigned char* sout =
+      reinterpret_cast<unsigned char*>(sst + T::STAGES * 2 * BC);
+  uint64_t* full_x = reinterpret_cast<uint64_t*>(
+      sout + CONSUMER_WARPS * T::OUT_WARP_BYTES);
+  uint64_t* empty_x = full_x + 1;
+  uint64_t* full = empty_x + 1;
+  uint64_t* empty = full + T::STAGES;
+
+  const int n_rows = DKV ? tk : tq, n_cols = DKV ? tq : tk;
+  const int n_rb = (n_rows + BR - 1) / BR;
+  const int n_items = n_bh * n_rb;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(full_x, 1);
+    mbar_init(empty_x, CONSUMER_WARPS);
+    for (int s = 0; s < T::STAGES; ++s) {
+      // dk/dv: also the 32 lanes of the producer warp that copy the
+      // stats
+      mbar_init(&full[s], DKV ? 33 : 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Tiles are counted across items (it): the it-th tile is in stage
+  // it % STAGES, on that stage's barriers' (it / STAGES)-th phase.
+  if (tid < 128) {
+    // ---- producer warpgroup: one thread issues every TMA copy; in
+    // dk/dv its warp also copies the column stats (lse, delta) by
+    // cp.async, tracked by the stage's barrier (a tensor map cannot take
+    // their rows of 4 bytes at every Tq)
+    reg_dealloc<32>();
+    const int lane = tid % 32;
+    if (DKV ? tid < 32 : tid == 0) {
+      if (lane == 0) {
+        prefetch_tensormap(&tm_x1);
+        prefetch_tensormap(&tm_x2);
+        prefetch_tensormap(&tm_c1);
+        prefetch_tensormap(&tm_c2);
+      }
+      int it = 0;
+      for (int r = 0;; ++r) {
+        const int w = item_of(r, n_items);
+        if (w < 0) break;
+        const Item<DKV> item(w, n_rb, tq, tk, causal);
+        if (lane == 0) {
+          // every consumer warp is done with the previous item's rows
+          if (r > 0) mbar_wait(empty_x, (r - 1) & 1);
+          mbar_arrive_expect_tx(full_x, 2 * T::ROW_BYTES);
+#pragma unroll
+          for (int b = 0; b < T::BOXES; ++b) {
+            tma_load_3d(sx1 + b * T::ROW_BOX, &tm_x1, full_x, 64 * b,
+                        item.r0, item.bh);
+            tma_load_3d(sx2 + b * T::ROW_BOX, &tm_x2, full_x, 64 * b,
+                        item.r0, item.bh);
+          }
+        }
+        for (int j = 0; j < item.n_tiles; ++j, ++it) {
+          const int s = it % T::STAGES;
+          const int c0 = item.col0(j);
+          // every consumer warp released this stage's previous tile
+          if (it >= T::STAGES) mbar_wait(&empty[s], (it / T::STAGES - 1) & 1);
+          if (DKV) {
+            // columns past Tq get 0 (they are masked)
+            const float* l = lse + (size_t)item.bh * tq;
+            const float* dl = delta + (size_t)item.bh * tq;
+            float* st = sst + s * 2 * BC;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int col = c0 + lane + 32 * h;
+              const bool in = col < tq;
+              cp_async4(st + lane + 32 * h, l + (in ? col : 0), in);
+              cp_async4(st + BC + lane + 32 * h, dl + (in ? col : 0), in);
+            }
+            cp_async_arrive(&full[s]);
+          }
+          if (lane == 0) {
+            // the full boxes are counted, rows past the end too (TMA
+            // writes zeros)
+            mbar_arrive_expect_tx(&full[s], 2 * T::COL_BYTES);
+#pragma unroll
+            for (int b = 0; b < T::BOXES; ++b) {
+              tma_load_3d(sc1 + s * T::COL_BYTES + b * T::COL_BOX, &tm_c1,
+                          &full[s], 64 * b, c0, item.bh);
+              tma_load_3d(sc2 + s * T::COL_BYTES + b * T::COL_BOX, &tm_c2,
+                          &full[s], 64 * b, c0, item.bh);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // ---- two consumer warpgroups, 64 rows of each item each
+    reg_alloc<232>();
+    // the warpgroup index, read from lane 0 so that the compiler sees it
+    // uniform and keeps the wgmma descriptors in uniform registers
+    const int cw = __shfl_sync(0xffffffffu, tid / 128, 0) - 1;
+    const int warp = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane / 4, c = lane % 4;
+    const unsigned char* x1w = sx1 + cw * 64 * 128;  // this warpgroup's rows
+    const unsigned char* x2w = sx2 + cw * 64 * 128;
+    int it = 0;
+    for (int r = 0;; ++r) {
+      const int w = item_of(r, n_items);
+      if (w < 0) break;
+      const Item<DKV> item(w, n_rb, tq, tk, causal);
+      const int n_tiles = item.n_tiles;
+      const int rbase = item.r0 + cw * 64 + warp * 16;  // this warp's 1st row
+      const int row0 = rbase + g;  // this thread's rows: row0 and row0 + 8
+
+      float acc1[D / 2];                  // dq or dk
+      float acc2[DKV ? D / 2 : 1];        // dv
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc1[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < (DKV ? D / 2 : 1); ++i) acc2[i] = 0.f;
+      // dq: this thread's rows' -lse * log2(e) and delta; rows past Tq
+      // get 0, so that P stays finite and dS is 0 (their Q and G are 0)
+      float nl_row[2] = {0.f, 0.f}, dl_row[2] = {0.f, 0.f};
+      if (!DKV) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 8 * h;
+          if (row < tq) {
+            nl_row[h] = -lse[(size_t)item.bh * tq + row] * LOG2E;
+            dl_row[h] = delta[(size_t)item.bh * tq + row];
+          }
+        }
+      }
+
+      mbar_wait(full_x, r & 1);
+      // the tiles this warpgroup skips: each is waited for, so that the
+      // stage's previous phase is complete, and released
+      const int skip = item.skip(cw, tq, tk, causal);
+      for (int j = 0; j < skip; ++j) {
+        const int s = (it + j) % T::STAGES;
+        mbar_wait(&full[s], ((it + j) / T::STAGES) & 1);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+      if (skip >= n_tiles) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_x);
+      }
+
+      for (int j = skip; j < n_tiles; ++j) {
+        const int s = (it + j) % T::STAGES;
+        const int c0 = item.col0(j);
+        const unsigned char* c1t = sc1 + s * T::COL_BYTES;
+        const unsigned char* c2t = sc2 + s * T::COL_BYTES;
+        const float* st = sst + s * 2 * BC;
+        float sacc[BC / 2], dpacc[BC / 2];
+        uint32_t pa[BC / 16][4], da[BC / 16][4];
+
+        // S and dP: two groups, the exponentials of S run under dP
+        mbar_wait(&full[s], ((it + j) / T::STAGES) & 1);
+        wgmma_fence();
+        issue_xc<D>(sacc, x1w, c1t);
+        issue_xc<D>(dpacc, x2w, c2t);
+        wgmma_wait<1>();
+        fence_regs(sacc);
+        // P = 2^(s * sm_scale * log2(e) - lse * log2(e)): one FFMA and
+        // one ex2 a score.  Score 4 jj + e is row row0 + 8 (e / 2),
+        // column c0 + 8 jj + 2c + e % 2.
+#pragma unroll
+        for (int jj = 0; jj < BC / 8; ++jj) {
+          float2 nl2 = make_float2(0.f, 0.f);
+          if (DKV) {
+            nl2 = *reinterpret_cast<const float2*>(st + 8 * jj + 2 * c);
+            nl2.x *= -LOG2E;
+            nl2.y *= -LOG2E;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float nl = DKV ? ((e & 1) ? nl2.y : nl2.x) : nl_row[e >> 1];
+            sacc[4 * jj + e] =
+                exp2_approx(fmaf(sacc[4 * jj + e], scale_log2, nl));
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(dpacc);
+        if (j == n_tiles - 1) {
+          // every product that reads the rows is done: the producer may
+          // load the next item's
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty_x);
+        }
+        {
+          // P = 0 for columns past the end and, causal, for q < k, where
+          // this warp's rows can meet either
+          const bool edge =
+              c0 + BC > n_cols ||
+              (causal && (DKV ? c0 < rbase + 15 : c0 + BC - 1 > rbase));
+          if (edge) {
+#pragma unroll
+            for (int i = 0; i < BC / 2; ++i) {
+              const int col = c0 + 8 * (i / 4) + 2 * c + (i & 1);
+              const int row = row0 + 8 * ((i / 2) & 1);
+              if (col >= n_cols || (causal && (DKV ? col < row : row < col)))
+                sacc[i] = 0.f;
+            }
+          }
+        }
+        // dS = P (dP - delta) sm_scale in f32
+#pragma unroll
+        for (int jj = 0; jj < BC / 8; ++jj) {
+          const float2 dl2 =
+              DKV ? *reinterpret_cast<const float2*>(st + BC + 8 * jj + 2 * c)
+                  : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * jj + e;
+            const float dl = DKV ? ((e & 1) ? dl2.y : dl2.x) : dl_row[e >> 1];
+            dpacc[i] = sacc[i] * (dpacc[i] - dl) * sm_scale;
+          }
+        }
+        // P and dS rounded to bf16, then out1 += dS C1 and (dk/dv)
+        // out2 += P C2
+        pack_a(da, dpacc);
+        if constexpr (DKV) pack_a(pa, sacc);
+        wgmma_fence();
+        issue_ac<D, C_TRANS>(acc1, da, c1t);
+        if constexpr (DKV) issue_ac<D, C_TRANS>(acc2, pa, c2t);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc1);
+        if constexpr (DKV) fence_regs(acc2);
+        // this warp is done with stage s (its wgmmas retired)
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+      it += n_tiles;
+
+      // the outputs, rounded to bf16; rows past the end are not written
+      unsigned char* wbuf = sout + (cw * 4 + warp) * T::OUT_WARP_BYTES;
+      const size_t base = (size_t)item.bh * n_rows * D;
+      store_rows<D>(acc1, wbuf, out1 + base, rbase, n_rows, lane);
+      if constexpr (DKV)
+        store_rows<D>(acc2, wbuf, out2 + base, rbase, n_rows, lane);
+    }
+  }
+}
+
+}  // namespace wg
+
 template <bool DKV>
 cudaError_t run(void (*kern)(Args), int nthreads, size_t smem,
                 const Args& a, cudaStream_t stream) {
@@ -517,13 +1015,50 @@ cudaError_t run(void (*kern)(Args), int nthreads, size_t smem,
   return cudaGetLastError();
 }
 
+// The wgmma path: tensor maps over the row operands (boxes of 128 rows)
+// and the column tiles (64 rows), and one block an SM, or one an item.
+template <int D, bool DKV>
+cudaError_t run_wg(const Args& a, cudaStream_t stream) {
+  const int n_rows = DKV ? a.tk : a.tq, n_cols = DKV ? a.tq : a.tk;
+  CUtensorMap maps[4];
+  if (!hopper::tensor_map(&maps[0], DKV ? a.k : a.q, a.bh, n_rows, D,
+                          wg::BR) ||
+      !hopper::tensor_map(&maps[1], DKV ? a.v : a.g, a.bh, n_rows, D,
+                          wg::BR) ||
+      !hopper::tensor_map(&maps[2], DKV ? a.q : a.k, a.bh, n_cols, D,
+                          wg::BC) ||
+      !hopper::tensor_map(&maps[3], DKV ? a.g : a.v, a.bh, n_cols, D,
+                          wg::BC))
+    return cudaErrorInvalidValue;
+  const size_t smem = wg::Tile<D>::smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      wg::kernel<D, DKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long items = (long long)a.bh * ((n_rows + wg::BR - 1) / wg::BR);
+  const int grid = (int)(items < sms ? items : sms);
+  wg::kernel<D, DKV><<<grid, wg::NTHREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a.lse, a.delta,
+      static_cast<wg::bf16*>(a.out1), static_cast<wg::bf16*>(a.out2), a.bh,
+      a.tq, a.tk, a.sm_scale * wg::LOG2E, a.sm_scale, a.causal);
+  return cudaGetLastError();
+}
+
 template <int D, bool DKV>
 cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
   if (dtype == 0)
     return run<DKV>(f32::kernel<D, DKV>, f32::NTHREADS,
                     f32::Tile<D>::smem_bytes(), a, stream);
-  return run<DKV>(tc::kernel<D, DKV>, tc::NTHREADS, tc::Tile<D>::smem_bytes(),
-                  a, stream);
+  if constexpr (D >= 64)
+    return run_wg<D, DKV>(a, stream);
+  else
+    return run<DKV>(tc::kernel<D, DKV>, tc::NTHREADS,
+                    tc::Tile<D>::smem_bytes(), a, stream);
 }
 
 template <bool DKV>

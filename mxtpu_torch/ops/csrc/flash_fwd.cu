@@ -490,12 +490,6 @@ struct Tile {
   }
 };
 
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // SIGN * S = SIGN * Q K^T (64 rows of Q at qw, the K tile at
 // kt), 16 deep a step; at d = 128 steps 4-7 read the second box.  A
 // negative scale negates S through wgmma's scale-a (exact: it negates
@@ -825,44 +819,6 @@ cudaError_t run(void (*kern)(const T*, const T*, const T*, T*, float*, int,
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled from the driver, found at run time so that the
-// library needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A (bh, t, d) bf16 tensor read in boxes of 64 columns by `rows` rows of
-// one head, with the 128-byte swizzle; rows past t read as zeros.
-bool tensor_map(CUtensorMap* map, const void* p, int bh, int t, int d,
-                int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
-                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D, int SIGN>
 cudaError_t run_wg(const Args& a, const CUtensorMap (&maps)[3],
                    float abs_scale) {
@@ -888,9 +844,9 @@ cudaError_t run_wg(const Args& a, const CUtensorMap (&maps)[3],
 template <int D>
 cudaError_t run_wg(const Args& a) {
   CUtensorMap maps[3];
-  if (!tensor_map(&maps[0], a.q, a.bh, a.tq, D, wg::BQ) ||
-      !tensor_map(&maps[1], a.k, a.bh, a.tk, D, wg::BK) ||
-      !tensor_map(&maps[2], a.v, a.bh, a.tk, D, wg::BK))
+  if (!hopper::tensor_map(&maps[0], a.q, a.bh, a.tq, D, wg::BQ) ||
+      !hopper::tensor_map(&maps[1], a.k, a.bh, a.tk, D, wg::BK) ||
+      !hopper::tensor_map(&maps[2], a.v, a.bh, a.tk, D, wg::BK))
     return cudaErrorInvalidValue;
   // sm_scale * log2(e); a zero scale (every score 0) becomes a tiny one,
   // which gives the same uniform weights and keeps masked keys at 0

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's kernels, in PTX written
-// by hand: TMA tensor loads into shared memory, mbarriers (init, arrive,
-// expect_tx, parity waits), wgmma descriptors for operands laid out by
-// TMA's 128-byte swizzle, the wgmma instructions the flash kernels use
-// with their fence / commit / wait, named barriers and setmaxnreg.
+// by hand: TMA tensor loads into shared memory and the tensor maps they
+// read (encoded on the host), mbarriers (init, arrive, expect_tx, parity
+// waits), wgmma descriptors for operands laid out by TMA's 128-byte
+// swizzle, the wgmma instructions the flash kernels use with their
+// fence / commit / wait, named barriers, setmaxnreg and ex2.approx.
 // kernel_build.py hashes this header into every library name.
 //
 // Conventions:
@@ -12,6 +13,10 @@
 //   * every tile starts on a 1024-byte boundary (8 rows of 128 bytes,
 //     one swizzle atom), so the swizzle seen by TMA and by wgmma agree,
 //     and a descriptor may advance along a row by 32 bytes (16 values);
+//   * a tile read transposed (MN-major: its rows are the reduction) has
+//     its leading offset equal to its box size, rows * 128 bytes: 16 KB
+//     for a 128-row tile (the forward's V), 8 KB for a 64-row tile (the
+//     backward's column tiles);
 //   * a wgmma accumulator of m64nN, a warp's 16 rows, is the m16n8k16
 //     C fragment of each 8-column group j: d[4j + e] is row g + 8 (e / 2),
 //     column 8j + 2c + (e % 2), with lane = 4g + c.
@@ -153,6 +158,28 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// d (+)= A B, m64n64k16, A and B K-major in shared memory (by
+// descriptor); d is overwritten where accumulate is 0
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // d (+)= SCALE_A * A B (SCALE_A 1 or -1), m64n128k16, A and B K-major in
 // shared memory (by descriptor); d is overwritten where accumulate is 0
 template <int SCALE_A>
@@ -270,6 +297,54 @@ __device__ __forceinline__ void reg_dealloc() {
 template <int R>
 __device__ __forceinline__ void reg_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// ------------------------------------------------------------------ math
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ------------------------------------------------- tensor maps (host)
+
+// cuTensorMapEncodeTiled from the driver, found at run time so that the
+// library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A (bh, t, d) bf16 tensor read in boxes of 64 columns by `rows` rows of
+// one head, with the 128-byte swizzle; rows past t read as zeros.
+inline bool tensor_map(CUtensorMap* map, const void* p, int bh, int t, int d,
+                       int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

@@ -283,10 +283,11 @@ def flash_attention(q, k, v, sm_scale=None, causal=False, block_q=512,
     view (such as heads split by a transpose) becomes a copy there.
 
     ``block_q``/``block_k`` are kept for the JAX signature and do not
-    change the result.  The CUDA kernels pick their own tiles (the bf16
-    forward at head dims 64 and 128: 128 query rows by 128-key tiles;
-    otherwise 64 by 64); the TPU's block fitting (``_fit``) has no
-    counterpart because the kernels mask ragged lengths themselves.
+    change the result.  The CUDA kernels pick their own tiles (in bf16
+    at head dims 64 and 128, the forward 128 query rows by 128-key
+    tiles and the backward 128 rows by 64-wide column tiles; otherwise
+    64 by 64); the TPU's block fitting (``_fit``) has no counterpart
+    because the kernels mask ragged lengths themselves.
 
     The forward writes the LSE only when a gradient is needed (grad
     mode on and one of q, k, v requiring grad), so under ``no_grad`` or
