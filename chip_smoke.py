@@ -64,6 +64,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    under torch.profiler (device busy time, idle share, the kernels with
    the most device time).
 
+5. resnet  -- ResNet-50 v1 trained through ``mxtpu_torch.sym`` and
+   ``mxtpu_torch.mod`` as bench.py's per-step row does
+   (``run_per_step_fp32``): the JAX package's exported graph
+   (``mxtpu_torch/symbol/zoo/resnet50_v1-symbol.json``) loaded with
+   ``sym.load``, a ``Module`` bound on the card at data (32, 3, 224,
+   224) and label (32,), ``Xavier`` after ``random.seed(0)``, SGD with
+   lr 0.01 and momentum 0.9, one fixed batch drawn as bench.py draws it;
+   2 warm steps and 20 timed steps of forward/backward/update in fp32
+   (TF32 off), synchronised by value.  Checks that the outputs are
+   finite, that the cross-entropy of the last step is below the first's,
+   that every BN moving stat (running_mean, running_var) moved and every
+   moving variance stays positive, that no flash-attention kernel
+   launched, and one step at batch 2 on the card against the same step
+   on the CPU and in float64 (the output's relative L2 against the CPU's
+   at most 1e-4; all updates as close to the float64 step as the CPU's
+   float32 step is, within a factor 2, each parameter's within a factor
+   3: ``resnet_step_check``; the same step with TF32 on is printed
+   beside it).  Prints images/s and ms a step as
+   ``resnet50_train_imgs_per_sec_bs32_per_step``, one profiled step
+   (device busy time, idle share, launches, the 8 device operations with
+   the most time), peak device memory and the step's fp32 bound.
+
 The line before the last is the card's name and power limit, the line
 before that the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -116,11 +138,19 @@ K_STEPS, TRAIN_CALLS = 8, 4
 # never sees the ctypes launch, so the Function's forward runs again),
 # then one launch of each backward kernel per layer
 PER_STEP = {"flash_fwd": 16, "flash_bwd_dq": 8, "flash_bwd_dkv": 8}
+# bench.py's ResNet row: batch, steps, and the training FLOP per image
+# (bench.py:111, forward and backward)
+RESNET_BATCH, RESNET_WARM, RESNET_STEPS = 32, 2, 20
+RESNET_GFLOP_PER_IMG = 12.3
+# card-vs-CPU step: the output's bound (relative L2); the updates are
+# held to the CPU's own distance from float64 (resnet_step_check)
+RESNET_OUT_TOL = 1e-4
 
 if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke.py: no CUDA device is present\n")
     sys.exit(2)
 
+import mxtpu_torch as mx  # noqa: E402
 from mxtpu_torch import serve  # noqa: E402
 from mxtpu_torch.ops import flash_attention as fa  # noqa: E402
 from mxtpu_torch.ops import kernel_build as kb  # noqa: E402
@@ -1211,6 +1241,248 @@ def phase_train(kernel_records):
     return launches
 
 
+def resnet_module(batch, ctx):
+    """ResNet-50 v1 from the exported graph in a Module bound at
+    ``batch`` on ``ctx``, as bench.py's ``_build_module`` binds it."""
+    symbol = mx.sym.load(mx.sym.ZOO["resnet50_v1"])
+    mod = mx.mod.Module(symbol, data_names=("data0",),
+                        label_names=("softmax_label",), context=ctx)
+    mod.bind(data_shapes=[("data0", (batch, 3, 224, 224))],
+             label_shapes=[("softmax_label", (batch,))])
+    return mod
+
+
+def resnet_batch(batch, ctx, seed=0):
+    """bench.py's ``_synthetic_batch``: rand images, float32 labels."""
+    rng = np.random.RandomState(seed)
+    data = rng.rand(batch, 3, 224, 224).astype("float32")
+    label = rng.randint(0, 1000, (batch,)).astype("float32")
+    return mx.io.DataBatch(data=[mx.nd.array(data, ctx=ctx)],
+                           label=[mx.nd.array(label, ctx=ctx)])
+
+
+def cross_entropy(mod, batch):
+    ce = mx.metric.CrossEntropy()
+    ce.update(batch.label, mod.get_outputs())
+    return ce.get()[1]
+
+
+def resnet_step_check(params, aux):
+    """One SGD step at batch 2 on the card (TF32 off) against the same
+    step on the CPU, from the same weights; both against the exact step
+    (the CPU in float64).  At batch 2 the step is ill-conditioned: the
+    global pool hands each last-stage BatchNorm a gradient nearly
+    constant over its 98 elements, which its backward mostly cancels, so
+    f32 rounding moves every update below it by a few percent (the CPU's
+    f32 step against float64 reads it each run).  So the card's output
+    must agree with the CPU's to RESNET_OUT_TOL (1e-4; it is well
+    conditioned); all updates together must lie as close to the exact
+    step as the CPU's f32 step does within a factor 2, and each
+    parameter's update within a factor 3 (the card's and the CPU's
+    rounding differ independently, and over 161 parameters the largest
+    ratio of their distances reached 1.85 on an H100), each plus 1e-3 of
+    the exact update and 1e-6 of the largest (the floor for the conv
+    biases a BatchNorm follows, whose exact update is zero).  TF32's
+    products move the output by about 1e-2 and every update by far
+    more: the same step with TF32 on is printed beside it."""
+    names = sorted(params)
+
+    def step(ctx):
+        mod = resnet_module(2, ctx)
+        mod.init_params(arg_params=params, aux_params=aux)
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.01, "momentum": 0.9})
+        batch = resnet_batch(2, ctx, seed=1)
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+        arg, _ = mod.get_params()
+        return (mod.get_outputs()[0].asnumpy().astype(np.float64),
+                {k: arg[k].asnumpy().astype(np.float64) - params[k]
+                 for k in names})
+
+    def exact_step():
+        """The first SGD step in float64 on the CPU: the update is
+        -lr * rescale * grad (the momentum starts at zero, wd 0)."""
+        symbol = mx.sym.load(mx.sym.ZOO["resnet50_v1"])
+        batch = resnet_batch(2, mx.cpu(), seed=1)
+        ex = symbol.simple_bind(
+            ctx=mx.cpu(), type_dict={n: "float64"
+                                     for n in symbol.list_arguments()},
+            data0=(2, 3, 224, 224), softmax_label=(2,))
+        ex.copy_params_from(dict(
+            {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in params.items()},
+            data0=batch.data[0], softmax_label=batch.label[0]),
+            {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in aux.items()})
+        ex.forward(is_train=True)
+        ex.backward()
+        return (ex.outputs[0].asnumpy(),
+                {k: -0.01 / 2 * ex.grad_dict[k].asnumpy() for k in names})
+
+    def err(upd, exact):
+        per = {k: np.linalg.norm(upd[k] - exact[k]) for k in names}
+        total = np.linalg.norm([per[k] for k in names])
+        return per, total
+
+    t0 = time.monotonic()
+    ex_out, ex_upd = exact_step()
+    cpu_out, cpu_upd = step(mx.cpu())
+    runs = {"TF32 off": step(mx.gpu(0))}
+    with tf32_on():
+        runs["TF32 on"] = step(mx.gpu(0))
+    norm = {k: np.linalg.norm(ex_upd[k]) for k in names}
+    all_norm = np.linalg.norm([norm[k] for k in names])
+    cpu_per, cpu_all = err(cpu_upd, ex_upd)
+    floor = 1e-6 * max(norm.values())
+    allowed = {k: 3 * cpu_per[k] + 1e-3 * norm[k] + floor for k in names}
+    log("[resnet] one step at batch 2, CPU float32 vs float64: output "
+        "%.3g, all updates %.3g (relative L2)"
+        % (np.linalg.norm(cpu_out - ex_out) / np.linalg.norm(ex_out),
+           cpu_all / all_norm))
+    verdict = {}
+    for name, (out, upd) in runs.items():
+        per, total = err(upd, ex_upd)
+        ratio = {k: per[k] / allowed[k] for k in names}
+        worst = max(ratio, key=ratio.get)
+        out_rel = float(np.linalg.norm(out - cpu_out)
+                        / np.linalg.norm(cpu_out))
+        verdict[name] = (out_rel, ratio[worst],
+                         total / (2 * cpu_all + 1e-3 * all_norm))
+        log("[resnet] one step at batch 2, card (%s): output vs CPU %.3g "
+            "(relative L2, bound %g); vs float64 all updates %.3g "
+            "(relative L2), %.3g of its bound; worst parameter %s at %.3g "
+            "of its bound (its update %.3g off, the CPU's %.3g)"
+            % (name, out_rel, RESNET_OUT_TOL, total / all_norm,
+               verdict[name][2], worst, ratio[worst],
+               per[worst] / max(norm[worst], 1e-300),
+               cpu_per[worst] / max(norm[worst], 1e-300)))
+    log("[resnet] the step checks took %.1f s" % (time.monotonic() - t0))
+    out_rel, worst, total = verdict["TF32 off"]
+    if not (out_rel <= RESNET_OUT_TOL and worst <= 1 and total <= 1):
+        fail("resnet: the card's step disagrees with the CPU step")
+
+
+class tf32_on:
+    """The executor's float32 numerics with TF32 allowed, for one
+    recorded step (the executor turns it off on every forward)."""
+
+    def __enter__(self):
+        self.saved = mx.executor._set_conv_numerics
+        mx.executor._set_conv_numerics = lambda device, arrays: None
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+    def __exit__(self, *exc):
+        mx.executor._set_conv_numerics = self.saved
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def phase_resnet():
+    """bench.py's per-step ResNet-50 row on the card through sym.load
+    and Module; fails on any check."""
+    torch.cuda.reset_peak_memory_stats()
+    gpu = mx.gpu(0)
+    t0 = time.monotonic()
+    mod = resnet_module(RESNET_BATCH, gpu)
+    mx.random.seed(0)
+    mod.init_params(initializer=mx.initializer.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.01, "momentum": 0.9})
+    batch = resnet_batch(RESNET_BATCH, gpu)
+    params0, aux0 = mod.get_params()
+    params0 = {k: v.asnumpy() for k, v in params0.items()}
+    aux0 = {k: v.asnumpy() for k, v in aux0.items()}
+    log("[resnet] ResNet-50 v1 from %s: %d arguments, %d aux states, "
+        "bound and initialised on %s in %.1f s"
+        % (mx.sym.ZOO["resnet50_v1"].split("mxtpu_torch")[-1],
+           len(mod.symbol.list_arguments()),
+           len(mod.symbol.list_auxiliary_states()), gpu,
+           time.monotonic() - t0))
+    weight = mod._exec_group.param_arrays[0][0]
+
+    def step():
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+
+    def value_sync():
+        # a value fetch: the last output, and a scalar of an updated
+        # parameter (bench.py:329-333)
+        out = float(mod.get_outputs()[0]._data[0, 0])
+        float(weight._data.view(-1)[0])
+        return out
+
+    for kern in KERNELS.values():
+        kern.launches = 0
+    step()
+    value_sync()
+    first_ce = cross_entropy(mod, batch)
+    for _ in range(RESNET_WARM - 1):
+        step()
+    value_sync()
+    t0 = time.monotonic()
+    for _ in range(RESNET_STEPS):
+        step()
+    value_sync()
+    wall = time.monotonic() - t0
+    out = mod.get_outputs()[0].asnumpy()
+    last_ce = cross_entropy(mod, batch)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    ms = wall / RESNET_STEPS * 1e3
+    log("[resnet] %d timed steps at batch %d (after %d warm): %.3f s "
+        "(host clock, synchronised by value): %.3f ms a step; "
+        "resnet50_train_imgs_per_sec_bs%d_per_step %.2f"
+        % (RESNET_STEPS, RESNET_BATCH, RESNET_WARM, wall, ms,
+           RESNET_BATCH, RESNET_STEPS * RESNET_BATCH / wall))
+    log("[resnet] cross-entropy on the fixed batch: first step %.4f, last "
+        "step %.4f" % (first_ce, last_ce))
+    if out.shape != (RESNET_BATCH, 1000) or not np.all(np.isfinite(out)):
+        fail("resnet: outputs %s not finite or misshapen" % (out.shape,))
+    if not last_ce < first_ce:
+        fail("resnet: cross-entropy did not fall (%.4f -> %.4f)"
+             % (first_ce, last_ce))
+    _, aux = mod.get_params()
+    aux = {k: v.asnumpy() for k, v in aux.items()}
+    still = [k for k in aux if np.array_equal(aux[k], aux0[k])]
+    bad_var = [k for k in aux if k.endswith("_var")
+               and not np.all(aux[k] > 0)]
+    log("[resnet] BN moving stats: %d of %d moved; moving_var min %.4g"
+        % (len(aux) - len(still), len(aux),
+           min(aux[k].min() for k in aux if k.endswith("_var"))))
+    if still or bad_var:
+        fail("resnet: moving stats unmoved %s or non-positive %s"
+             % (still[:3], bad_var[:3]))
+    log("[resnet] flash-attention launches in the phase: %s" % launches)
+    if any(launches.values()):
+        fail("resnet: a flash-attention kernel launched: %s" % launches)
+    spans = device_spans(step)
+    if not spans:
+        fail("resnet: the profiler saw no device time in a step")
+    by_name = {}
+    for start, end, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+    busy = busy_us([(a, b) for a, b, _ in spans])
+    window = max(b for _, b, _ in spans) - min(a for a, _, _ in spans)
+    heads = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log("[resnet] one profiled step: %d device operations, device busy "
+        "%.3f ms in a %.3f ms window (idle share at most %.3f); most "
+        "device time: %s" % (len(spans), busy / 1e3, window / 1e3,
+                             1 - busy / window, "; ".join(
+                                 "%s %.3f ms" % (name[:70], t / 1e3)
+                                 for name, t in heads)))
+    bound, by = bound_ms(0, RESNET_BATCH * RESNET_GFLOP_PER_IMG * 1e9,
+                         torch.float32)
+    log("[resnet] peak device memory %.1f MB (max_memory_allocated); the "
+        "step's fp32 bound %.3f ms (%d x %.1f GFLOP at 67 TFLOP/s, by %s): "
+        "the step is %.2fx it, the busy time %.2fx"
+        % (peak / 1e6, bound, RESNET_BATCH, RESNET_GFLOP_PER_IMG, by,
+           ms / bound, busy / 1e3 / bound))
+    resnet_step_check(params0, aux0)
+    return launches
+
+
 def parse_args():
     ap = argparse.ArgumentParser(
         description="Chip smoke test of mxtpu_torch on one H100; with no "
@@ -1247,6 +1519,7 @@ def main():
         phase_baseline(args.baseline)
     served = phase_serve()
     trained = phase_train(records)
+    resnet = phase_resnet()
     sources = {"flash_fwd": ("flash_fwd.cu", 149),
                "flash_bwd_dq": ("flash_bwd.cu", 277),
                "flash_bwd_dkv": ("flash_bwd.cu", 309)}
@@ -1254,7 +1527,7 @@ def main():
     for name, (src, line) in sources.items():
         rec = records[name]
         by_path = {"serve": served if name == "flash_fwd" else 0,
-                   "train": trained[name]}
+                   "train": trained[name], "resnet": resnet[name]}
         kernels.append(dict(
             name=name, route="cuda",
             source="mxtpu_torch/ops/csrc/" + src,

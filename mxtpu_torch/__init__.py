@@ -2,23 +2,48 @@
 
 Counterpart of ``mxtpu/__init__.py``.  The port imports ``torch``, numpy
 and the standard library, never JAX and nothing of ``mxtpu``.  Its entry
-points run on the card unless the caller passes ``device="cpu"``.
+points run on the card unless the caller passes ``mx.cpu()`` or
+``device="cpu"``.
 
-Ported so far: serving and training the TransformerLM on one device --
-``serve`` (the continuous micro-batcher), ``parallel`` (mesh names, the
-sp=1 ring-attention route, the transformer forward, loss, Adam/SGD
-train steps), ``executor`` (remat policies) and ``ops`` (flash
-attention: hand-written CUDA kernels for sm_90a, forward and backward).
+Ported so far:
+
+* serving and training the TransformerLM on one device: ``serve`` (the
+  continuous micro-batcher), ``parallel`` (mesh names, the sp=1
+  ring-attention route, the transformer forward, loss, Adam/SGD train
+  steps) and flash attention (``ops.flash_attention``: hand-written CUDA
+  kernels for sm_90a, forward and backward);
+* the symbolic training stack on one device, enough to train ResNet-50
+  v1 through ``sym`` and ``mod``: the op ``registry`` and the ResNet op
+  set (``ops``), ``nd`` (NDArray), ``autograd``, ``random``, ``sym``
+  (Symbol, JSON, shape inference), ``executor`` (Executor, remat),
+  ``initializer``, ``optimizer`` (SGD), ``model`` (checkpoints), ``io``
+  (DataBatch, NDArrayIter), ``mod`` (Module) and ``metric``.
 """
 from . import base
 from .base import MXNetError, MemoryExhaustedError, RequestShedError
 from . import context
-from .context import cpu, gpu
-from . import executor
+from .context import cpu, gpu, current_context
 from . import ops
+from . import autograd
+from . import random
+from . import ndarray
+from . import ndarray as nd
+from . import symbol
+from . import symbol as sym
+from . import executor
+from . import initializer
+from . import initializer as init
+from . import optimizer
+from . import model
+from . import io
+from . import metric
+from . import module
+from . import module as mod
 from . import parallel
 from . import serve
 
-__all__ = ["base", "context", "cpu", "gpu", "executor", "ops", "parallel",
-           "serve",
+__all__ = ["base", "context", "cpu", "gpu", "current_context", "ops",
+           "autograd", "random", "ndarray", "nd", "symbol", "sym",
+           "executor", "initializer", "init", "optimizer", "model", "io",
+           "metric", "module", "mod", "parallel", "serve",
            "MXNetError", "MemoryExhaustedError", "RequestShedError"]

@@ -1,8 +1,12 @@
 """Devices of the PyTorch port.
 
 Counterpart of ``mxtpu/context.py`` (``cpu()``, ``gpu()``,
-``default_ctx``).  A device is a ``torch.device``; ``gpu(i)`` is CUDA
-device ``i`` and the default is ``cuda:0``.  There is no ``tpu()``.
+``default_ctx``, ``current_context``).  A device is a
+``torch.device``; ``gpu(i)`` is CUDA device ``i`` and the default is
+``cuda:0``.  There is no ``tpu()``, and no ``with ctx:`` scope: a
+``torch.device`` used as one would change torch's own default device.
+NDArray's ``ctx`` is the ``torch.device`` of its tensor, so it compares
+equal to ``cpu()`` or ``gpu(i)``.
 
 Entry points take ``device=None`` and resolve it with :func:`resolve`:
 the default runs on the card, and when no card is present the call
@@ -15,7 +19,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["cpu", "gpu", "default_ctx", "resolve"]
+__all__ = ["cpu", "gpu", "default_ctx", "current_context", "resolve"]
 
 
 def cpu(device_id: int = 0) -> torch.device:
@@ -28,6 +32,11 @@ def gpu(device_id: int = 0) -> torch.device:
 
 def default_ctx() -> torch.device:
     return gpu(0)
+
+
+def current_context() -> torch.device:
+    """The device an entry point runs on when the caller names none."""
+    return default_ctx()
 
 
 def resolve(device=None) -> torch.device:

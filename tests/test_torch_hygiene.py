@@ -12,9 +12,11 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
+import mxtpu_torch as tmx
 from mxtpu_torch import context
 from mxtpu_torch.base import MXNetError
 from mxtpu_torch.parallel import mesh as tmesh
@@ -82,6 +84,17 @@ def test_entry_points_without_a_device_need_a_card(monkeypatch):
                  lambda: context.resolve("cuda")):
         with pytest.raises(MXNetError, match="no CUDA device"):
             call()
+    net = tmx.sym.SoftmaxOutput(tmx.sym.FullyConnected(
+        tmx.sym.Variable("data"), num_hidden=2, name="fc"), name="softmax")
+    for call in (lambda: tmx.nd.zeros((2,)),
+                 lambda: tmx.nd.ones((2,)),
+                 lambda: tmx.nd.array(np.zeros(2)),
+                 lambda: tmx.random.uniform(shape=(2,)),
+                 lambda: tmx.mod.Module(net),
+                 lambda: net.simple_bind(data=(2, 3), softmax_label=(2,))):
+        with pytest.raises(MXNetError, match="no CUDA device"):
+            call()
+    assert context.current_context() == torch.device("cuda", 0)
     assert context.resolve("cpu") == torch.device("cpu")
     assert context.gpu(1) == torch.device("cuda", 1)
     with pytest.raises(MXNetError, match="unsupported device"):
