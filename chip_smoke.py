@@ -85,6 +85,38 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``resnet50_train_imgs_per_sec_bs32_per_step``, one profiled step
    (device busy time, idle share, launches, the 8 device operations with
    the most time), peak device memory and the step's fp32 bound.
+6. fused   -- bench.py's fused ResNet rows (``run_config``): the same
+   network and optimizer in ``mxtpu_torch.FusedTrainLoop``, K = 16 steps
+   a call as replays of one CUDA graph of the step, on one stack of 16
+   batches drawn on the card: ``resnet50_train_imgs_per_sec_bs32`` (fp32,
+   TF32 off, batch 32), ``bf16_bs32_imgs_per_sec`` and
+   ``bf16_bs128_imgs_per_sec`` (bound under ``amp.scope("bfloat16")``),
+   each after freeing the one before.  First, K = 4 fused steps from one
+   state against 4 per-step steps (SGD momentum 0.9, the rate halving
+   every step), twice: from a new loop, and again after
+   ``init_optimizer(force_init=True)`` replaced the optimizer and its
+   states (the loop must capture again); the weights, the momenta and
+   the moving stats, each group on its own, within twice the group's
+   distance between two per-step runs from that state; and under
+   cuDNN's deterministic algorithms bitwise equal to the per-step
+   steps.  And a graph
+   with a random op must draw anew on every replay.  Each row: 2 warm
+   and 4 timed calls (bench.py runs 3 windows of 8) collecting no
+   outputs, as bench.py's loop, synchronised by value, then a profiled
+   call, and a first and a last call that collect them; checks that
+   the collected outputs are finite, that the cross-entropy of the last
+   call is below the first's, that every moving stat moved and every
+   moving variance is positive, that no flash-attention kernel
+   launched, that cuDNN ran bf16 convolutions under bf16 and none in
+   fp32, and under bf16 that the parameters and states stay float32 and
+   that the first step's logits lie from the fp32 forward's from the
+   same state between ``BF16_LOGIT_FLOOR`` and ``BF16_LOGIT_CEIL``
+   (relative L2).  Prints ms a step, images/s under bench.py's row
+   name, mfu against the card's peak for the dtype (67 TFLOP/s fp32,
+   989 bf16), set-up and capture seconds, peak memory (allocated, and
+   reserved with the graph's pool), and from one profiled call the
+   device busy time, idle share, device operations and host launches a
+   step and the top 8 operations.
 
 The line before the last is the card's name and power limit, the line
 before that the kernels' JSON record; the last line is
@@ -99,7 +131,11 @@ after holding both against the plain version; ``--fault-run`` builds
 copies of the sources with planted faults (``MUTANTS``: three in the
 forward, four in the backward) in a temporary directory and runs the
 forward or the backward check on each and on the committed kernels,
-which alone must pass; ``--ablate`` times the kernels against copies
+which alone must pass, then the fused check on copies of
+``mxtpu_torch/fused_train.py`` with planted faults (``FUSED_FAULTS``: a
+stale data slot, a skipped replay, warm-up updates kept, a stale rate
+row, moving stats not folded, a graph never captured again), each of
+which must fail it; ``--ablate`` times the kernels against copies
 with a part taken out or a choice undone (``ABLATIONS``: the forward's
 products, softmax, item order and ping-pong; the backward's products,
 its P and dS, its output stores and how they are made, its stats copy,
@@ -201,17 +237,26 @@ def busy_us(spans):
     return busy + (0.0 if cur_e is None else cur_e - cur_s)
 
 
-def device_spans(fn):
-    """fn() under torch.profiler: its kernels' (start, end, name)."""
+def device_spans(fn, tries=3):
+    """fn() under torch.profiler: its kernels' (start, end, name).  Now
+    and then the profiler returns no device event at all (seen once in
+    a dozen runs of this script); then fn runs under it again, up to
+    ``tries`` times in all."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [(e.time_range.start, e.time_range.end, e.name)
-            for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        spans = [(e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans:
+            return spans
+        log("[profiler] no device event in profile %d of %d"
+            % (attempt + 1, tries))
+    return spans
 
 
 def device_ms(fn, iters):
@@ -1483,6 +1528,503 @@ def phase_resnet():
     return launches
 
 
+# bench.py's fused ResNet rows (run_config, bench.py:155-204, and
+# :397-412): K = 16 steps a call (SPP, bench.py:100), 2 warm and 4 timed
+# calls (bench.py runs 3 windows of 8), SGD lr 0.01 momentum 0.9
+FUSED_K, FUSED_WARM, FUSED_CALLS = 16, 2, 4
+FUSED_ROWS = (("resnet50_train_imgs_per_sec_bs32", 32, None),
+              ("bf16_bs32_imgs_per_sec", 32, "bfloat16"),
+              ("bf16_bs128_imgs_per_sec", 128, "bfloat16"))
+# the fused-against-per-step check: K = 4 steps at batch 32, fp32, SGD
+# momentum 0.9 at a rate that halves every step (so that a rate row
+# left stale shows)
+FUSED_CHECK_K = 4
+# the first bf16 call's first output against the fp32 forward from the
+# same state, on the logits (the log-probabilities less their mean over
+# the classes: the logits less theirs).  Floor: the bf16 forward rounds
+# its logits to bf16 (unit roundoff 2^-8), an error of about 2^-8 /
+# sqrt(3) = 2.3e-3 of each logit, and more of the logits less their
+# mean; an fp32 forward (TF32 off) reads about 1e-6.  Ceiling: a forward
+# that computes another function (unrelated logits of the same size)
+# reads about sqrt(2), zero logits read 1; below 0.3 the bf16 logits
+# keep the fp32 logits' direction (cosine above 0.95).  The exact
+# check of the bf16 policy is tests/test_torch_amp.py's, on the CPU.
+BF16_LOGIT_FLOOR, BF16_LOGIT_CEIL = 1e-3, 0.3
+# planted faults of the loop (``--fault-run``): edits of copies of
+# mxtpu_torch/fused_train.py, each of which the fused check must fail
+FUSED_FAULTS = {
+    "stale data slot": [("slot.copy_(stack[k])", "slot.copy_(stack[0])")],
+    "a replay skipped": [("self._graph.replay()",
+                          "self._graph.replay() if k != 1 else None")],
+    "warm-up updates kept": [("                t.copy_(s)\n",
+                              "                pass\n")],
+    "stale rate row": [("self._lr_row.copy_(lr_rows[k])",
+                        "self._lr_row.copy_(lr_rows[0])")],
+    "moving stats not folded": [("                    a.copy_(v)\n",
+                                 "                    pass\n")],
+    "never captured again": [(
+        "if self._graph is not None and key == self._graph_key:",
+        "if self._graph is not None:")],
+}
+# the CUDA runtime calls a host makes to put work on the card
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def free_card():
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def fused_module(batch, dtype, lr=0.01):
+    """ResNet-50 v1 bound at ``batch`` on the card under the AMP policy
+    ``dtype`` (bench.py's ``_build_module``), Xavier after
+    ``random.seed(0)``, SGD with momentum 0.9."""
+    with mx.amp.scope(dtype):
+        mod = resnet_module(batch, mx.gpu(0))
+    mx.random.seed(0)
+    mod.init_params(initializer=mx.initializer.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": lr, "momentum": 0.9})
+    return mod
+
+
+def device_batches(batch, k, seed):
+    """``k`` synthetic batches drawn on the card (uniform images, integer
+    labels in float32, as bench.py's ``_synthetic_batch``): drawing 16 x
+    128 images on the host would take seconds."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    data = torch.rand((k, batch, 3, 224, 224), generator=gen, device="cuda")
+    label = torch.randint(0, 1000, (k, batch), generator=gen,
+                          device="cuda").float()
+    return [mx.io.DataBatch([mx.nd.NDArray(data[i])],
+                            [mx.nd.NDArray(label[i])]) for i in range(k)]
+
+
+def training_state(mod):
+    """Clones of the parameters, the optimizer's states and the moving
+    stats, by group."""
+    g = mod._exec_group
+    return {"weights": {n: a[0]._data.clone()
+                        for n, a in zip(g.param_names, g.param_arrays)},
+            "momenta": {"state%d" % i: st._data.clone()
+                        for i, st in mod._updater.states.items()
+                        if st is not None},
+            "moving stats": {n: a[0]._data.clone()
+                             for n, a in zip(g.aux_names, g.aux_arrays)}}
+
+
+def state_distance(a, b):
+    """For each group of ``training_state``: (the relative L2 of a
+    against b over the group's tensors together, the three tensors with
+    the largest share of the group's squared distance as (name, share,
+    the tensor's own relative L2))."""
+    out = {}
+    for grp, want in b.items():
+        sq = {k: float((a[grp][k].double() - v.double()).norm()) ** 2
+              for k, v in want.items()}
+        norm = {k: float(v.double().norm()) for k, v in want.items()}
+        tot = sum(sq.values())
+        top = sorted(sq, key=sq.get, reverse=True)[:3]
+        out[grp] = ((tot / sum(n * n for n in norm.values())) ** 0.5,
+                    [(k, sq[k] / tot if tot else 0.0,
+                      sq[k] ** 0.5 / max(norm[k], 1e-30)) for k in top])
+    return out
+
+
+def show_distance(d):
+    return "; ".join("%s %.4g (%s)" % (grp, rel, ", ".join(
+        "%s %.2f of it, own %.3g" % (k, share, own)
+        for k, share, own in top)) for grp, (rel, top) in d.items())
+
+
+def within(got, ref):
+    """The groups of ``got`` beyond twice ``ref``'s distance."""
+    return [grp for grp, (rel, _) in got.items() if not rel <= 2 * ref[grp][0]]
+
+
+def load_loop_variant(name, edits, tmp):
+    """FusedTrainLoop from a copy of mxtpu_torch/fused_train.py with
+    ``edits`` (old, new) made, each of which must match once."""
+    import importlib.util
+
+    src = (Path(mx.__file__).parent / "fused_train.py").read_text()
+    for old, new in edits:
+        if src.count(old) != 1:
+            fail("fault %r: %r matches %d times" % (name, old,
+                                                     src.count(old)))
+        src = src.replace(old, new)
+    path = tmp / ("fused_fault_%d.py" % len(list(tmp.iterdir())))
+    path.write_text(src)
+    spec = importlib.util.spec_from_file_location(
+        "mxtpu_torch._" + path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.FusedTrainLoop
+
+
+def fused_check(faults=False):
+    """K = 4 fused steps against 4 per-step steps from the same state at
+    batch 32, fp32, twice: from a new loop, then again from the start
+    after ``init_optimizer(force_init=True)`` replaced the optimizer and
+    its states (the loop must capture again).  The weights, the momenta
+    and the moving stats, each group on its own, within twice the
+    group's distance between two per-step runs from that state (cuDNN's
+    weight gradients are not bitwise reproducible); prints how that
+    distance grows step by step and the tensors that carry it.  Then
+    the same runs under cuDNN's deterministic algorithms: the fused
+    steps must equal the per-step steps bitwise.  With ``faults``, the
+    loops of ``FUSED_FAULTS`` too: each must fail the bound."""
+    t0 = time.monotonic()
+    mod = fused_module(RESNET_BATCH, None)
+    batches = device_batches(RESNET_BATCH, FUSED_CHECK_K, seed=1)
+    start = training_state(mod)
+    g = mod._exec_group
+
+    def restart():
+        for n, a in zip(g.param_names + g.aux_names,
+                        g.param_arrays + g.aux_arrays):
+            a[0]._data.copy_(start["weights"].get(n, start["moving stats"]
+                                                  .get(n)))
+        mod.init_optimizer(optimizer="sgd", force_init=True,
+                           optimizer_params={
+                               "learning_rate": 0.01, "momentum": 0.9,
+                               "lr_scheduler": mx.lr_scheduler
+                               .FactorScheduler(step=1, factor=0.5)})
+
+    def per_step(every_step=False):
+        restart()
+        states = []
+        for b in batches:
+            mod.forward(b, is_train=True)
+            mod.backward()
+            mod.update()
+            if every_step:
+                states.append(training_state(mod))
+        return states if every_step else training_state(mod)
+
+    def fused(loop_cls):
+        restart()
+        loop = loop_cls(mod, steps_per_program=FUSED_CHECK_K)
+        loop.run(batches)
+        first = training_state(mod)
+        restart()
+        loop.run(batches)
+        return [first, training_state(mod)], loop
+
+    # under cuDNN's default algorithms, whose weight gradients are not
+    # reproducible: the bound
+    runs = [per_step(every_step=True) for _ in range(2)]
+    ref = state_distance(runs[1][-1], runs[0][-1])
+    for k in range(FUSED_CHECK_K):
+        log("[fused] two per-step runs after step %d: %s" % (k + 1, "; ".join(
+            "%s %.4g" % (grp, rel) for grp, (rel, _) in
+            state_distance(runs[1][k], runs[0][k]).items())))
+    want = runs[0][-1]
+    del runs
+    got, loop = fused(mx.FusedTrainLoop)
+    dists = [state_distance(x, want) for x in got]
+    bad = [within(d, ref) for d in dists]
+    log("[fused] K = %d fused steps vs %d per-step steps from one state "
+        "(batch %d, fp32, %d tensors): by group, the relative L2 and the "
+        "tensors with the largest shares of it: first call %s; after "
+        "init_optimizer(force_init=True) %s; two per-step runs %s; "
+        "bound twice those; %d captures, the last %.2f s; %.1f s in all"
+        % (FUSED_CHECK_K, FUSED_CHECK_K, RESNET_BATCH,
+           sum(len(v) for v in want.values()), show_distance(dists[0]),
+           show_distance(dists[1]), show_distance(ref), loop.captures,
+           loop.capture_seconds, time.monotonic() - t0))
+    if any(bad) or loop.captures != 2:
+        fail("fused: fused steps beyond twice two per-step runs' distance "
+             "in %s, or %d captures where 2" % (bad, loop.captures))
+    del loop, got
+    torch.backends.cudnn.deterministic = True
+    try:
+        det = [per_step() for _ in range(2)]
+        det_fused, loop = fused(mx.FusedTrainLoop)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    det_dists = [state_distance(x, det[0]) for x in det[1:] + det_fused]
+    log("[fused] under cuDNN's deterministic algorithms, against a "
+        "per-step run: another per-step run %s; the fused steps, first "
+        "call %s; after init_optimizer(force_init=True) %s" % tuple(
+            "; ".join("%s %.4g" % (grp, rel) for grp, (rel, _) in d.items())
+            for d in det_dists))
+    if any(rel != 0 for d in det_dists for rel, _ in d.values()):
+        fail("fused: under cuDNN's deterministic algorithms the fused "
+             "steps or a second per-step run differ from the per-step "
+             "steps")
+    del det, det_fused, loop
+    if faults:
+        tmp = Path(tempfile.mkdtemp(prefix="fused-faults-"))
+        caught = {}
+        for name, edits in FUSED_FAULTS.items():
+            got, loop = fused(load_loop_variant(name, edits, tmp))
+            dists = [state_distance(x, want) for x in got]
+            bad = [within(d, ref) for d in dists]
+            caught[name] = any(bad)
+            log("[fault] fused loop, %s: first call %s; second %s; beyond "
+                "the bound in %s: %s" % (
+                    name, "; ".join("%s %.4g" % (grp, rel) for grp, (rel, _)
+                                    in dists[0].items()),
+                    "; ".join("%s %.4g" % (grp, rel) for grp, (rel, _)
+                              in dists[1].items()),
+                    bad, "fails" if caught[name] else "passes"))
+            del got, loop
+        shutil.rmtree(tmp, ignore_errors=True)
+        if not all(caught.values()):
+            fail("fault run: a planted fault of the fused loop passed the "
+                 "fused check: %s" % caught)
+    del mod, want, start
+    free_card()
+    log("[fused] %.1f MB allocated after the check"
+        % (torch.cuda.memory_allocated() / 1e6))
+
+
+def fused_rng_check():
+    """A graph with a random op draws fresh numbers on every replay: a
+    net whose logits add a uniform draw, at lr 0, so that its outputs
+    differ only by the draws."""
+    logits = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=4,
+                                   name="fc")
+    out = mx.sym.SoftmaxOutput(mx.sym.elemwise_add(
+        logits, mx.sym.random_uniform(shape=(8, 4))),
+        mx.sym.Variable("softmax_label"), name="softmax")
+    mod = mx.mod.Module(out, context=mx.gpu(0))
+    mod.bind([("data", (8, 3))], [("softmax_label", (8,))])
+    mod.init_params()
+    mod.init_optimizer(optimizer_params={"learning_rate": 0.0})
+    loop = mx.FusedTrainLoop(mod, steps_per_program=3)
+    zeros = [mx.io.DataBatch([mx.nd.zeros((8, 3))], [mx.nd.zeros((8,))])
+             for _ in range(3)]
+    outs = torch.cat([loop.run(zeros)[0]._data for _ in range(2)])
+    same = sum(int(torch.equal(outs[i], outs[j])) for i in range(6)
+               for j in range(i))
+    log("[fused] a graph with a random op (torch %s, "
+        "CUDAGraph.register_generator_state %s): 6 replays, %d equal "
+        "pairs of outputs" % (torch.__version__, hasattr(
+            torch.cuda.CUDAGraph, "register_generator_state"), same))
+    if same:
+        fail("fused: a replay repeated another's random draws")
+
+
+# device operations by kind, first match wins: cuDNN's convolutions
+# (and their layout transposes), the optimizer's foreach kernels,
+# reductions (BatchNorm's statistics and gradients), copies and casts,
+# the other elementwise kernels
+KINDS = (("convolution", ("cudnn", "xmma", "implicit_gemm", "wgrad",
+                          "dgrad", "fprop", "nchwToNhwc", "nhwcToNchw")),
+         ("optimizer", ("multi_tensor_apply",)),
+         ("reduction", ("reduce_kernel",)),
+         ("copy and cast", ("direct_copy", "copy_kernel")),
+         ("elementwise", ("elementwise",)))
+
+
+def kind_of(name):
+    return next((k for k, keys in KINDS if any(key in name for key in keys)),
+                "other")
+
+
+def by_kind(spans):
+    """Device time (us) of the spans by ``KINDS``, the rest as other."""
+    out = {}
+    for start, end, name in spans:
+        kind = kind_of(name)
+        out[kind] = out.get(kind, 0.0) + (end - start)
+    return out
+
+
+def profile_call(fn):
+    """fn() under torch.profiler: its device operations' (start, end,
+    name), and how many CUDA runtime calls put work on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans, host = [], 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end, e.name))
+        elif e.name in HOST_LAUNCH_CALLS:
+            host += 1
+    return spans, host
+
+
+def fused_row(name, batch, dtype):
+    """One of bench.py's fused rows: ResNet-50 v1 at ``batch`` under the
+    policy ``dtype``, K = 16 steps a call on one stack of 16 batches, 2
+    warm and 4 timed calls synchronised by value, then one profiled
+    call, then one more.  The timed and profiled calls collect no
+    outputs, as bench.py's loop (``collect_outputs=False``); the first
+    and the last call collect them for the checks.  Fails on any
+    check."""
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    mod = fused_module(batch, dtype)
+    ex = mod._exec_group.execs[0]
+    aux0 = {n: a[0]._data.clone() for n, a in zip(mod._exec_group.aux_names,
+                                                  mod._exec_group.aux_arrays)}
+    loop = mx.FusedTrainLoop(mod, steps_per_program=FUSED_K)
+    stack = loop.stack_batches(device_batches(batch, FUSED_K, seed=0))
+    labels = stack[1].long()
+    ref = None
+    if dtype is not None:
+        # the fp32 forward (training mode) from the same state on the
+        # first batch, by an executor bound without the policy
+        ex32 = mod.symbol.simple_bind(ctx=mx.gpu(0), grad_req="null",
+                                      data0=(batch, 3, 224, 224),
+                                      softmax_label=(batch,))
+        ex32.copy_params_from(mod._arg_params, mod._aux_params)
+        ref = ex32.forward(is_train=True, data0=mx.nd.NDArray(stack[0][0]),
+                           softmax_label=mx.nd.NDArray(stack[1][0]))[0]._data
+        del ex32
+    setup_s = time.monotonic() - t0
+    for kern in KERNELS.values():
+        kern.launches = 0
+    weight = mod._exec_group.param_arrays[0][0]
+
+    def value_sync():
+        # a scalar of a parameter the last step updated (the stream runs
+        # in order, so every step before it is done)
+        float(weight._data.view(-1)[0])
+
+    def cross_entropy_of(outs):
+        p = outs[0]._data.gather(2, labels.unsqueeze(2)).squeeze(2)
+        return float(-torch.log(p.clamp_min(1e-30)).mean())
+
+    first = loop.run_stacked(stack)
+    capture_s = loop.capture_seconds
+    loop.collect_outputs = False
+    for _ in range(FUSED_WARM - 1):
+        loop.run_stacked(stack)
+    value_sync()
+    t1 = time.monotonic()
+    for _ in range(FUSED_CALLS):
+        loop.run_stacked(stack)
+    value_sync()
+    wall = time.monotonic() - t1
+    steps = FUSED_CALLS * FUSED_K
+    ms, ips = wall / steps * 1e3, steps * batch / wall
+    peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    launches = {k: kern.launches for k, kern in KERNELS.items()}
+    spans, host = profile_call(lambda: loop.run_stacked(stack))
+    loop.collect_outputs = True
+    last = loop.run_stacked(stack)
+    calls = [first, last]
+    peak_tflops = PEAK_FLOPS[torch.float32 if dtype is None
+                             else torch.bfloat16]
+    mfu = ips * RESNET_GFLOP_PER_IMG * 1e9 / peak_tflops
+    log("[fused] %s: %d timed calls of K = %d at batch %d (after %d warm; "
+        "%s): %.3f s (host clock, synchronised by value): %.3f ms a step; "
+        "%s %.2f; mfu %.4f (%.1f GFLOP an image at %.0f TFLOP/s); set-up "
+        "%.1f s, capture %.2f s (%d capture)"
+        % (name, FUSED_CALLS, FUSED_K, batch, FUSED_WARM,
+           dtype or "fp32, TF32 off", wall, ms, name, ips, mfu,
+           RESNET_GFLOP_PER_IMG, peak_tflops / 1e12, setup_s, capture_s,
+           loop.captures))
+    if spans:
+        busy = busy_us([(a, b) for a, b, _ in spans]) / 1e3
+        window = (max(b for _, b, _ in spans)
+                  - min(a for a, _, _ in spans)) / 1e3
+        by_name = {}
+        for a, b, n in spans:
+            by_name[n] = by_name.get(n, 0.0) + (b - a)
+        heads = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        kinds = sorted(by_kind(spans).items(), key=lambda kv: -kv[1])
+        log("[fused] %s: device time a step by kind: %s" % (name, "; ".join(
+            "%s %.3f ms" % (k, t / 1e3 / FUSED_K) for k, t in kinds)))
+        log("[fused] %s: one profiled call (collecting no outputs): device "
+            "busy %.3f ms a step in a %.3f ms window a step (idle share at "
+            "most %.3f); %.1f device operations and %.2f host launches a "
+            "step (graph replays and copies); most device time a step: %s"
+            % (name, busy / FUSED_K, window / FUSED_K, 1 - busy / window,
+               len(spans) / FUSED_K, host / FUSED_K, "; ".join(
+                   "%s %.3f ms" % (n[:70], t / 1e3 / FUSED_K)
+                   for n, t in heads)))
+    else:
+        log("[fused] %s: the profiler saw no device operation in a call of "
+            "graph replays: device busy time not measured; %.2f host "
+            "launches a step" % (name, host / FUSED_K))
+    log("[fused] %s: peak device memory %.1f MB allocated, %.1f MB reserved "
+        "(the graph's pool included; %.1f MB were allocated before the "
+        "row)" % (name, peak / 1e6, peak_reserved / 1e6, before / 1e6))
+    if not all(bool(torch.isfinite(c[0]._data).all()) for c in calls):
+        fail("fused %s: outputs not finite" % name)
+    if calls[-1][0].shape != (FUSED_K, batch, 1000):
+        fail("fused %s: outputs of shape %s" % (name, calls[-1][0].shape))
+    ce_first, ce_last = cross_entropy_of(first), cross_entropy_of(last)
+    log("[fused] %s: cross-entropy over a call, the first call %.4f, the "
+        "call after the timed and profiled ones %.4f" % (name, ce_first,
+                                                         ce_last))
+    if not ce_last < ce_first:
+        fail("fused %s: cross-entropy did not fall (%.4f -> %.4f)"
+             % (name, ce_first, ce_last))
+    still = [n for n, a in zip(mod._exec_group.aux_names,
+                               mod._exec_group.aux_arrays)
+             if torch.equal(a[0]._data, aux0[n])]
+    bad_var = [n for n, a in zip(mod._exec_group.aux_names,
+                                 mod._exec_group.aux_arrays)
+               if n.endswith("_var") and not bool((a[0]._data > 0).all())]
+    log("[fused] %s: BN moving stats: %d of %d moved; flash-attention "
+        "launches %s" % (name, len(aux0) - len(still), len(aux0), launches))
+    if still or bad_var:
+        fail("fused %s: moving stats unmoved %s or non-positive %s"
+             % (name, still[:3], bad_var[:3]))
+    if any(launches.values()):
+        fail("fused %s: a flash-attention kernel launched: %s"
+             % (name, launches))
+    # cuDNN's convolutions, its layout transposes left out
+    convs = {n for _, _, n in spans if kind_of(n) == "convolution"
+             and "Nhwc" not in n and "Nchw" not in n}
+    convs_bf16 = sorted(n for n in convs if "bf16" in n or "bfloat16" in n)
+    log("[fused] %s: %d convolution kernels in the profiled call, %d of "
+        "them bf16: %s" % (name, len(convs), len(convs_bf16),
+                           "; ".join(n[:90] for n in convs_bf16[:4])))
+    if bool(convs_bf16) != (dtype is not None):
+        fail("fused %s: %d bf16 convolution kernels under %s"
+             % (name, len(convs_bf16), dtype or "fp32"))
+    if dtype is not None:
+        wide = [n for n, a in ex.arg_dict.items()
+                if a._data.dtype != torch.float32]
+        wide += ["state%d" % i for i, st in mod._updater.states.items()
+                 if st._data.dtype != torch.float32]
+        got, want = (torch.log(t.double().clamp_min(1e-300))
+                     for t in (first[0]._data[0], ref))
+        got, want = (t - t.mean(dim=1, keepdim=True) for t in (got, want))
+        err = float((got - want).norm() / want.norm())
+        log("[fused] %s: the first step's logits (log-probabilities less "
+            "their mean) vs the fp32 forward's from the same state: %.4g "
+            "(relative L2, between %g and %g); parameters and states not "
+            "float32: %s" % (name, err, BF16_LOGIT_FLOOR, BF16_LOGIT_CEIL,
+                             wide))
+        if wide or not BF16_LOGIT_FLOOR <= err <= BF16_LOGIT_CEIL:
+            fail("fused %s: bf16 check failed (%.4g; %s)" % (name, err,
+                                                            wide[:3]))
+    result = dict(ms=ms, imgs_per_sec=ips, mfu=mfu, launches=launches)
+    del loop, mod, ex, calls, first, last, stack, labels, ref, aux0
+    free_card()
+    return result
+
+
+def phase_fused():
+    """bench.py's three fused ResNet rows through FusedTrainLoop, after
+    the fused-against-per-step and random-draw checks."""
+    free_card()
+    fused_check()
+    fused_rng_check()
+    return {name: fused_row(name, batch, dtype)
+            for name, batch, dtype in FUSED_ROWS}
+
+
 def parse_args():
     ap = argparse.ArgumentParser(
         description="Chip smoke test of mxtpu_torch on one H100; with no "
@@ -1493,7 +2035,8 @@ def parse_args():
     ap.add_argument("--fault-run", action="store_true",
                     help="build and the fault run only: the forward and "
                     "backward checks on the committed kernels and on "
-                    "mutated copies")
+                    "mutated copies, then the fused check on the loop "
+                    "and on copies with planted faults")
     ap.add_argument("--ablate", action="store_true",
                     help="build and the ablations only: the kernels "
                     "against copies with a part taken out, on device time")
@@ -1510,6 +2053,7 @@ def main():
     phase_build()
     if args.fault_run:
         phase_fault_run()
+        fused_check(faults=True)
         return
     if args.ablate:
         phase_ablate()
@@ -1520,6 +2064,7 @@ def main():
     served = phase_serve()
     trained = phase_train(records)
     resnet = phase_resnet()
+    fused = phase_fused()
     sources = {"flash_fwd": ("flash_fwd.cu", 149),
                "flash_bwd_dq": ("flash_bwd.cu", 277),
                "flash_bwd_dkv": ("flash_bwd.cu", 309)}
@@ -1528,6 +2073,8 @@ def main():
         rec = records[name]
         by_path = {"serve": served if name == "flash_fwd" else 0,
                    "train": trained[name], "resnet": resnet[name]}
+        by_path.update({row: r["launches"][name]
+                        for row, r in fused.items()})
         kernels.append(dict(
             name=name, route="cuda",
             source="mxtpu_torch/ops/csrc/" + src,

@@ -16,14 +16,19 @@ Ported so far:
   v1 through ``sym`` and ``mod``: the op ``registry`` and the ResNet op
   set (``ops``), ``nd`` (NDArray), ``autograd``, ``random``, ``sym``
   (Symbol, JSON, shape inference), ``executor`` (Executor, remat),
-  ``initializer``, ``optimizer`` (SGD), ``model`` (checkpoints), ``io``
-  (DataBatch, NDArrayIter), ``mod`` (Module) and ``metric``.
+  ``initializer``, ``optimizer`` (SGD, Adam), ``lr_scheduler``,
+  ``model`` (checkpoints), ``io`` (DataBatch, NDArrayIter), ``mod``
+  (Module) and ``metric``;
+* bench.py's fused ResNet rows: ``FusedTrainLoop`` (K steps a call, a
+  CUDA graph of the step on the card) and ``amp`` (the bfloat16 compute
+  policy, applied per node by the executor).
 """
 from . import base
 from .base import MXNetError, MemoryExhaustedError, RequestShedError
 from . import context
 from .context import cpu, gpu, current_context
 from . import ops
+from . import amp
 from . import autograd
 from . import random
 from . import ndarray
@@ -34,6 +39,7 @@ from . import executor
 from . import initializer
 from . import initializer as init
 from . import optimizer
+from . import lr_scheduler
 from . import model
 from . import io
 from . import metric
@@ -41,9 +47,11 @@ from . import module
 from . import module as mod
 from . import parallel
 from . import serve
+from .fused_train import FusedTrainLoop
 
 __all__ = ["base", "context", "cpu", "gpu", "current_context", "ops",
-           "autograd", "random", "ndarray", "nd", "symbol", "sym",
-           "executor", "initializer", "init", "optimizer", "model", "io",
-           "metric", "module", "mod", "parallel", "serve",
+           "amp", "autograd", "random", "ndarray", "nd", "symbol", "sym",
+           "executor", "initializer", "init", "optimizer", "lr_scheduler",
+           "model", "io", "metric", "module", "mod", "parallel", "serve",
+           "FusedTrainLoop",
            "MXNetError", "MemoryExhaustedError", "RequestShedError"]

@@ -6,7 +6,10 @@ The executor runs the graph node by node in topological order
 (``_build_graph_fn``), each op a torch call, ``is_train`` passed to the
 train-aware ops, and the BatchNorm moving stats folded in training as
 ``m * old + (1 - m) * batch`` (the batch's biased variance; no gradient
-flows into them).  ``forward(is_train=True)`` runs under
+flows into them).  The AMP policy (``mxtpu_torch/amp.py``) set when the
+executor is bound is kept (``_amp_dtype``) and applied to each node's
+inputs in the walk (``amp.cast_op_inputs``), where the JAX package
+applies it.  ``forward(is_train=True)`` runs under
 ``torch.enable_grad()`` with the arguments whose ``grad_req`` is not
 ``null`` as leaves and keeps the graph; ``backward()`` seeds the heads
 with ones (or the given ``out_grads``), asks torch for the leaves'
@@ -18,8 +21,8 @@ float32 means float32, as in the JAX package.
 
 ``MXNET_BACKWARD_DO_MIRROR`` (or ``MXTPU_...``) wraps the training
 graph in :func:`apply_remat` under ``MXTPU_REMAT_POLICY`` (default
-``full``).  The graph passes, the inspect/health/perf/profiler hooks,
-bucketed dispatch and AMP casts are not ported.
+``full``).  The graph passes, the inspect/health/perf/profiler hooks
+and bucketed dispatch are not ported.
 
 Remat: ``jax.checkpoint`` with a policy becomes
 :func:`torch.utils.checkpoint.checkpoint` (non-reentrant) with a
@@ -49,6 +52,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from . import amp as _amp
 from .base import MXNetError, torch_dtype
 from .context import resolve
 from .ndarray.ndarray import NDArray
@@ -109,9 +113,11 @@ def _maybe_remat(fn):
 
 
 def _build_graph_fn(symbol: Symbol, arg_names: List[str],
-                    aux_names: List[str], is_train: bool, device):
+                    aux_names: List[str], is_train: bool, device,
+                    compute_dtype: Optional[str] = None):
     """fn(arg_vals, aux_vals) -> (outputs, new_aux_vals), a walk of the
-    graph in topological order."""
+    graph in topological order; with ``compute_dtype`` each node's inputs
+    are cast by the AMP policy first."""
     from . import random as _rnd
 
     nodes = _topo_order(symbol._outputs)
@@ -127,6 +133,9 @@ def _build_graph_fn(symbol: Symbol, arg_names: List[str],
                     if node.is_aux else arg_vals[arg_pos[node.name]]
                 continue
             invals = [env[(id(inode), idx)] for inode, idx in node.inputs]
+            if compute_dtype is not None:
+                invals = _amp.cast_op_inputs(node.op.name, invals,
+                                             compute_dtype)
             attrs = dict(node.attrs)
             if node.op.train_aware:
                 attrs["is_train"] = is_train
@@ -152,7 +161,9 @@ def _build_graph_fn(symbol: Symbol, arg_names: List[str],
 def _set_conv_numerics(device, arrays):
     """float32 graphs on the card run in float32: TF32 off for cuDNN's
     convolutions and cuBLAS's products.  The flags are process-wide, so
-    each forward on the card sets them."""
+    each forward on the card sets them, and a CUDA graph of a step must
+    be captured after they are set (the graph keeps the kernels chosen
+    at capture)."""
     if device.type == "cuda" and any(a._data.dtype == torch.float32
                                      for a in arrays):
         torch.backends.cudnn.allow_tf32 = False
@@ -178,10 +189,17 @@ class Executor(object):
         self.aux_dict = dict(zip(self._aux_names, aux_arrays))
         self.outputs: List[NDArray] = []
         self._diff_idx = [i for i, r in enumerate(grad_req) if r != "null"]
+        self._has_rng = any(not n.is_variable and n.op.needs_rng
+                            for n in _topo_order(symbol._outputs))
+        # the AMP policy of the bind, which every graph fn of this
+        # executor (and a FusedTrainLoop over it) keeps
+        self._amp_dtype = _amp.get_compute_dtype()
         self._infer_fn = _build_graph_fn(symbol, self._arg_names,
-                                         self._aux_names, False, self._ctx)
+                                         self._aux_names, False, self._ctx,
+                                         self._amp_dtype)
         self._train_fn = _build_graph_fn(symbol, self._arg_names,
-                                         self._aux_names, True, self._ctx)
+                                         self._aux_names, True, self._ctx,
+                                         self._amp_dtype)
         # (leaf tensors, output tensors) of the last forward(is_train=True)
         self._pending = None
 

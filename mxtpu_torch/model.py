@@ -4,8 +4,9 @@
 package's format (``prefix-symbol.json`` and ``prefix-%04d.params``
 with ``arg:``/``aux:`` keys).
 
-The kvstore is not ported (ROADMAP A15): on one device a ``local`` (or
-no) kvstore means none, as in the JAX package; anything else raises.
+The kvstore is not ported (ROADMAP A15): on one device a kvstore name
+without ``dist`` other than ``tpu`` (``local``, ``device``), or none,
+means none, as in the JAX package; anything else raises.
 The CRC manifest of the JAX package's atomic checkpoints is not
 written, and is not needed to read one.
 """
@@ -24,10 +25,14 @@ BatchEndParam = namedtuple("BatchEndParams",
 
 
 def _create_kvstore(kvstore, num_device: int, arg_params):
-    """(kvstore, update_on_kvstore): (None, False) for one device with
-    ``local`` or no kvstore; the port has no kvstore for anything else."""
-    if kvstore is None or kvstore == "" or (kvstore == "local"
-                                            and num_device == 1):
+    """(kvstore, update_on_kvstore): (None, False) for no kvstore, and on
+    one device for any kvstore name without ``dist`` other than ``tpu``
+    (``local``, ``device``...), as in the JAX package; the port has no
+    kvstore for anything else."""
+    if kvstore is None or kvstore == "":
+        return None, False
+    if isinstance(kvstore, str) and num_device == 1 \
+            and "dist" not in kvstore and kvstore != "tpu":
         return None, False
     raise MXNetError("kvstore %r over %d device(s) is not ported (ROADMAP "
                      "A15): use one device with kvstore='local'"

@@ -4,7 +4,9 @@ Counterpart of part of ``mxtpu/ops/nn.py``: ``FullyConnected``,
 ``Convolution``, ``Pooling``, ``BatchNorm``, ``Activation`` and
 ``SoftmaxOutput``, with the reference's names, attrs and NCHW/OIHW
 layouts.  Convolution and the products are torch's calls (cuDNN and
-cuBLAS on the card), as the JAX package leaves them to XLA.
+cuBLAS on the card), as the JAX package leaves them to XLA; a bf16 or
+fp16 convolution on the CPU runs in float32 and rounds once, as those
+libraries accumulate.
 
 * BatchNorm computes its training statistics in f32 (or f64 for f64
   data, which the JAX package never sees) as the JAX package's does, the
@@ -21,12 +23,15 @@ cuBLAS on the card), as the JAX package leaves them to XLA.
   (``tests/test_torch_module.py`` measures both).
 * SoftmaxOutput's gradient ignores the head gradient, as the
   reference's does: ``(softmax - onehot(label)) * grad_scale`` over the
-  ``normalization``, zero for the label (``_SoftmaxOutput``).
+  ``normalization``, zero for the label (``_SoftmaxOutput``); a label
+  outside [0, n_class) has a zero one-hot row, as in the reference.
 * Pooling pads per ``_pool_pads`` (``valid``/``full``); torch's pooling
   takes only a symmetric pad of at most half the kernel, so any other
   pad is applied explicitly (-inf for max, zeros for avg/sum).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -39,6 +44,7 @@ _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 _AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
 _SPATIAL = {1: "W", 2: "HW", 3: "DHW"}
+_LOWP = (torch.bfloat16, torch.float16)
 
 
 def _norm_tuple(v, n, default):
@@ -64,6 +70,10 @@ def _fully_connected(data, weight, *maybe_bias, num_hidden=0, no_bias=False,
                      flatten=True):
     x = data.reshape(data.shape[0], -1) if flatten else data
     bias = maybe_bias[0] if maybe_bias and not no_bias else None
+    if bias is not None and x.dtype in _LOWP:
+        # the product rounds to the low precision before the bias is
+        # added, as the JAX package's dot and add do
+        return F.linear(x, weight) + bias
     return F.linear(x, weight, bias)
 
 
@@ -79,9 +89,18 @@ def _convolution(data, weight, *maybe_bias, kernel=(), stride=(), dilate=(),
     ns = len(kernel)
     _check_layout(layout, ns)
     bias = maybe_bias[0] if maybe_bias and not no_bias else None
-    return _CONV[ns](data, weight, bias, stride=_norm_tuple(stride, ns, 1),
-                     padding=_norm_tuple(pad, ns, 0),
-                     dilation=_norm_tuple(dilate, ns, 1), groups=num_group)
+    conv = functools.partial(_CONV[ns], stride=_norm_tuple(stride, ns, 1),
+                             padding=_norm_tuple(pad, ns, 0),
+                             dilation=_norm_tuple(dilate, ns, 1),
+                             groups=num_group)
+    if data.device.type == "cpu" and data.dtype in _LOWP:
+        # products of low-precision inputs accumulate in float32 and
+        # round once, as XLA's and cuDNN's do (torch's CPU kernel rounds
+        # more); the bias is added after that rounding, as the JAX
+        # package's add and torch's cuDNN path add it
+        out = conv(data.float(), weight.float()).to(data.dtype)
+        return out if bias is None else out + bias.view((1, -1) + (1,) * ns)
+    return conv(data, weight, bias)
 
 
 # ---------------------------------------------------------------------------
@@ -231,11 +250,17 @@ class _SoftmaxOutput(torch.autograd.Function):
          smooth_alpha) = ctx.cfg
         axis = 1 if multi_output else -1
         n_class = p.shape[axis]
-        lab = label.to(torch.int32).long()
+        lab = label.to(torch.int32)
+        # the one-hot by comparison, as jax.nn.one_hot: a label outside
+        # [0, n_class) gives a zero row (F.one_hot raises on it, and
+        # checks its bounds on the host, which a CUDA graph forbids)
+        classes = torch.arange(n_class, device=p.device, dtype=lab.dtype)
         if multi_output:
-            oh = F.one_hot(lab, n_class).movedim(-1, 1).to(p.dtype)
+            oh = (lab.unsqueeze(1) == classes.reshape(
+                (1, n_class) + (1,) * (lab.ndim - 1))).to(p.dtype)
         else:
-            oh = F.one_hot(lab.reshape(p.shape[:-1]), n_class).to(p.dtype)
+            oh = (lab.reshape(p.shape[:-1]).unsqueeze(-1)
+                  == classes).to(p.dtype)
         if smooth_alpha:
             oh = oh * (1.0 - smooth_alpha) + smooth_alpha / n_class
         grad = p - oh

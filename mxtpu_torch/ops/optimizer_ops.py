@@ -1,9 +1,11 @@
 """Optimizer update ops of the PyTorch port (counterpart of
-``sgd_update`` and ``sgd_mom_update`` in ``mxtpu/ops/optimizer_ops.py``).
+``sgd_update``, ``sgd_mom_update`` and ``adam_update`` in
+``mxtpu/ops/optimizer_ops.py``).
 
 Each returns the new weight first, then the new states; the caller
-writes them back.  ``mxtpu_torch.optimizer.SGD.fused_update_multi``
-does the same arithmetic over every parameter with ``torch._foreach_*``.
+writes them back.  The optimizers' ``fused_update_multi``
+(``mxtpu_torch.optimizer``) do the same arithmetic over every parameter
+with ``torch._foreach_*``.
 """
 from __future__ import annotations
 
@@ -32,3 +34,14 @@ def _sgd_mom_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
     g = _rescale_clip(grad, rescale_grad, clip_gradient)
     new_mom = momentum * mom - lr * (g + wd * weight)
     return weight + new_mom, new_mom
+
+
+@register("adam_update", differentiable=False, num_outputs=3)
+def _adam_update(weight, grad, mean, var, lr=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                 lazy_update=True):
+    g = _rescale_clip(grad, rescale_grad, clip_gradient) + wd * weight
+    new_mean = beta1 * mean + (1.0 - beta1) * g
+    new_var = beta2 * var + (1.0 - beta2) * torch.square(g)
+    new_w = weight - lr * new_mean / (torch.sqrt(new_var) + epsilon)
+    return new_w, new_mean, new_var

@@ -279,6 +279,38 @@ def test_module_api():
     assert not mod.get_params()[0]["fc2_weight"].asnumpy().any()
 
 
+def test_kvstore_device_on_one_device_trains_as_local():
+    """On one device a kvstore name without "dist" other than "tpu"
+    means no kvstore and a local update, as in the reference; "dist_*"
+    and "tpu" still raise."""
+    args, aux = _params(jmx, _mlp(jsym))
+    x, y = _mlp_data(8)
+    got = {}
+    for kv in ("local", "device"):
+        mod = tmx.mod.Module(_mlp(tmx.sym), context=tmx.cpu())
+        mod.bind(data_shapes=[("data", (8, 6))],
+                 label_shapes=[("softmax_label", (8,))])
+        mod.init_params(arg_params=args, aux_params=aux)
+        mod.init_optimizer(kvstore=kv, optimizer_params={
+            "learning_rate": 0.1, "momentum": 0.9})
+        assert mod._kvstore is None
+        for _ in range(2):
+            mod.forward(_batch(tmx, x, y))
+            mod.backward()
+            mod.update()
+        got[kv] = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    for k in got["local"]:
+        np.testing.assert_array_equal(got["device"][k], got["local"][k])
+        assert not np.array_equal(got["device"][k], args[k])
+    for kv in ("dist_sync", "tpu"):
+        mod = tmx.mod.Module(_mlp(tmx.sym), context=tmx.cpu())
+        mod.bind(data_shapes=[("data", (8, 6))],
+                 label_shapes=[("softmax_label", (8,))])
+        mod.init_params(arg_params=args, aux_params=aux)
+        with pytest.raises(MXNetError, match="ROADMAP A15"):
+            mod.init_optimizer(kvstore=kv)
+
+
 @pytest.mark.parametrize("kw", [
     dict(learning_rate=0.1, momentum=0.9, wd=1e-2, rescale_grad=0.5),
     dict(learning_rate=0.05, momentum=0.0, wd=0.0, clip_gradient=0.1),

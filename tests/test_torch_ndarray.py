@@ -170,6 +170,23 @@ def test_softmax_output_gradient_is_label_driven(attrs):
     _both("SoftmaxOutput", [data, label.astype(np.float32)], attrs)
 
 
+@pytest.mark.parametrize("attrs", [
+    dict(normalization="valid"),
+    dict(normalization="valid", use_ignore=True, ignore_label=-1.0),
+    dict(use_ignore=True, ignore_label=-1.0, multi_output=True),
+])
+@pytest.mark.parametrize("labels", [[1, -1, 3, -1], [1, 7, 3, 0]])
+def test_softmax_output_labels_outside_the_classes(attrs, labels):
+    """A label outside [0, n_class) has a zero one-hot row, as
+    jax.nn.one_hot gives: the gradient is p there (zero under
+    use_ignore for the ignored label), never an error."""
+    if attrs.get("multi_output"):
+        data, label = _rand(2, 5, 2), np.array(labels).reshape(2, 2)
+    else:
+        data, label = _rand(4, 5), np.array(labels)
+    _both("SoftmaxOutput", [data, label.astype(np.float32)], attrs)
+
+
 # ---------------------------------------------------------------------------
 # elementwise, shape, reduction, init, optimizer ops
 # ---------------------------------------------------------------------------
@@ -244,6 +261,17 @@ def test_sgd_update(attrs):
 def test_sgd_mom_update(attrs):
     w, g, m = _rand(3, 4), _rand(3, 4, seed=1), _rand(3, 4, seed=2)
     _both("sgd_mom_update", [w, g, m], attrs, grad=False)
+
+
+@pytest.mark.parametrize("attrs", [
+    dict(lr=0.01),
+    dict(lr=0.05, beta1=0.8, beta2=0.99, epsilon=1e-6, wd=1e-2,
+         rescale_grad=0.25, clip_gradient=0.5),
+])
+def test_adam_update(attrs):
+    w, g = _rand(3, 4), _rand(3, 4, seed=1)
+    m, v = _rand(3, 4, seed=2), _rand(3, 4, seed=3, low=0.0)
+    _both("adam_update", [w, g, m, v], attrs, grad=False)
 
 
 def test_registry_flags_match_the_reference():
