@@ -66,9 +66,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 5. resnet  -- ResNet-50 v1 trained through ``mxtpu_torch.sym`` and
    ``mxtpu_torch.mod`` as bench.py's per-step row does
-   (``run_per_step_fp32``): the JAX package's exported graph
-   (``mxtpu_torch/symbol/zoo/resnet50_v1-symbol.json``) loaded with
-   ``sym.load``, a ``Module`` bound on the card at data (32, 3, 224,
+   (``run_per_step_fp32``): the graph traced by the port's gluon
+   (``sym.ZOO["resnet50_v1"]()``, equal to the JAX package's trace), a
+   ``Module`` bound on the card at data (32, 3, 224,
    224) and label (32,), ``Xavier`` after ``random.seed(0)``, SGD with
    lr 0.01 and momentum 0.9, one fixed batch drawn as bench.py draws it;
    2 warm steps and 20 timed steps of forward/backward/update in fp32
@@ -117,6 +117,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
    reserved with the graph's pool), and from one profiled call the
    device busy time, idle share, device operations and host launches a
    step and the top 8 operations.
+7. gluon   -- the same network trained through ``mxtpu_torch.gluon`` as
+   README.md's first example: ``model_zoo.vision.resnet50_v1`` built in
+   a fresh NameManager, ``Xavier`` after ``random.seed(0)``,
+   ``hybridize()``, the loss (``SoftmaxCrossEntropyLoss``) under
+   ``autograd.record()``, ``backward`` and ``Trainer("sgd", lr 0.01,
+   momentum 0.9, kvstore="device").step(32)`` on bench.py's batch 32
+   (fp32 with TF32 off, and traced inside ``amp.scope("bfloat16")`` as
+   bench.py:118 does), 2 warm and 20 timed steps synchronised by value.
+   Checks that the timed steps' mean losses are finite and the last is
+   below the first, that every BN moving stat moved and every moving
+   variance is positive, that no flash-attention kernel launched, and
+   that cuDNN ran bf16 convolutions under bf16 and none in fp32.
+   Prints ms a step and images/s, one profiled step (device busy time,
+   idle share, device operations, by kind, the top 8) and peak memory,
+   each beside the resnet phase's Module row.  Then, from one state
+   under cuDNN's deterministic algorithms, one Trainer step against one
+   Module step over the traced graph (each of weights, momenta and
+   moving stats within ``GLUON_MODULE_TOL``) and against the same step
+   not hybridized (bitwise equal).  Then a HybridBlock calling
+   ``F.contrib.flash_attention`` at (8, 8, 1024, 128) bf16, causal and
+   not, hybridized, under ``record()`` with ``backward``: exactly one
+   launch of each kernel a call, the output and gradients against the
+   plain versions at ``TOL``/``BWD_TOL`` and ``BF16_REL_L2``.
 
 The line before the last is the card's name and power limit, the line
 before that the kernels' JSON record; the last line is
@@ -235,6 +258,18 @@ def busy_us(spans):
         else:
             cur_e = max(cur_e, end)
     return busy + (0.0 if cur_e is None else cur_e - cur_s)
+
+
+def profile_summary(spans, top=8):
+    """(device busy ms, window ms, the ``top`` operations with the most
+    time as (name, us)) of one profiled run's spans."""
+    by_name = {}
+    for start, end, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+    busy = busy_us([(a, b) for a, b, _ in spans])
+    window = max(b for _, b, _ in spans) - min(a for a, _, _ in spans)
+    return busy / 1e3, window / 1e3, sorted(by_name.items(),
+                                            key=lambda kv: -kv[1])[:top]
 
 
 def device_spans(fn, tries=3):
@@ -1158,15 +1193,10 @@ def step_profile(cfg, params, opt, tok, lab, top=8):
     spans = device_spans(step)
     if not spans:
         fail("train: the profiler saw no device time in a step")
-    by_name = {}
-    for start, end, name in spans:
-        by_name[name] = by_name.get(name, 0.0) + (end - start)
-    busy = busy_us([(a, b) for a, b, _ in spans])
-    window = max(b for _, b, _ in spans) - min(a for a, _, _ in spans)
-    heads = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    busy, window, heads = profile_summary(spans, top)
     log("[train] one profiled step: %d kernels, device busy %.3f ms in a "
         "%.3f ms window (idle share at most %.3f); most device time: %s"
-        % (len(spans), busy / 1e3, window / 1e3, 1 - busy / window,
+        % (len(spans), busy, window, 1 - busy / window,
            "; ".join("%s %.3f ms" % (name[:60], t / 1e3)
                      for name, t in heads)))
 
@@ -1289,7 +1319,7 @@ def phase_train(kernel_records):
 def resnet_module(batch, ctx):
     """ResNet-50 v1 from the exported graph in a Module bound at
     ``batch`` on ``ctx``, as bench.py's ``_build_module`` binds it."""
-    symbol = mx.sym.load(mx.sym.ZOO["resnet50_v1"])
+    symbol = mx.sym.ZOO["resnet50_v1"]()
     mod = mx.mod.Module(symbol, data_names=("data0",),
                         label_names=("softmax_label",), context=ctx)
     mod.bind(data_shapes=[("data0", (batch, 3, 224, 224))],
@@ -1349,7 +1379,7 @@ def resnet_step_check(params, aux):
     def exact_step():
         """The first SGD step in float64 on the CPU: the update is
         -lr * rescale * grad (the momentum starts at zero, wd 0)."""
-        symbol = mx.sym.load(mx.sym.ZOO["resnet50_v1"])
+        symbol = mx.sym.ZOO["resnet50_v1"]()
         batch = resnet_batch(2, mx.cpu(), seed=1)
         ex = symbol.simple_bind(
             ctx=mx.cpu(), type_dict={n: "float64"
@@ -1424,8 +1454,8 @@ class tf32_on:
 
 
 def phase_resnet():
-    """bench.py's per-step ResNet-50 row on the card through sym.load
-    and Module; fails on any check."""
+    """bench.py's per-step ResNet-50 row on the card through the traced
+    symbol and Module; fails on any check."""
     torch.cuda.reset_peak_memory_stats()
     gpu = mx.gpu(0)
     t0 = time.monotonic()
@@ -1438,10 +1468,9 @@ def phase_resnet():
     params0, aux0 = mod.get_params()
     params0 = {k: v.asnumpy() for k, v in params0.items()}
     aux0 = {k: v.asnumpy() for k, v in aux0.items()}
-    log("[resnet] ResNet-50 v1 from %s: %d arguments, %d aux states, "
-        "bound and initialised on %s in %.1f s"
-        % (mx.sym.ZOO["resnet50_v1"].split("mxtpu_torch")[-1],
-           len(mod.symbol.list_arguments()),
+    log("[resnet] ResNet-50 v1 traced by the port's gluon: %d arguments, "
+        "%d aux states, bound and initialised on %s in %.1f s"
+        % (len(mod.symbol.list_arguments()),
            len(mod.symbol.list_auxiliary_states()), gpu,
            time.monotonic() - t0))
     weight = mod._exec_group.param_arrays[0][0]
@@ -1505,15 +1534,10 @@ def phase_resnet():
     spans = device_spans(step)
     if not spans:
         fail("resnet: the profiler saw no device time in a step")
-    by_name = {}
-    for start, end, name in spans:
-        by_name[name] = by_name.get(name, 0.0) + (end - start)
-    busy = busy_us([(a, b) for a, b, _ in spans])
-    window = max(b for _, b, _ in spans) - min(a for a, _, _ in spans)
-    heads = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    busy, window, heads = profile_summary(spans)
     log("[resnet] one profiled step: %d device operations, device busy "
         "%.3f ms in a %.3f ms window (idle share at most %.3f); most "
-        "device time: %s" % (len(spans), busy / 1e3, window / 1e3,
+        "device time: %s" % (len(spans), busy, window,
                              1 - busy / window, "; ".join(
                                  "%s %.3f ms" % (name[:70], t / 1e3)
                                  for name, t in heads)))
@@ -1523,9 +1547,12 @@ def phase_resnet():
         "step's fp32 bound %.3f ms (%d x %.1f GFLOP at 67 TFLOP/s, by %s): "
         "the step is %.2fx it, the busy time %.2fx"
         % (peak / 1e6, bound, RESNET_BATCH, RESNET_GFLOP_PER_IMG, by,
-           ms / bound, busy / 1e3 / bound))
+           ms / bound, busy / bound))
     resnet_step_check(params0, aux0)
-    return launches
+    return dict(launches=launches, ms=ms,
+                imgs_per_sec=RESNET_STEPS * RESNET_BATCH / wall,
+                busy_ms=busy, idle=1 - busy / window, ops=len(spans),
+                peak_mb=peak / 1e6)
 
 
 # bench.py's fused ResNet rows (run_config, bench.py:155-204, and
@@ -2025,6 +2052,358 @@ def phase_fused():
             for name, batch, dtype in FUSED_ROWS}
 
 
+# the gluon rows (bench.py:114-136's network trained as README.md's
+# first example: hybridize(), record(), SoftmaxCrossEntropyLoss,
+# backward, Trainer.step), batch 32, 2 warm and 20 timed steps; the
+# bf16 row traced inside amp.scope("bfloat16"), as bench.py:118 traces
+GLUON_ROWS = (("gluon_resnet50_fp32_bs32", None),
+              ("gluon_resnet50_bf16_bs32", "bfloat16"))
+GLUON_WARM, GLUON_STEPS = 2, 20
+# one Trainer step against one Module step from the same state under
+# cuDNN's deterministic algorithms, by group (relative L2; PERF.md §6
+# holds the prediction, written before the first run): the forward is
+# the same graph on the same kernels, so the moving stats are equal; the
+# gradients differ only at the head, where gluon's loss gives
+# exp(log_softmax(z)) - onehot and SoftmaxOutput softmax(z) - onehot, a
+# few ulps apart, which the backward carries into every gradient (the
+# fused check's runs read a 1e-7 difference in step 1's weight
+# gradients as 5.5e-6 on the momenta).  A wrong rescale, rate or momentum reads 1e-2 or more.
+GLUON_MODULE_TOL = {"weights": 1e-5, "momenta": 1e-4, "moving stats": 0.0}
+# the attention block through gluon at the transformer's shape
+# (batch, heads, T, head_dim), bf16
+GLUON_ATTN = (8, 8, 1024, 128)
+
+
+def gluon_resnet(ctx, hybridize=True):
+    """ResNet-50 v1 through gluon, built in a fresh NameManager (so its
+    names are the Module graph's), Xavier after ``random.seed(0)``: the
+    draws happen at the first forward, which infers the deferred
+    shapes."""
+    with mx.sym.NameManager():
+        net = mx.gluon.model_zoo.vision.resnet50_v1(classes=1000)
+    mx.random.seed(0)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    if hybridize:
+        net.hybridize()
+    return net
+
+
+def gluon_trainer(net):
+    return mx.gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": 0.01, "momentum": 0.9}, kvstore="device")
+
+
+def gluon_step(net, trainer, loss_fn, x, y):
+    """README.md's step: the loss under record(), backward, and
+    Trainer.step over the batch."""
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss
+
+
+def gluon_state(net, trainer):
+    """Clones of the weights, the momenta and the moving stats, by group
+    and parameter name."""
+    params = list(net.collect_params().values())
+    return {"weights": {p.name: p.data()._data.clone() for p in params
+                        if p.grad_req != "null"},
+            "momenta": {params[i].name: st._data.clone()
+                        for i, st in trainer._updater.states.items()
+                        if st is not None},
+            "moving stats": {p.name: p.data()._data.clone() for p in params
+                             if p.grad_req == "null"}}
+
+
+def gluon_host_split(net, trainer, loss_fn, x, y, steps=5):
+    """The host's ms a step in each stage of README.md's step (the
+    hybridized forward, the imperative loss, ``backward``,
+    ``Trainer.step``): the host clock around each call, with no sync
+    inside the step and one after it, so each step starts on an empty
+    launch queue; the median over ``steps``.  A stage that fills the
+    queue also counts its wait for the card."""
+    times = []
+    for _ in range(steps):
+        t = [time.perf_counter()]
+        with mx.autograd.record():
+            out = net(x)
+            t.append(time.perf_counter())
+            loss = loss_fn(out, y)
+            t.append(time.perf_counter())
+        loss.backward()
+        t.append(time.perf_counter())
+        trainer.step(x.shape[0])
+        t.append(time.perf_counter())
+        torch.cuda.synchronize()
+        times.append([(b - a) * 1e3 for a, b in zip(t, t[1:])])
+    return dict(zip(("forward", "loss", "backward", "trainer_step"),
+                    np.median(np.array(times), axis=0).tolist()))
+
+
+def gluon_row(name, dtype, module_row):
+    """One gluon row: ResNet-50 v1 hybridized at batch 32 under the
+    policy ``dtype``, 2 warm and 20 timed steps synchronised by value,
+    then one profiled step.  Fails on any check."""
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    gpu = mx.gpu(0)
+    t0 = time.monotonic()
+    batch = resnet_batch(RESNET_BATCH, gpu)
+    x, y = batch.data[0], batch.label[0]
+    net = gluon_resnet(gpu)
+    trainer = gluon_trainer(net)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    params = net.collect_params()
+    weight = params["resnetv10_conv2d0_weight"]
+    losses = []
+
+    def step():
+        losses.append(gluon_step(net, trainer, loss_fn, x, y)._data.detach())
+
+    def value_sync():
+        # a value fetch: the last loss, and a scalar of an updated weight
+        float(losses[-1][0])
+        float(weight.data()._data.detach().view(-1)[0])
+
+    for kern in KERNELS.values():
+        kern.launches = 0
+    with mx.amp.scope(dtype):
+        step()  # traces the net under the policy, draws the weights
+    value_sync()
+    setup_s = time.monotonic() - t0
+    aux0 = {n: p.data()._data.clone() for n, p in params.items()
+            if p.grad_req == "null"}
+    for _ in range(GLUON_WARM - 1):
+        step()
+    value_sync()
+    t1 = time.monotonic()
+    for _ in range(GLUON_STEPS):
+        step()
+    value_sync()
+    wall = time.monotonic() - t1
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: kern.launches for k, kern in KERNELS.items()}
+    host = gluon_host_split(net, trainer, loss_fn, x, y)
+    spans = device_spans(step)
+    if not spans:
+        fail("gluon %s: the profiler saw no device time in a step" % name)
+    busy, window, heads = profile_summary(spans)
+    idle, ops = 1 - busy / window, len(spans)
+    timed = torch.stack([l.float().mean() for l in
+                         losses[GLUON_WARM:GLUON_WARM + GLUON_STEPS]]).cpu()
+    ms = wall / GLUON_STEPS * 1e3
+    ips = GLUON_STEPS * RESNET_BATCH / wall
+    log("[gluon] %s (%s): %d timed steps at batch %d (after %d warm): "
+        "%.3f s (host clock, synchronised by value): %.3f ms a step, %.2f "
+        "images/s; the Module per-step row of this run (phase resnet): "
+        "%.3f ms, %.2f images/s; set-up and first step %.1f s"
+        % (name, dtype or "fp32, TF32 off", GLUON_STEPS, RESNET_BATCH,
+           GLUON_WARM, wall, ms, ips, module_row["ms"],
+           module_row["imgs_per_sec"], setup_s))
+    kinds = sorted(by_kind(spans).items(), key=lambda kv: -kv[1])
+    log("[gluon] %s: one profiled step: device busy %.3f ms (Module %.3f), "
+        "idle share at most %.3f (Module %.3f), %d device operations "
+        "(Module %d); peak device memory %.1f MB allocated (Module %.1f); "
+        "by kind: %s; most device time: %s"
+        % (name, busy, module_row["busy_ms"], idle, module_row["idle"], ops,
+           module_row["ops"], peak / 1e6, module_row["peak_mb"],
+           "; ".join("%s %.3f ms" % (k, t / 1e3) for k, t in kinds),
+           "; ".join("%s %.3f ms" % (n[:70], t / 1e3) for n, t in heads)))
+    log("[gluon] %s: host ms a step by stage (median of 5 steps, no sync "
+        "inside a step): %s; their sum %.3f ms"
+        % (name, ", ".join("%s %.3f" % kv for kv in host.items()),
+           sum(host.values())))
+    log("[gluon] %s: the timed steps' mean losses: %s"
+        % (name, " ".join("%.4f" % v for v in timed.tolist())))
+    if not bool(torch.isfinite(timed).all()) or not timed[-1] < timed[0]:
+        fail("gluon %s: losses not finite or not falling: %s"
+             % (name, timed.tolist()))
+    still = [n for n, a in aux0.items()
+             if torch.equal(params[n].data()._data, a)]
+    bad_var = [n for n in aux0 if n.endswith("_var")
+               and not bool((params[n].data()._data > 0).all())]
+    log("[gluon] %s: BN moving stats: %d of %d moved since the first step; "
+        "flash-attention launches %s" % (name, len(aux0) - len(still),
+                                         len(aux0), launches))
+    if still or bad_var:
+        fail("gluon %s: moving stats unmoved %s or non-positive %s"
+             % (name, still[:3], bad_var[:3]))
+    if any(launches.values()):
+        fail("gluon %s: a flash-attention kernel launched: %s"
+             % (name, launches))
+    convs = {n for _, _, n in spans if kind_of(n) == "convolution"
+             and "Nhwc" not in n and "Nchw" not in n}
+    convs_bf16 = [n for n in convs if "bf16" in n or "bfloat16" in n]
+    log("[gluon] %s: %d convolution kernels in the profiled step, %d of "
+        "them bf16; the CachedOp's compute dtype %s"
+        % (name, len(convs), len(convs_bf16), net._cached_op._amp_dtype))
+    if bool(convs_bf16) != (dtype is not None) or \
+            net._cached_op._amp_dtype != dtype:
+        fail("gluon %s: %d bf16 convolution kernels, compute dtype %s, "
+             "under %s" % (name, len(convs_bf16), net._cached_op._amp_dtype,
+                           dtype or "fp32"))
+    result = dict(ms=ms, imgs_per_sec=ips, busy_ms=busy, idle=idle, ops=ops,
+                  peak_mb=peak / 1e6, launches=launches, host_ms=host)
+    del net, trainer, losses, aux0, params, weight
+    free_card()
+    return result
+
+
+def gluon_step_checks():
+    """From one state, under cuDNN's deterministic algorithms: one
+    hybridized Trainer step against one Module step (the traced graph
+    under SoftmaxOutput, rescale_grad 1/batch), each group within
+    ``GLUON_MODULE_TOL``; and one step of the same net not hybridized,
+    which must equal the hybridized step bitwise."""
+    free_card()
+    gpu = mx.gpu(0)
+    batch = resnet_batch(RESNET_BATCH, gpu, seed=1)
+    x, y = batch.data[0], batch.label[0]
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    net = gluon_resnet(gpu)
+    with mx.autograd.pause():
+        net(x)  # predict mode: draws the weights, leaves the moving stats
+    start = {n: p.data()._data.clone()
+             for n, p in net.collect_params().items()}
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainer = gluon_trainer(net)
+        gluon_step(net, trainer, loss_fn, x, y)
+        hybrid = gluon_state(net, trainer)
+        del net, trainer
+        imperative = gluon_resnet(gpu, hybridize=False)
+        for n, p in imperative.collect_params().items():
+            p.set_data(mx.nd.NDArray(start[n]))
+        trainer = gluon_trainer(imperative)
+        gluon_step(imperative, trainer, loss_fn, x, y)
+        eager = gluon_state(imperative, trainer)
+        del imperative, trainer
+        mod = resnet_module(RESNET_BATCH, gpu)
+        arg = set(mod.symbol.list_arguments())
+        mod.init_params(
+            arg_params={n: mx.nd.NDArray(t) for n, t in start.items()
+                        if n in arg},
+            aux_params={n: mx.nd.NDArray(t) for n, t in start.items()
+                        if n not in arg})
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.01, "momentum": 0.9})
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+        g = mod._exec_group
+        module = {"weights": {n: a[0]._data.clone() for n, a in
+                              zip(g.param_names, g.param_arrays)},
+                  "momenta": {g.param_names[i]: st._data.clone()
+                              for i, st in mod._updater.states.items()
+                              if st is not None},
+                  "moving stats": {n: a[0]._data.clone() for n, a in
+                                   zip(g.aux_names, g.aux_arrays)}}
+        del mod
+    finally:
+        torch.backends.cudnn.deterministic = False
+    vs_module = state_distance(hybrid, module)
+    vs_eager = state_distance(eager, hybrid)
+    log("[gluon] one Trainer step vs one Module step from the same state "
+        "(batch %d, fp32, cuDNN deterministic; %d tensors), by group, the "
+        "relative L2 and the tensors with the largest shares of it: %s; "
+        "bounds %s" % (RESNET_BATCH, sum(len(v) for v in module.values()),
+                       show_distance(vs_module), GLUON_MODULE_TOL))
+    log("[gluon] the same step not hybridized vs hybridized: %s (bitwise "
+        "equal wanted)" % show_distance(vs_eager))
+    bad = [grp for grp, (rel, _) in vs_module.items()
+           if not rel <= GLUON_MODULE_TOL[grp]]
+    if bad or set(hybrid["weights"]) != set(module["weights"]):
+        fail("gluon: the Trainer step is beyond the bound from the Module "
+             "step in %s" % bad)
+    if any(rel != 0 for rel, _ in vs_eager.values()):
+        fail("gluon: the imperative step differs from the hybridized step")
+    free_card()
+
+
+class _FlashBlock(mx.gluon.HybridBlock):
+    """Attention through the registered op, as a model would call it."""
+
+    def __init__(self, causal, **kwargs):
+        super().__init__(**kwargs)
+        self._causal = causal
+
+    def hybrid_forward(self, F, q, k, v):
+        return F.contrib.flash_attention(q, k, v, causal=self._causal)
+
+
+def gluon_attention_check():
+    """The hybridized block under record() and backward at
+    ``GLUON_ATTN`` bf16, causal and not: exactly one launch of each
+    kernel a call, and the output and gradients against the plain
+    versions at ``TOL``/``BWD_TOL`` and ``BF16_REL_L2`` (the plain
+    backward on the backward kernels' inputs: the block's output and the
+    plain LSE).  Returns each kernel's launches."""
+    b, h, t, d = GLUON_ATTN
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    total = {k: 0 for k in KERNELS}
+    scale = d ** -0.5
+    for causal in (True, False):
+        q, k, v, g = (torch.randn(b * h, t, d, device="cuda", generator=gen)
+                      .to(torch.bfloat16) for _ in range(4))
+        args = [mx.nd.NDArray(a.view(b, h, t, d).clone()) for a in (q, k, v)]
+        for a in args:
+            a.attach_grad()
+        blk = _FlashBlock(causal)
+        blk.hybridize()
+        for kern in KERNELS.values():
+            kern.launches = 0
+        with mx.autograd.record():
+            out = blk(*args)
+        out.backward(mx.nd.NDArray(g.view(b, h, t, d)))
+        torch.cuda.synchronize()
+        launches = {n: kern.launches for n, kern in KERNELS.items()}
+        for n, c in launches.items():
+            total[n] += c
+        ref_o, ref_l, base = reference(q, k, v, scale, causal)
+        got_o = out._data.detach().reshape(b * h, t, d)
+        d_o = got_o.float() - ref_o.float()
+        tol = TOL[torch.bfloat16]
+        fwd = dict(err_over_tol=(d_o.abs() / (tol["atol"] + tol["rtol"]
+                                              * base)).max().item(),
+                   rel_l2=(d_o.norm() / ref_o.float().norm()).item())
+        # the backward kernels' inputs: the block's output (delta is
+        # rowsum(O * G)) and the LSE, which the kernel phase holds to the
+        # plain version's within 2e-5 + 2e-4 of it
+        ref, scales = backward_reference(q, k, v, g, got_o, ref_l, scale,
+                                         causal)
+        btol = BWD_TOL[torch.bfloat16]
+        bwd = {}
+        for gname, arr, want, sc in zip(("dq", "dk", "dv"), args, ref,
+                                        scales):
+            diff = arr.grad._data.reshape(b * h, t, d).float() - want.float()
+            bwd[gname] = dict(
+                err_over_tol=(diff.abs() / (btol["atol"] + btol["rtol"]
+                                            * sc)).max().item(),
+                rel_l2=(diff.norm() / want.float().norm()).item())
+        log("[gluon] flash attention through a hybridized block at %s bf16 "
+            "%s: launches %s; output %s; gradients %s"
+            % (GLUON_ATTN, "causal" if causal else "not causal", launches,
+               json.dumps(fwd), json.dumps(bwd)))
+        if launches != {n: 1 for n in KERNELS}:
+            fail("gluon attention: launches %s, want one of each"
+                 % launches)
+        if any(e["err_over_tol"] > 1.0 or e["rel_l2"] > BF16_REL_L2
+               for e in [fwd] + list(bwd.values())):
+            fail("gluon attention: disagrees with the plain version")
+    return total
+
+
+def phase_gluon(module_row):
+    """The gluon rows, the step checks and the attention check; returns
+    each path's kernel launches."""
+    out = {name: gluon_row(name, dtype, module_row)
+           for name, dtype in GLUON_ROWS}
+    gluon_step_checks()
+    out["gluon_attention"] = dict(launches=gluon_attention_check())
+    return out
+
+
 def parse_args():
     ap = argparse.ArgumentParser(
         description="Chip smoke test of mxtpu_torch on one H100; with no "
@@ -2065,6 +2444,7 @@ def main():
     trained = phase_train(records)
     resnet = phase_resnet()
     fused = phase_fused()
+    gluon = phase_gluon(resnet)
     sources = {"flash_fwd": ("flash_fwd.cu", 149),
                "flash_bwd_dq": ("flash_bwd.cu", 277),
                "flash_bwd_dkv": ("flash_bwd.cu", 309)}
@@ -2072,9 +2452,12 @@ def main():
     for name, (src, line) in sources.items():
         rec = records[name]
         by_path = {"serve": served if name == "flash_fwd" else 0,
-                   "train": trained[name], "resnet": resnet[name]}
+                   "train": trained[name],
+                   "resnet": resnet["launches"][name]}
         by_path.update({row: r["launches"][name]
                         for row, r in fused.items()})
+        by_path.update({row: r["launches"][name]
+                        for row, r in gluon.items()})
         kernels.append(dict(
             name=name, route="cuda",
             source="mxtpu_torch/ops/csrc/" + src,

@@ -21,7 +21,11 @@ Ported so far:
   (Module) and ``metric``;
 * bench.py's fused ResNet rows: ``FusedTrainLoop`` (K steps a call, a
   CUDA graph of the step on the card) and ``amp`` (the bfloat16 compute
-  policy, applied per node by the executor).
+  policy, applied per node by the executor);
+* ``gluon`` (Parameter, Block and HybridBlock, whose ``hybridize()``
+  runs the traced graph as one ``cached_op.CachedOp``, the ``nn``
+  layers, the losses, the ResNets of the model zoo, Trainer), with the
+  ``_contrib_flash_attention`` op reaching the attention kernels.
 """
 from . import base
 from .base import MXNetError, MemoryExhaustedError, RequestShedError
@@ -45,6 +49,8 @@ from . import io
 from . import metric
 from . import module
 from . import module as mod
+from . import cached_op
+from . import gluon
 from . import parallel
 from . import serve
 from .fused_train import FusedTrainLoop
@@ -52,6 +58,7 @@ from .fused_train import FusedTrainLoop
 __all__ = ["base", "context", "cpu", "gpu", "current_context", "ops",
            "amp", "autograd", "random", "ndarray", "nd", "symbol", "sym",
            "executor", "initializer", "init", "optimizer", "lr_scheduler",
-           "model", "io", "metric", "module", "mod", "parallel", "serve",
+           "model", "io", "metric", "module", "mod", "cached_op", "gluon",
+           "parallel", "serve",
            "FusedTrainLoop",
            "MXNetError", "MemoryExhaustedError", "RequestShedError"]

@@ -134,8 +134,9 @@ class NDArray(object):
 
     # -- conversion / movement ----------------------------------------------
     def astype(self, dtype, copy: bool = True) -> "NDArray":
-        if not copy and self._data.dtype == torch_dtype(dtype):
-            return self
+        if self._data.dtype == torch_dtype(dtype):
+            # Cast to the same dtype hands back its input tensor
+            return self.copy() if copy else self
         return imperative_invoke("Cast", self,
                                  dtype=str(np_dtype(dtype)))[0]
 
@@ -269,6 +270,9 @@ class NDArray(object):
 
     def __neg__(self):
         return imperative_invoke("negative", self)[0]
+
+    def __gt__(self, other):
+        return self._binary(other, "_greater", "_greater_scalar")
 
     def _inplace_result(self, res):
         # rebind, so that a result recorded under autograd keeps its link

@@ -1,12 +1,15 @@
 """Elementwise ops of the PyTorch port.
 
 Counterpart of the part of ``mxtpu/ops/elemwise.py`` that the ResNet
-graph, NDArray's operators and the metrics use: the binary ops
-(``elemwise_add`` with its aliases ``_plus``/``_add``, sub, mul, div),
-their broadcasting forms, the scalar forms, ``negative``, ``Cast`` and
-``_copy``.
+graph, NDArray's operators, the metrics and gluon's losses use: the
+binary ops (``elemwise_add`` with its aliases ``_plus``/``_add``, sub,
+mul, div), their broadcasting forms, the scalar forms with
+``_greater_scalar``, the unary ``negative``, ``abs``, ``square``,
+``log`` and ``exp``, ``Cast`` and ``_copy``.
 """
 from __future__ import annotations
+
+import torch
 
 from ..base import torch_dtype
 from .registry import register
@@ -42,9 +45,19 @@ _scalar_op("_div_scalar", lambda x, s: x / s)
 _scalar_op("_rdiv_scalar", lambda x, s: s / x)
 
 
+register("_greater_scalar", differentiable=False)(
+    lambda x, scalar=0.0: (x > scalar).to(x.dtype))
+
+
 @register("negative")
 def _negative(x):
     return -x
+
+
+register("abs")(lambda x: x.abs())
+register("square")(lambda x: torch.square(x))
+register("log")(lambda x: x.log())
+register("exp")(lambda x: x.exp())
 
 
 @register("_copy", aliases=("identity",))

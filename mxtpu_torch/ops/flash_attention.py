@@ -14,7 +14,10 @@ Their plain PyTorch versions are :func:`_reference_attention_lse` (the
 JAX function of that name) and :func:`_flash_bwd_reference` (the math of
 ``_bwd_p_ds`` and the two backward kernels).  ``_flash_impl`` routes the
 forward; :class:`_FlashAttention` (the ``_flash`` custom_vjp) routes the
-backward; :func:`flash_attention` keeps the 3-D/4-D public API.
+backward; :func:`flash_attention` keeps the 3-D/4-D public API, and
+the registered op ``_contrib_flash_attention`` (``nd.contrib`` and
+``sym.contrib.flash_attention``) takes it over (batch, heads, seq,
+head_dim) inputs, as the JAX package registers it.
 
 Routing: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel or raises.  There is no fallback from a kernel to
@@ -40,6 +43,7 @@ import torch
 
 from ..base import MXNetError
 from .kernel_build import CudaKernel
+from .registry import register
 
 __all__ = ["flash_attention", "FLASH_FWD", "FLASH_BWD_DQ", "FLASH_BWD_DKV",
            "HEAD_DIMS"]
@@ -310,3 +314,19 @@ def flash_attention(q, k, v, sm_scale=None, causal=False, block_q=512,
     if squeeze4:
         out = out.reshape(b, h, t, d)
     return out
+
+
+@register("_contrib_flash_attention")
+def _contrib_flash_attention(q, k, v, sm_scale=None, causal=False,
+                             block_q=512, block_k=512):
+    """Flash attention over (batch, heads, seq, head_dim) inputs
+    (:func:`flash_attention`: the kernels for CUDA tensors, their plain
+    versions for CPU tensors).  On ``meta`` tensors, which shape
+    inference passes, it gives the output's shape and nothing else."""
+    if q.dim() != 4:
+        raise MXNetError("_contrib_flash_attention expects "
+                         "(batch, heads, seq, head_dim)")
+    if q.device.type == "meta":
+        return torch.empty_like(q)
+    return flash_attention(q, k, v, sm_scale=sm_scale, causal=causal,
+                           block_q=block_q, block_k=block_k)

@@ -1,15 +1,16 @@
 """Shape ops of the PyTorch port.
 
-Counterpart of the part of ``mxtpu/ops/matrix.py`` that the ResNet graph
-and NDArray use: ``Reshape`` with the reference's special codes
-(0 copy, -1 infer, -2 copy the rest, -3 merge two, -4 split one),
-``Flatten`` and ``transpose``.
+Counterpart of the part of ``mxtpu/ops/matrix.py`` that the ResNet graph,
+NDArray and gluon's losses use: ``Reshape`` with the reference's special
+codes (0 copy, -1 infer, -2 copy the rest, -3 merge two, -4 split one),
+``reshape_like``, ``Flatten``, ``transpose`` and ``where``.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from ..base import MXNetError
 from .registry import register
@@ -71,6 +72,11 @@ def _reshape(x, shape=(), reverse=False):
     return x.reshape(_mx_reshape_target(tuple(x.shape), shape, reverse))
 
 
+@register("reshape_like")
+def _reshape_like(x, other):
+    return x.reshape(other.shape)
+
+
 @register("Flatten", aliases=("flatten",))
 def _flatten(x):
     return x.reshape(x.shape[0], -1)
@@ -81,3 +87,8 @@ def _transpose(x, axes=None):
     if not axes:
         axes = tuple(reversed(range(x.ndim)))
     return x.permute(*axes)
+
+
+@register("where")
+def _where(cond, x, y):
+    return torch.where(cond != 0, x, y)

@@ -1,9 +1,9 @@
 """Neural-network ops of the PyTorch port: the ResNet set.
 
 Counterpart of part of ``mxtpu/ops/nn.py``: ``FullyConnected``,
-``Convolution``, ``Pooling``, ``BatchNorm``, ``Activation`` and
-``SoftmaxOutput``, with the reference's names, attrs and NCHW/OIHW
-layouts.  Convolution and the products are torch's calls (cuDNN and
+``Convolution``, ``Pooling``, ``BatchNorm``, ``Activation``, ``relu``,
+``softmax``, ``log_softmax``, ``Dropout`` and ``SoftmaxOutput``, with
+the reference's names, attrs and NCHW/OIHW layouts.  Convolution and the products are torch's calls (cuDNN and
 cuBLAS on the card), as the JAX package leaves them to XLA; a bf16 or
 fp16 convolution on the CPU runs in float32 and rounds once, as those
 libraries accumulate.
@@ -25,6 +25,11 @@ libraries accumulate.
   reference's does: ``(softmax - onehot(label)) * grad_scale`` over the
   ``normalization``, zero for the label (``_SoftmaxOutput``); a label
   outside [0, n_class) has a zero one-hot row, as in the reference.
+* Dropout keeps each element (or each slice along ``axes``) with
+  probability ``1 - p`` and scales the kept ones by ``1 / (1 - p)``,
+  drawing from the device's generator; outside training (and ``mode``
+  not ``always``) it is the identity.  The draws differ from the JAX
+  package's; the distribution is the same.
 * Pooling pads per ``_pool_pads`` (``valid``/``full``); torch's pooling
   takes only a symmetric pad of at most half the kernel, so any other
   pad is applied explicitly (-inf for max, zeros for avg/sum).
@@ -37,7 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..base import MXNetError
+from ..base import MXNetError, torch_dtype
 from .registry import register
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -220,6 +225,46 @@ def _activation(data, act_type="relu"):
         return _ACTIVATIONS[act_type](data)
     except KeyError:
         raise MXNetError("unknown act_type %r" % act_type) from None
+
+
+@register("relu")
+def _relu(x):
+    return torch.relu(x)
+
+
+# ---------------------------------------------------------------------------
+# Softmax family
+# ---------------------------------------------------------------------------
+
+@register("softmax")
+def _softmax(data, axis=-1, temperature=None, dtype=None, length=None):
+    x = data / temperature if temperature else data
+    out = torch.softmax(x, dim=axis)
+    return out.to(torch_dtype(dtype)) if dtype else out
+
+
+@register("log_softmax")
+def _log_softmax(data, axis=-1, temperature=None, dtype=None):
+    x = data / temperature if temperature else data
+    return torch.log_softmax(x, dim=axis)
+
+
+# ---------------------------------------------------------------------------
+# Dropout
+# ---------------------------------------------------------------------------
+
+@register("Dropout", needs_rng=True, train_aware=True)
+def _dropout(gen, data, p=0.5, mode="training", axes=(), cudnn_off=False,
+             is_train=False):
+    if not (mode == "always" or is_train) or p <= 0.0:
+        return data
+    shape = list(data.shape)
+    for a in axes or ():
+        shape[a] = 1
+    keep = 1.0 - p
+    mask = torch.empty(shape, device=data.device).bernoulli_(
+        keep, generator=gen).to(data.dtype)
+    return data * mask / keep
 
 
 # ---------------------------------------------------------------------------

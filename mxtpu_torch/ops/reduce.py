@@ -1,6 +1,8 @@
-"""Reductions of the PyTorch port (counterpart of ``sum``, ``mean`` and
-``argmax`` in ``mxtpu/ops/reduce.py``)."""
+"""Reductions of the PyTorch port (counterpart of ``sum``, ``mean``,
+``argmax`` and ``pick`` in ``mxtpu/ops/reduce.py``)."""
 from __future__ import annotations
+
+import torch
 
 from .registry import register
 
@@ -39,3 +41,18 @@ def _argmax(x, axis=None, keepdims=False):
     else:
         res = x.argmax(dim=axis, keepdim=keepdims)
     return res.float()  # the reference returns real_t indices
+
+
+@register("pick")
+def _pick(x, index, axis=-1, keepdims=False, mode="clip"):
+    """``x`` at ``index`` along ``axis``; the index arrives as a float
+    array (gluon's labels) and is truncated to an integer, then clipped
+    into range or wrapped (``mode``), as the reference does."""
+    ax = axis % x.ndim
+    idx = index.to(torch.int64)
+    if mode == "wrap":
+        idx = torch.remainder(idx, x.shape[ax])
+    else:
+        idx = idx.clamp(0, x.shape[ax] - 1)
+    picked = torch.gather(x, ax, idx.unsqueeze(ax))
+    return picked if keepdims else picked.squeeze(ax)

@@ -4,7 +4,9 @@ Counterpart of part of ``mxtpu/optimizer/optimizer.py``: the
 ``Optimizer`` base (``lr``/``wd`` and their per-parameter multipliers,
 an ``lr_scheduler``, ``rescale_grad``, ``clip_gradient``, the update
 counts), ``SGD`` and ``Adam``, the ``Updater`` and ``get_updater``,
-``create`` and ``register``.  Each optimizer's per-parameter ``update``
+``create`` and ``register``, ``param_dict`` (gluon's Parameters, whose
+``lr_mult``/``wd_mult`` win) and the Updater's ``get_states``/
+``set_states``.  Each optimizer's per-parameter ``update``
 runs its update op (``sgd_update``, ``sgd_mom_update``,
 ``adam_update``); its ``fused_update_multi`` does the same arithmetic
 over every parameter at once with ``torch._foreach_*`` (the JAX
@@ -25,13 +27,14 @@ gradients are not ported either.
 from __future__ import annotations
 
 import math
+import pickle
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..base import MXNetError
-from ..ndarray.ndarray import imperative_invoke, zeros
+from ..ndarray.ndarray import array, imperative_invoke, zeros
 
 __all__ = ["Optimizer", "SGD", "Adam", "ScanStep", "Updater", "get_updater",
            "create", "register"]
@@ -55,7 +58,8 @@ class Optimizer(object):
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
-                 sym=None, begin_num_update=0, multi_precision=False):
+                 sym=None, begin_num_update=0, multi_precision=False,
+                 param_dict=None):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -70,6 +74,8 @@ class Optimizer(object):
         self.clip_gradient = clip_gradient
         self.multi_precision = multi_precision
         self.idx2name = dict(param_idx2name or {})
+        # index -> gluon Parameter, whose lr_mult and wd_mult win
+        self.param_dict = param_dict or {}
         self.sym_info = ()
         if sym is not None:
             self.sym_info = (sym.attr_dict(), sym.list_arguments())
@@ -158,6 +164,8 @@ class Optimizer(object):
                                   self.num_update)
 
     def _get_lr_mult(self, index):
+        if index in self.param_dict:
+            return self.param_dict[index].lr_mult
         if index in self.lr_mult:
             return self.lr_mult[index]
         if index in self.idx2name:
@@ -169,7 +177,9 @@ class Optimizer(object):
 
     def _get_wd(self, index):
         wd = self.wd
-        if index in self.wd_mult:
+        if index in self.param_dict:
+            wd *= self.param_dict[index].wd_mult
+        elif index in self.wd_mult:
             wd *= self.wd_mult[index]
         elif index in self.idx2name:
             wd *= self.wd_mult.get(self.idx2name[index], 1.0)
@@ -436,6 +446,40 @@ class Updater(object):
             return
         for (idx, g, w), st in zip(triples, states):
             self.optimizer.update(idx, w, g, st)
+
+    def get_states(self, dump_optimizer=False) -> bytes:
+        """The states (as host arrays) and, with ``dump_optimizer``, the
+        update counters, pickled (the reference's ``get_states``)."""
+        opt_state = None
+        if dump_optimizer:
+            opt_state = {
+                "num_update": self.optimizer.num_update,
+                "begin_num_update": self.optimizer.begin_num_update,
+                "_index_update_count": dict(
+                    self.optimizer._index_update_count)}
+        host = {i: _map_state(st, lambda a: a.asnumpy())
+                for i, st in self.states.items()}
+        return pickle.dumps((host, opt_state))
+
+    def set_states(self, states, ctx=None):
+        """Restore what ``get_states`` wrote onto ``ctx`` (default: the
+        card)."""
+        host, opt_state = pickle.loads(states) \
+            if isinstance(states, bytes) else states
+        self.states = {i: _map_state(st, lambda a: array(a, ctx=ctx))
+                       for i, st in host.items()}
+        if opt_state is not None:
+            self.optimizer.__dict__.update(opt_state)
+
+
+def _map_state(state, fn):
+    """``fn`` over the arrays of one parameter's state (None, an array,
+    or a tuple of them)."""
+    if state is None:
+        return None
+    if isinstance(state, (tuple, list)):
+        return tuple(_map_state(s, fn) for s in state)
+    return fn(state)
 
 
 def get_updater(optimizer: Optimizer) -> Updater:

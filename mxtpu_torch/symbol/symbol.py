@@ -4,7 +4,8 @@ Counterpart of ``mxtpu/symbol/symbol.py``.  A Symbol is a small host-side
 DAG of op nodes: ``Variable``, composition by the ``sym.*`` functions and
 ``__call__``, the graph queries (``list_arguments``,
 ``list_auxiliary_states``, ``list_outputs``, ``get_internals``),
-``infer_shape``, ``tojson``/``load_json`` in the JAX package's format
+arithmetic (``+ - * /``, unary minus, ``>``), ``infer_shape`` and
+``infer_shape_partial``, ``tojson``/``load_json`` in the JAX package's format
 (attrs are JSON-encoded strings: ``"kernel": "[3, 3]"``), and
 ``simple_bind``/``bind`` to an :class:`mxtpu_torch.executor.Executor`.
 
@@ -188,19 +189,26 @@ class Symbol(object):
     def infer_shape(self, *args, **kwargs):
         """(argument, output, aux) shapes from the given argument
         shapes, by name or in ``list_arguments`` order."""
+        return self._infer_shape_impl(False, *args, **kwargs)
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """As ``infer_shape``, with None for what cannot be inferred."""
+        return self._infer_shape_impl(True, *args, **kwargs)
+
+    def _infer_shape_impl(self, partial, *args, **kwargs):
         arg_names = self.list_arguments()
         known: Dict[str, Tuple[int, ...]] = {}
         for name, shape in zip(arg_names, args):
             if shape is not None:
                 known[name] = tuple(shape)
         known.update({k: tuple(v) for k, v in kwargs.items() if v is not None})
-        shapes, _ = _infer_graph(self, known)
+        shapes, _ = _infer_graph(self, known, partial)
         arg_shapes = [shapes.get(n) for n in arg_names]
         out_shapes = [shapes.get(node.name) if node.is_variable
                       else shapes.get(("out", id(node), idx))
                       for node, idx in self._outputs]
         aux_shapes = [shapes.get(n) for n in self.list_auxiliary_states()]
-        if any(s is None for s in arg_shapes + out_shapes):
+        if not partial and any(s is None for s in arg_shapes + out_shapes):
             missing = [n for n, s in zip(arg_names, arg_shapes) if s is None]
             raise MXNetError("infer_shape incomplete; unknown args: %s"
                              % missing)
@@ -235,6 +243,51 @@ class Symbol(object):
             return (new, idx)
 
         return Symbol([clone_entry(e) for e in self._outputs])
+
+    # -- arithmetic -------------------------------------------------------
+    def _binary(self, other, op_name, scalar_op, rscalar_op=None,
+                swap=False):
+        from .register import invoke_symbol
+
+        if isinstance(other, Symbol):
+            a, b = (other, self) if swap else (self, other)
+            return invoke_symbol(op_name, [a, b], {})
+        if isinstance(other, (int, float, np.generic)):
+            name = rscalar_op if (swap and rscalar_op) else scalar_op
+            return invoke_symbol(name, [self], {"scalar": float(other)})
+        return NotImplemented
+
+    def __add__(self, other):
+        return self._binary(other, "elemwise_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary(other, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return self._binary(other, "elemwise_sub", "_minus_scalar",
+                            "_rminus_scalar", swap=True)
+
+    def __mul__(self, other):
+        return self._binary(other, "elemwise_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binary(other, "elemwise_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        return self._binary(other, "elemwise_div", "_div_scalar",
+                            "_rdiv_scalar", swap=True)
+
+    def __neg__(self):
+        from .register import invoke_symbol
+
+        return invoke_symbol("negative", [self], {})
+
+    def __gt__(self, other):
+        return self._binary(other, "_greater", "_greater_scalar")
 
     # -- serialization ----------------------------------------------------
     def tojson(self) -> str:
@@ -351,7 +404,7 @@ def load(fname: str) -> Symbol:
 # shapes from running each op on meta tensors
 # ---------------------------------------------------------------------------
 
-def _infer_graph(symbol: Symbol, known_shapes):
+def _infer_graph(symbol: Symbol, known_shapes, partial=False):
     shapes: Dict[Any, Optional[Tuple[int, ...]]] = {}
     dtypes: Dict[Any, Any] = {}
 
@@ -386,6 +439,10 @@ def _infer_graph(symbol: Symbol, known_shapes):
                         shapes[inode.name] = tuple(shp)
                         in_shapes[i] = tuple(shp)
         if any(s is None for s in in_shapes):
+            if partial:
+                for i in range(node.num_outputs()):
+                    shapes[("out", id(node), i)] = None
+                continue
             missing = [node.inputs[i][0].name
                        for i, s in enumerate(in_shapes) if s is None]
             raise MXNetError("cannot infer shape for inputs %s of node %s"

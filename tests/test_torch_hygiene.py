@@ -67,6 +67,16 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_importing_gluon_loads_no_jax():
+    code = ("import sys, mxtpu_torch.gluon; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'mxtpu' "
+            "or m.startswith('mxtpu.')]; print(bad); sys.exit(bool(bad))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_entry_points_without_a_device_need_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ttf.TransformerConfig(vocab=16, d_model=16, n_heads=2,

@@ -312,6 +312,9 @@ def test_ndarray_basics():
     np.testing.assert_array_equal(t.asnumpy(), j.asnumpy())
     assert t.astype("int32").dtype == np.int32
     assert t.astype(np.float32, copy=False) is t
+    same = t.astype(np.float32)
+    same[:] = 0.0  # a copy, as the reference's: t keeps its values
+    assert same is not t and t.asnumpy().any()
     c = t.copy()
     c[:] = 0.0
     assert t.asnumpy().any() and not c.asnumpy().any()

@@ -1,7 +1,8 @@
 """The PyTorch port's Symbol (`mxtpu_torch/symbol/`) against the JAX
 package's (`mxtpu/symbol/`): composition and the graph queries, the
 JSON format both ways, shape inference over whole ResNets, and the
-committed ResNet-50 v1 graph against a fresh trace by the JAX package.
+port's own ResNet-50 v1 trace (`sym.ZOO`) against a fresh trace by the
+JAX package.
 
 ResNets are traced by `mxtpu`'s gluon model zoo with `_trace_symbol`
 and a `SoftmaxOutput(name="softmax")` head, as `bench.py` builds them,
@@ -114,24 +115,23 @@ def test_infer_shape_matches_on_whole_resnets(net, shape, request):
 
 
 def test_committed_resnet50_symbol_is_the_reference_trace(resnet50):
-    """`mxtpu_torch/symbol/zoo/resnet50_v1-symbol.json` is, node for
-    node and attr for attr, what the JAX package traces now."""
-    with open(tsym.ZOO["resnet50_v1"]) as f:
-        committed = json.load(f)
+    """`sym.ZOO["resnet50_v1"]()`, the port's own gluon trace, is, node
+    for node and attr for attr, what the JAX package traces now."""
+    ported = json.loads(tsym.ZOO["resnet50_v1"]().tojson())
     fresh = json.loads(resnet50.tojson())
-    assert committed == fresh
-    ops = [n["op"] for n in committed["nodes"]]
+    assert ported == fresh
+    ops = [n["op"] for n in ported["nodes"]]
     counts = {op: ops.count(op) for op in set(ops)}
     assert counts == {"null": 301, "Convolution": 53, "BatchNorm": 53,
                       "Activation": 49, "Pooling": 2, "elemwise_add": 16,
                       "FullyConnected": 1, "SoftmaxOutput": 1}
-    s = tsym.load(tsym.ZOO["resnet50_v1"])
+    s = tsym.load_json(json.dumps(ported))
     assert (len(s.list_arguments()), len(s.list_auxiliary_states())) == \
         (195, 106)
 
 
 def test_attrs_decode_to_python_values(resnet50):
-    s = tsym.load(tsym.ZOO["resnet50_v1"])
+    s = tsym.load_json(tsym.ZOO["resnet50_v1"]().tojson())
     conv = [n for n in s._topo() if not n.is_variable
             and n.op.name == "Convolution"][0]
     assert conv.attrs["kernel"] == (7, 7) and conv.attrs["no_bias"] is True
@@ -139,7 +139,7 @@ def test_attrs_decode_to_python_values(resnet50):
     bn = [n for n in s._topo() if not n.is_variable
           and n.op.name == "BatchNorm"][0]
     assert bn.attrs["fix_gamma"] is False and bn.attrs["eps"] == 1e-5
-    j = jsym.load(tsym.ZOO["resnet50_v1"])
+    j = jsym.load_json(tsym.ZOO["resnet50_v1"]().tojson())
     jconv = [n for n in j._topo() if not n.is_variable
              and n.op.name == "Convolution"][0]
     assert jconv.attrs == conv.attrs
