@@ -140,6 +140,45 @@ Phases, each of which fails the run (non-zero exit) on any error:
    not, hybridized, under ``record()`` with ``backward``: exactly one
    launch of each kernel a call, the output and gradients against the
    plain versions at ``TOL``/``BWD_TOL`` and ``BF16_REL_L2``.
+8. lm      -- BASELINE config #3, the LSTM language model, both ways.
+   First the checks of the ops: ROADMAP C4 (raw ``nd.Convolution`` at
+   ResNet's first layer, ``nd.FullyConnected`` at (1120, 650) x
+   33,278 and ``nd.RNN`` at (35, 32, 650) x 2 LSTM layers, called after
+   the process set both TF32 flags on, each against the same op in
+   float64 within ``C4_TOL``, and beyond it with the ops' TF32 rule
+   taken out); the fused ``RNN`` op (cuDNN, a call per layer) against
+   its plain loop at (35, 32, 650) x 2 LSTM layers and a bidirectional
+   2-layer GRU at (12, 4, 24) x 16: outputs, final states and the
+   gradients with respect to data, parameters and states within
+   ``RNN_OP_TOL``, and beyond it with TF32 on; its device time beside
+   the plain loop's and ``torch.nn.LSTM``'s.  Then row
+   ``word_lm_gluon``: examples/rnn/word_lm/train.py's model at the
+   medium configuration (``WORD_LM``: vocabulary 33,278, 2 x 650 LSTM,
+   tied decoder, dropout 0.5; bptt 35, batch 32, fp32), hybridized, on
+   the example's Markov stream from seed 0: SGD lr 20, clip 0.25, the
+   mean loss, states detached at every boundary; 2 warm and 20 timed
+   steps synchronised by value (ms a step, tokens/s), the host's ms a
+   step by stage (forward, loss, ``backward``, ``clip_global_norm``,
+   ``Trainer.step``), one profiled step (busy, idle share, operations,
+   by kind, the top 10), peak memory, one evaluation pass without
+   ``record()``; the losses finite and falling (the mean of the last 5
+   below the first 5's).  With dropout 0, one step at batch 2 against
+   the port's CPU f32 step from the same weights (``LM_CPU_TOL``) and
+   one at batch 32 not hybridized against hybridized
+   (``LM_HYBRID_TOL``).  Then row ``lstm_bucketing``:
+   example/rnn/bucketing/lstm_bucketing.py's defaults (``BUCKET_LM``: 2
+   LSTMCell layers of 200 unrolled, embedding 200, vocabulary 10,000,
+   batch 32, buckets 10-60, SGD lr 0.01, Xavier) as one epoch of
+   ``BucketingModule.fit`` over 1300 synthetic sentences (every bucket 3
+   batches or more), ``Perplexity(ignore_label=0)`` and a
+   ``Speedometer``: ms a batch by bucket, positions and real tokens a
+   second, one profiled step at bucket 60, peak memory; the perplexity
+   over every label the SoftmaxOutput trains on must fall (the real
+   tokens' is printed: on uniform synthetic tokens it cannot fall in
+   one epoch at lr 0.01), 6 executors holding one tensor a parameter
+   name and one optimizer, one step at bucket 10 against the CPU's
+   (``LM_CPU_TOL``).  No flash-attention kernel may launch on either
+   row.
 
 The line before the last is the card's name and power limit, the line
 before that the kernels' JSON record; the last line is
@@ -168,6 +207,8 @@ device time.
 import argparse
 import dataclasses
 import json
+import logging
+import random
 import shutil
 import subprocess
 import sys
@@ -1438,17 +1479,18 @@ def resnet_step_check(params, aux):
 
 
 class tf32_on:
-    """The executor's float32 numerics with TF32 allowed, for one
-    recorded step (the executor turns it off on every forward)."""
+    """The ops' float32 numerics with TF32 allowed, for a comparison
+    (every convolution, product and RNN op turns it off before it runs:
+    ``ops.registry.float32_numerics``)."""
 
     def __enter__(self):
-        self.saved = mx.executor._set_conv_numerics
-        mx.executor._set_conv_numerics = lambda device, arrays: None
+        self.saved = mx.ops.registry.float32_numerics
+        mx.ops.registry.float32_numerics = lambda tensors: None
         torch.backends.cudnn.allow_tf32 = True
         torch.backends.cuda.matmul.allow_tf32 = True
 
     def __exit__(self, *exc):
-        mx.executor._set_conv_numerics = self.saved
+        mx.ops.registry.float32_numerics = self.saved
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -1851,16 +1893,16 @@ KINDS = (("convolution", ("cudnn", "xmma", "implicit_gemm", "wgrad",
          ("elementwise", ("elementwise",)))
 
 
-def kind_of(name):
-    return next((k for k, keys in KINDS if any(key in name for key in keys)),
+def kind_of(name, kinds=KINDS):
+    return next((k for k, keys in kinds if any(key in name for key in keys)),
                 "other")
 
 
-def by_kind(spans):
-    """Device time (us) of the spans by ``KINDS``, the rest as other."""
+def by_kind(spans, kinds=KINDS):
+    """Device time (us) of the spans by ``kinds``, the rest as other."""
     out = {}
     for start, end, name in spans:
-        kind = kind_of(name)
+        kind = kind_of(name, kinds)
         out[kind] = out.get(kind, 0.0) + (end - start)
     return out
 
@@ -2404,6 +2446,758 @@ def phase_gluon(module_row):
     return out
 
 
+# BASELINE config #3 both ways (the ``lm`` phase).  (a) gluon word_lm at
+# the medium configuration of Zaremba et al. 2014 (arXiv:1409.2329), as
+# MXNet's example/gluon/word_language_model trains it on WikiText-2
+# (--tied --nhid 650 --emsize 650 --dropout 0.5): vocabulary 33,278,
+# 2 LSTM layers, bptt 35, batch 32, fp32; the recipe of
+# examples/rnn/word_lm/train.py:104-125 (SGD lr 20, clip 0.25, the mean
+# loss, states detached at each boundary), hybridized.
+WORD_LM = dict(vocab=33278, width=650, layers=2, dropout=0.5)
+WORD_LM_BPTT, WORD_LM_BATCH = 35, 32
+WORD_LM_LR, WORD_LM_CLIP = 20.0, 0.25
+WORD_LM_WARM, WORD_LM_STEPS, WORD_LM_EVAL = 2, 20, 4
+# (b) example/rnn/bucketing/lstm_bucketing.py's defaults: 2 LSTMCell
+# layers of 200, embedding 200, batch 32, buckets 10-60, a 10,000-word
+# vocabulary (PTB's), SGD lr 0.01 (momentum 0), Xavier(in, 2.34); one
+# epoch of BucketingModule.fit over enough synthetic sentences (lengths
+# 5-60) that every bucket runs at least 3 batches
+BUCKET_LM = dict(vocab=10000, hidden=200, embed=200, layers=2)
+BUCKET_BATCH, BUCKETS, BUCKET_SENTENCES = 32, (10, 20, 30, 40, 50, 60), 1300
+BUCKET_LR = 0.01
+# the fused RNN op (cuDNN) against its plain loop on the card, f32, and
+# raw nd calls against float64 (relative L2; PERF.md section 6 holds the
+# predictions, written before the first run).  f32 sums in other orders
+# read 1e-7 to 1e-6; TF32 rounds every product's inputs to 10 bits
+# (2^-11 relative), which reads 1e-4 or more: each check also runs with
+# TF32 on and must fail its bound there
+RNN_OP_TOL = 5e-5
+C4_TOL = 1e-5
+# the word LM's step, card against the port's CPU f32 step (batch 2,
+# dropout 0), and hybridized against not (batch 32): the loss and every
+# gradient (relative L2).  The card's cuDNN RNN and the CPU's loop sum
+# in other orders, as do the embedding's backward and the products;
+# hybridized and not run the same kernels, but cuDNN's RNN weight
+# gradients and the embedding's backward accumulate in no fixed order
+LM_CPU_TOL = 1e-4
+LM_HYBRID_TOL = 1e-5
+# device operations by kind in the LM rows, first match wins
+LM_KINDS = (("recurrence (cuDNN)", ("RNN", "LSTM", "Lstm", "lstm",
+                                    "elemWise", "rnn_")),
+            ("products", ("gemm", "Gemm", "xmma", "cutlass", "splitK")),
+            ("embedding", ("embedding", "Embedding")),
+            ("softmax and loss", ("softmax", "Softmax", "nll", "gather")),
+            ("optimizer", ("multi_tensor_apply",)),
+            ("reduction", ("reduce_kernel",)),
+            ("copy and cast", ("direct_copy", "copy_kernel", "CatArray",
+                               "Memcpy", "memcpy")),
+            ("elementwise", ("elementwise",)))
+
+
+class WordLM(mx.gluon.HybridBlock):
+    """examples/rnn/word_lm/train.py's RNNModel: Embedding -> dropout ->
+    LSTM -> dropout -> a Dense decoder tied to the embedding; the LSTM's
+    input width is given, as the reference's model gives it (a
+    hybridized parent cannot infer it)."""
+
+    def __init__(self, vocab, width, layers, dropout, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.drop = mx.gluon.nn.Dropout(dropout)
+            self.encoder = mx.gluon.nn.Embedding(vocab, width)
+            self.rnn = mx.gluon.rnn.LSTM(width, num_layers=layers,
+                                         dropout=dropout, input_size=width)
+            self.decoder = mx.gluon.nn.Dense(vocab, flatten=False,
+                                             params=self.encoder.params)
+
+    def hybrid_forward(self, F, x, states):
+        emb = self.drop(self.encoder(x))
+        out, states = self.rnn(emb, states)
+        return self.decoder(self.drop(out)), states
+
+
+def markov_stream(n, vocab, seed=0):
+    """examples/rnn/word_lm/train.py:42-49's synthetic corpus: the next
+    token (7 t + 3) mod vocab with probability 0.85, else uniform."""
+    rng = np.random.RandomState(seed)
+    toks = [rng.randint(1, vocab)]
+    for _ in range(n - 1):
+        toks.append((toks[-1] * 7 + 3) % vocab if rng.rand() < 0.85
+                    else rng.randint(0, vocab))
+    return np.array(toks, np.float32)
+
+
+def word_lm_net(ctx, dropout=WORD_LM["dropout"], hybridize=True):
+    """The word LM at WORD_LM's widths on ``ctx``, built in a fresh
+    NameManager, gluon's default initializer after ``random.seed(0)``."""
+    with mx.sym.NameManager():
+        net = WordLM(**dict(WORD_LM, dropout=dropout))
+    mx.random.seed(0)
+    net.initialize(ctx=ctx)
+    if hybridize:
+        net.hybridize()
+    return net
+
+
+def word_lm_trainable(net):
+    return [p for p in net.collect_params().values() if p.grad_req != "null"]
+
+
+def word_lm_step(net, trainer, loss_fn, x, y, states, stages=None):
+    """One step of the example's recipe: the states detached, the mean
+    loss under record(), backward, clip_global_norm, Trainer.step(1).
+    With ``stages`` (a list), the host clock before the step and after
+    each stage is appended to it."""
+    mark = stages.append if stages is not None else (lambda t: None)
+    states = [s.detach() for s in states]
+    mark(time.perf_counter())
+    with mx.autograd.record():
+        logits, states = net(x, states)
+        mark(time.perf_counter())
+        loss = loss_fn(logits, y).mean()
+        mark(time.perf_counter())
+    loss.backward()
+    mark(time.perf_counter())
+    mx.gluon.utils.clip_global_norm(
+        [p.grad() for p in word_lm_trainable(net)], WORD_LM_CLIP)
+    mark(time.perf_counter())
+    trainer.step(1)
+    mark(time.perf_counter())
+    return loss, states
+
+
+def word_lm_batches(ctx, batch, steps, seed=0):
+    """(x, y) pairs of bptt x batch tokens on ``ctx``: the example's
+    batchify of the Markov stream (one column a sequence)."""
+    n = (WORD_LM_BPTT * steps + 1) * batch
+    data = markov_stream(n, WORD_LM["vocab"], seed).reshape(batch, -1).T
+    data = mx.nd.array(np.ascontiguousarray(data), ctx=ctx)
+    return [(mx.nd.NDArray(data._data[i:i + WORD_LM_BPTT]),
+             mx.nd.NDArray(data._data[i + 1:i + 1 + WORD_LM_BPTT]))
+            for i in range(0, steps * WORD_LM_BPTT, WORD_LM_BPTT)]
+
+
+def word_lm_zero_states(ctx, batch):
+    shape = (WORD_LM["layers"], batch, WORD_LM["width"])
+    return [mx.nd.zeros(shape, ctx=ctx) for _ in range(2)]
+
+
+def word_lm_gflop_per_step():
+    """(decoder, LSTM) GFLOP of one step, forward and backward (three
+    products a matrix product): the decoder's (1120 x 650) x (650 x
+    33,278), the LSTM's input and recurrent products."""
+    t = WORD_LM_BPTT * WORD_LM_BATCH
+    v, w, layers = WORD_LM["vocab"], WORD_LM["width"], WORD_LM["layers"]
+    return 3 * 2 * t * w * v / 1e9, 3 * 2 * t * layers * 8 * w * w / 1e9
+
+
+def word_lm_row():
+    """The gluon word LM on the card: 2 warm and 20 timed steps, states
+    carried and detached, synchronised by value; the host's split of 5
+    steps; one profiled step; one evaluation pass without record().
+    Fails on any check; returns the row's numbers and the kernels'
+    launches."""
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    gpu = mx.gpu(0)
+    t0 = time.monotonic()
+    net = word_lm_net(gpu)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": WORD_LM_LR})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    n_train = WORD_LM_WARM + WORD_LM_STEPS + 6
+    batches = word_lm_batches(gpu, WORD_LM_BATCH, n_train + WORD_LM_EVAL)
+    train, held_out = batches[:n_train], batches[n_train:]
+    states = word_lm_zero_states(gpu, WORD_LM_BATCH)
+    weight = word_lm_trainable(net)[0]
+    losses = []
+    for kern in KERNELS.values():
+        kern.launches = 0
+
+    def value_sync():
+        float(losses[-1])
+        float(weight.data()._data.detach().view(-1)[0])
+
+    for x, y in train[:WORD_LM_WARM]:
+        loss, states = word_lm_step(net, trainer, loss_fn, x, y, states)
+        losses.append(loss._data.detach())
+    value_sync()
+    setup_s = time.monotonic() - t0
+    t1 = time.monotonic()
+    for x, y in train[WORD_LM_WARM:WORD_LM_WARM + WORD_LM_STEPS]:
+        loss, states = word_lm_step(net, trainer, loss_fn, x, y, states)
+        losses.append(loss._data.detach())
+    value_sync()
+    wall = time.monotonic() - t1
+    peak = torch.cuda.max_memory_allocated()
+    host = []
+    for x, y in train[WORD_LM_WARM + WORD_LM_STEPS:-1]:
+        stages = []
+        _, states = word_lm_step(net, trainer, loss_fn, x, y, states,
+                                 stages)
+        torch.cuda.synchronize()
+        host.append(np.diff(stages) * 1e3)
+    host = dict(zip(("forward", "loss", "backward", "clip_global_norm",
+                     "trainer_step"), np.median(host, axis=0).tolist()))
+    x, y = train[-1]
+    spans = device_spans(lambda: word_lm_step(net, trainer, loss_fn, x, y,
+                                              states))
+    if not spans:
+        fail("word_lm_gluon: the profiler saw no device time in a step")
+    busy, window, heads = profile_summary(spans, top=10)
+    eval_losses = []
+    eval_states = word_lm_zero_states(gpu, WORD_LM_BATCH)
+    for x, y in held_out:
+        logits, eval_states = net(x, eval_states)
+        eval_losses.append(float(loss_fn(logits, y).mean()))
+    launches = {k: kern.launches for k, kern in KERNELS.items()}
+    timed = torch.stack(losses[WORD_LM_WARM:]).cpu().numpy()
+    ms = wall / WORD_LM_STEPS * 1e3
+    tokens = WORD_LM_BPTT * WORD_LM_BATCH
+    dec, lstm = word_lm_gflop_per_step()
+    bound, bound_by = bound_ms(0, (dec + lstm) * 1e9, torch.float32)
+    kinds = sorted(by_kind(spans, LM_KINDS).items(), key=lambda kv: -kv[1])
+    log("[lm] word_lm_gluon (vocabulary %d, %d x %d LSTM, tied, dropout "
+        "%.1f, bptt %d, batch %d, fp32, TF32 off, hybridized): %d timed "
+        "steps after %d warm: %.3f s (host clock, synchronised by value): "
+        "%.3f ms a step, %.1f tokens/s; set-up and warm steps %.1f s; "
+        "peak device memory %.1f MB allocated"
+        % (WORD_LM["vocab"], WORD_LM["layers"], WORD_LM["width"],
+           WORD_LM["dropout"], WORD_LM_BPTT, WORD_LM_BATCH, WORD_LM_STEPS,
+           WORD_LM_WARM, wall, ms, tokens / ms * 1e3, setup_s, peak / 1e6))
+    log("[lm] word_lm_gluon: one profiled step: device busy %.3f ms, idle "
+        "share at most %.3f, %d device operations; %.1f GFLOP a step "
+        "(decoder %.1f, LSTM %.1f), bound %.3f ms (%s, 67 TFLOP/s fp32); "
+        "by kind: %s; most device time: %s"
+        % (busy, 1 - busy / window, len(spans), dec + lstm, dec, lstm,
+           bound, bound_by,
+           "; ".join("%s %.3f ms" % (k, t / 1e3) for k, t in kinds),
+           "; ".join("%s %.3f ms" % (n[:80], t / 1e3) for n, t in heads)))
+    log("[lm] word_lm_gluon: host ms a step by stage (median of 5 steps, "
+        "a sync after each step; clip_global_norm syncs once an array, "
+        "so it also waits for the backward's device work): %s; their sum "
+        "%.3f ms" % (", ".join("%s %.3f" % kv for kv in host.items()),
+                     sum(host.values())))
+    log("[lm] word_lm_gluon: the timed steps' losses: %s; evaluation over "
+        "%d held-out batches without record(): mean loss %.4f, perplexity "
+        "%.1f; flash-attention launches %s"
+        % (" ".join("%.4f" % v for v in timed), len(held_out),
+           np.mean(eval_losses), np.exp(np.mean(eval_losses)), launches))
+    if not (np.isfinite(timed).all() and np.isfinite(eval_losses).all()):
+        fail("word_lm_gluon: a loss is not finite")
+    if not timed[-5:].mean() < timed[:5].mean():
+        fail("word_lm_gluon: the losses do not fall: %s" % timed.tolist())
+    if any(launches.values()):
+        fail("word_lm_gluon: a flash-attention kernel launched: %s"
+             % launches)
+    result = dict(ms=ms, tokens_per_sec=tokens / ms * 1e3, busy_ms=busy,
+                  idle=1 - busy / window, ops=len(spans), peak_mb=peak / 1e6,
+                  bound_ms=bound, host_ms=host, launches=launches)
+    del net, trainer, weight, train, held_out, states, batches
+    free_card()
+    return result
+
+
+def rel_l2(a, b):
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).norm() / b.norm().clamp(min=1e-300))
+
+
+def rnn_op_case(mode, shape, hidden, layers, bidirectional, gen):
+    """Inputs of the RNN op (data, flat parameters, states, cells or
+    None) and cotangents of its outputs, on the card."""
+    t, n, c = shape
+    d = 2 if bidirectional else 1
+    size = mx.ops.rnn_op.rnn_param_size(c, hidden, layers, bidirectional,
+                                        mode)
+
+    def randn(*s):
+        return torch.randn(*s, device="cuda", generator=gen)
+
+    weights = 0.07 * (2 * torch.rand(size, device="cuda", generator=gen)
+                      - 1)
+    inputs = [randn(t, n, c), weights, 0.5 * randn(layers * d, n, hidden),
+              0.5 * randn(layers * d, n, hidden) if mode == "lstm"
+              else None]
+    heads = [randn(t, n, d * hidden), randn(layers * d, n, hidden),
+             randn(layers * d, n, hidden)]
+    return inputs, heads
+
+
+def rnn_op_run(fn, mode, inputs, heads, hidden, layers, bidirectional):
+    """fn (rnn_fused or rnn_plain): the outputs and the gradients with
+    respect to every input."""
+    leaves = [None if a is None else a.detach().clone().requires_grad_()
+              for a in inputs]
+    outs = [o for o in fn(*leaves, hidden, layers, bidirectional, mode)
+            if o is not None]
+    grads = torch.autograd.grad(outs, [a for a in leaves if a is not None],
+                                heads[:len(outs)])
+    return [o.detach() for o in outs], list(grads)
+
+
+def library_lstm_ms(inputs, heads):
+    """torch.nn.LSTM's forward and backward (device ms) at the LSTM
+    case's weights, inputs and cotangents: the yardstick."""
+    lib = torch.nn.LSTM(650, 650, num_layers=2).cuda()
+    ws, bs = mx.ops.rnn_op._unpack_params(inputs[1], 650, 650, 2, False,
+                                          "lstm")
+    with torch.no_grad():
+        for i in range(2):
+            for name, v in zip(("weight_ih", "weight_hh", "bias_ih",
+                                "bias_hh"), ws[i][0] + bs[i][0]):
+                getattr(lib, "%s_l%d" % (name, i)).copy_(v)
+
+    def run():
+        x = inputs[0].detach().clone().requires_grad_()
+        out, (h, c) = lib(x, (inputs[2], inputs[3]))
+        torch.autograd.backward([out, h, c], heads)
+
+    return device_ms(run, 3)
+
+
+def rnn_op_check():
+    """The fused RNN op (cuDNN, a call per layer) against its plain
+    loop on the card, f32: at the word LM's shape (35, 32, 650), 2
+    LSTM layers, dropout 0, and a bidirectional 2-layer GRU at (12, 4,
+    24) x 16; the outputs, final states and the gradients with respect
+    to data, parameters and states within RNN_OP_TOL, and beyond it
+    with TF32 on.  Returns (the worst error, device ms of the LSTM
+    case's forward and backward: cuDNN, the plain loop,
+    torch.nn.LSTM)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    op = mx.ops.rnn_op
+    worst, times = 0.0, None
+    # the plain loop's products are called directly, not through an op
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for mode, shape, hidden, bi in (("lstm", (35, 32, 650), 650, False),
+                                    ("gru", (12, 4, 24), 16, True)):
+        inputs, heads = rnn_op_case(mode, shape, hidden, 2, bi, gen)
+        args = (mode, inputs, heads, hidden, 2, bi)
+        plain = rnn_op_run(op.rnn_plain, *args)
+        fused = rnn_op_run(op.rnn_fused, *args)
+        with tf32_on():
+            tf32 = rnn_op_run(op.rnn_fused, *args)
+        names = ["out", "h", "c"][:len(plain[0])] + [
+            "d_" + n for n in ("data", "params", "h0", "c0")][
+                :len(plain[1])]
+        want = plain[0] + plain[1]
+        errs = dict(zip(names, [rel_l2(a, b) for a, b in
+                                zip(fused[0] + fused[1], want)]))
+        errs_tf32 = dict(zip(names, [rel_l2(a, b) for a, b in
+                                     zip(tf32[0] + tf32[1], want)]))
+        log("[lm] RNN op %s %s x %d, 2 layers%s: cuDNN vs the plain loop "
+            "(relative L2, bound %g): %s; with TF32 on: %s"
+            % (mode, shape, hidden, ", bidirectional" if bi else "",
+               RNN_OP_TOL, json.dumps({k: float("%.3g" % v)
+                                       for k, v in errs.items()}),
+               json.dumps({k: float("%.3g" % v)
+                           for k, v in errs_tf32.items()})))
+        if max(errs.values()) > RNN_OP_TOL:
+            fail("RNN op %s: cuDNN disagrees with the plain loop" % mode)
+        if max(errs_tf32.values()) <= RNN_OP_TOL:
+            fail("RNN op %s: TF32 reads within the bound, which then does "
+                 "not tell float32 from TF32" % mode)
+        worst = max(worst, max(errs.values()))
+        if mode == "lstm":
+            times = {name: device_ms(lambda f=f: rnn_op_run(f, *args), 3)
+                     for name, f in (("cudnn", op.rnn_fused),
+                                     ("plain", op.rnn_plain))}
+            times["library"] = library_lstm_ms(inputs, heads)
+    return worst, times
+
+
+def c4_check():
+    """ROADMAP C4: raw nd.Convolution at ResNet's first layer, and raw
+    nd.FullyConnected and nd.RNN at the word LM's shapes, called after
+    the process set both TF32 flags on, each against the same op in
+    float64 within C4_TOL; the same calls with the ops' TF32 rule
+    taken out must fail it."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rand(*s):
+        return torch.rand(*s, device="cuda", generator=gen)
+
+    def randn(*s):
+        return torch.randn(*s, device="cuda", generator=gen)
+
+    t, n, w, v = WORD_LM_BPTT, WORD_LM_BATCH, WORD_LM["width"], \
+        WORD_LM["vocab"]
+    size = mx.ops.rnn_op.rnn_param_size(w, w, 2, False, "lstm")
+    cases = {
+        "Convolution": ([rand(32, 3, 224, 224), 0.1 * randn(64, 3, 7, 7),
+                         0.1 * randn(64)],
+                        dict(kernel=(7, 7), stride=(2, 2), pad=(3, 3),
+                             num_filter=64)),
+        "FullyConnected": ([randn(t * n, w), 0.07 * (2 * rand(v, w) - 1),
+                            0.1 * randn(v)], dict(num_hidden=v)),
+        "RNN": ([randn(t, n, w), 0.07 * (2 * rand(size) - 1),
+                 0.5 * randn(2, n, w), 0.5 * randn(2, n, w)],
+                dict(state_size=w, num_layers=2, mode="lstm")),
+    }
+    errs = {}
+    for name, (args, attrs) in cases.items():
+        fn = getattr(mx.nd, name)
+        want = fn(*[mx.nd.NDArray(a.double()) for a in args], **attrs)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        got = fn(*[mx.nd.NDArray(a) for a in args], **attrs)
+        with tf32_on():
+            tf32 = fn(*[mx.nd.NDArray(a) for a in args], **attrs)
+        errs[name] = (rel_l2(got._data, want._data),
+                      rel_l2(tf32._data, want._data))
+    log("[lm] C4, raw nd calls in float32 after the process set TF32 on, "
+        "against float64 (relative L2, bound %g): %s; the same calls with "
+        "TF32 left on: %s" % (C4_TOL, json.dumps(
+            {k: float("%.3g" % e[0]) for k, e in errs.items()}),
+            json.dumps({k: float("%.3g" % e[1]) for k, e in errs.items()})))
+    bad = [k for k, (f32, _) in errs.items() if not f32 <= C4_TOL]
+    blind = [k for k, (_, tf32) in errs.items() if tf32 <= C4_TOL]
+    if bad:
+        fail("C4: %s beyond the bound with the flags set on" % bad)
+    if blind:
+        fail("C4: %s with TF32 within the bound, which then does not tell "
+             "float32 from TF32" % blind)
+    return errs
+
+
+def word_lm_grads(net, x, y, batch, ctx):
+    """One recorded step's mean loss and every gradient (no update)."""
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        logits, _ = net(x, word_lm_zero_states(ctx, batch))
+        loss = loss_fn(logits, y).mean()
+    loss.backward()
+    return loss._data.detach().double().cpu(), {
+        p.name: p.grad()._data.detach().double().cpu()
+        for p in word_lm_trainable(net)}
+
+
+def grads_distance(a, b):
+    """(the loss's relative error, the worst parameter's gradient
+    relative L2, its name) of two word_lm_grads results."""
+    per = {k: rel_l2(a[1][k], b[1][k]) for k in b[1]}
+    worst = max(per, key=per.get)
+    return rel_l2(a[0], b[0]), per[worst], worst
+
+
+def word_lm_checks():
+    """With dropout 0: one step at batch 2 on the card against the
+    port's CPU f32 step from the same weights (within LM_CPU_TOL), and
+    one step at batch 32 hybridized against the same step not
+    hybridized (within LM_HYBRID_TOL)."""
+    free_card()
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    card = word_lm_net(gpu, dropout=0.0)
+    weights = {k: p.data().asnumpy()
+               for k, p in card.collect_params().items()}
+    x, y = word_lm_batches(cpu, 2, 1, seed=1)[0]
+    xg, yg = x.as_in_context(gpu), y.as_in_context(gpu)
+    on_card = word_lm_grads(card, xg, yg, 2, gpu)
+    host = word_lm_net(cpu, dropout=0.0)
+    mx.gluon.parameter.load_numpy(host.collect_params(), weights)
+    on_cpu = word_lm_grads(host, x, y, 2, cpu)
+    with tf32_on():
+        tf32 = word_lm_grads(card, xg, yg, 2, gpu)
+    vs_cpu = grads_distance(on_card, on_cpu)
+    vs_cpu_tf32 = grads_distance(tf32, on_cpu)
+    del host
+    x, y = word_lm_batches(gpu, WORD_LM_BATCH, 1, seed=2)[0]
+    hybrid = word_lm_grads(card, x, y, WORD_LM_BATCH, gpu)
+    eager_net = word_lm_net(gpu, dropout=0.0, hybridize=False)
+    mx.gluon.parameter.load_numpy(eager_net.collect_params(), weights)
+    eager = word_lm_grads(eager_net, x, y, WORD_LM_BATCH, gpu)
+    vs_eager = grads_distance(eager, hybrid)
+    log("[lm] word LM, one step at batch 2 (dropout 0), card vs the CPU "
+        "f32 step from the same weights: loss %.3g, worst gradient %.3g "
+        "(%s) (relative; bound %g); with TF32 on: loss %.3g, worst "
+        "gradient %.3g (%s)" % (vs_cpu + (LM_CPU_TOL,) + vs_cpu_tf32))
+    log("[lm] word LM, one step at batch %d (dropout 0) on the card, not "
+        "hybridized vs hybridized: loss %.3g, worst gradient %.3g (%s) "
+        "(relative; bound %g)" % ((WORD_LM_BATCH,) + vs_eager
+                                  + (LM_HYBRID_TOL,)))
+    if not max(vs_cpu[:2]) <= LM_CPU_TOL:
+        fail("word LM: the card's step disagrees with the CPU step")
+    if not max(vs_eager[:2]) <= LM_HYBRID_TOL:
+        fail("word LM: the imperative step disagrees with the hybridized "
+             "step")
+    del card, eager_net
+    free_card()
+    return vs_cpu, vs_eager
+
+
+def synthetic_sentences(n, vocab, seed=0):
+    """lstm_bucketing.py:26-38's synthetic sentences at lengths 5-60:
+    the next token (3 t + 1) mod vocab with probability 0.9, else
+    uniform."""
+    rng = np.random.RandomState(seed)
+    sents = []
+    for _ in range(n):
+        toks = [rng.randint(1, vocab)]
+        for _ in range(rng.randint(5, 61) - 1):
+            toks.append((toks[-1] * 3 + 1) % vocab if rng.rand() < 0.9
+                        else rng.randint(1, vocab))
+        sents.append(toks)
+    return sents
+
+
+def bucket_sym_gen(seq_len):
+    """lstm_bucketing.py's sym_gen: Embedding -> 2 LSTMCells unrolled
+    over the bucket -> FullyConnected -> SoftmaxOutput."""
+    cfg = BUCKET_LM
+    data = mx.sym.Variable("data")
+    label = mx.sym.Variable("softmax_label")
+    embed = mx.sym.Embedding(data=data, input_dim=cfg["vocab"],
+                             output_dim=cfg["embed"], name="embed")
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(cfg["layers"]):
+        stack.add(mx.rnn.LSTMCell(num_hidden=cfg["hidden"],
+                                  prefix="lstm_l%d_" % i))
+    outputs, _ = stack.unroll(seq_len, inputs=embed, layout="NTC",
+                              merge_outputs=True, batch_size=BUCKET_BATCH)
+    pred = mx.sym.Reshape(outputs, shape=(-1, cfg["hidden"]))
+    pred = mx.sym.FullyConnected(data=pred, num_hidden=cfg["vocab"],
+                                 name="pred")
+    label = mx.sym.Reshape(data=label, shape=(-1,))
+    return (mx.sym.SoftmaxOutput(data=pred, label=label, name="softmax"),
+            ("data",), ("softmax_label",))
+
+
+def bucket_batch(key, ctx, seed):
+    """One batch of bucket ``key`` (sentences of key - 9 to key
+    tokens) from the synthetic sentences, as the iterator pads it."""
+    sents = [s for s in synthetic_sentences(400, BUCKET_LM["vocab"], seed)
+             if key - 9 <= len(s) <= key]
+    random.seed(seed)  # the iterator shuffles with the global generators
+    np.random.seed(seed)
+    it = mx.rnn.BucketSentenceIter(sents, BUCKET_BATCH, buckets=[key],
+                                   invalid_label=0, ctx=ctx)
+    return next(it)
+
+
+def bucketing_row():
+    """lstm_bucketing.py on the card: one epoch of BucketingModule.fit
+    over the synthetic sentences, Perplexity(ignore_label=0) and a
+    Speedometer; then one profiled step at bucket 60, the buckets'
+    sharing, and one step at bucket 10 against the CPU's.  Fails on any
+    check."""
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    sents = synthetic_sentences(BUCKET_SENTENCES, BUCKET_LM["vocab"])
+    random.seed(0)
+    np.random.seed(0)
+    it = mx.rnn.BucketSentenceIter(sents, BUCKET_BATCH, buckets=BUCKETS,
+                                   invalid_label=0)
+    per_bucket = {b: sum(1 for i, _ in it.idx if BUCKETS[i] == b)
+                  for b in BUCKETS}
+    if min(per_bucket.values()) < 3:
+        fail("lstm_bucketing: a bucket has fewer than 3 batches: %s"
+             % per_bucket)
+    mod = mx.mod.BucketingModule(bucket_sym_gen, default_bucket_key=60)
+    for kern in KERNELS.values():
+        kern.launches = 0
+    record = []
+    clock = [time.perf_counter()]
+
+    def recorder(param):
+        """After each batch (the metric's update has synchronised):
+        its bucket, wall ms, real tokens and both perplexities; then the
+        metric starts anew."""
+        now = time.perf_counter()
+        batch = param.locals["data_batch"]
+        values = dict(param.eval_metric.get_name_value())
+        record.append((batch.bucket_key, (now - clock[0]) * 1e3,
+                       int((batch.label[0]._data != 0).sum()),
+                       values["perplexity"], values["perplexity_all"]))
+        clock[0] = now
+        param.eval_metric.reset()
+
+    mx.random.seed(0)
+    logging.basicConfig(level=logging.INFO)  # the Speedometer's lines
+    mod.fit(it, eval_metric=[mx.metric.Perplexity(ignore_label=0),
+                             mx.metric.Perplexity(name="perplexity_all")],
+            optimizer="sgd", optimizer_params={"learning_rate": BUCKET_LR},
+            initializer=mx.init.Xavier(factor_type="in", magnitude=2.34),
+            num_epoch=1, batch_end_callback=[
+                mx.callback.Speedometer(BUCKET_BATCH, 10, auto_reset=False),
+                recorder])
+    fit_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: kern.launches for k, kern in KERNELS.items()}
+    # ms a batch by bucket, leaving out each bucket's first (its bind)
+    seen, steady = set(), []
+    for rec in record:
+        if rec[0] in seen:
+            steady.append(rec)
+        seen.add(rec[0])
+    by_bucket = {b: float(np.median([r[1] for r in steady if r[0] == b]))
+                 for b in BUCKETS}
+    steady_s = sum(r[1] for r in steady) / 1e3
+    positions = sum(BUCKET_BATCH * r[0] for r in steady) / steady_s
+    real = sum(r[2] for r in steady) / steady_s
+    ppl = np.array([r[3] for r in record])
+    ppl_all = np.array([r[4] for r in record])
+    batch60 = bucket_batch(60, mx.gpu(0), seed=3)
+
+    def step60():
+        mod.forward(batch60, is_train=True)
+        mod.backward()
+        mod.update()
+
+    step60()
+    spans = device_spans(step60)
+    if not spans:
+        fail("lstm_bucketing: the profiler saw no device time in a step")
+    busy, window, heads = profile_summary(spans, top=8)
+    kinds = sorted(by_kind(spans, LM_KINDS).items(), key=lambda kv: -kv[1])
+    n_nodes = len(bucket_sym_gen(60)[0]._topo())
+    host = bucketing_host_split(mod, batch60)
+    log("[lm] lstm_bucketing (vocabulary %d, 2 x %d LSTMCell unrolled, "
+        "embedding %d, batch %d, buckets %s, SGD lr %g, fp32, TF32 off): "
+        "one epoch of BucketingModule.fit, %d batches %s, in %.1f s with "
+        "the binds; %d executors bound; ms a batch by bucket (median after "
+        "its first): %s; %.1f positions/s and %.1f real tokens/s over the "
+        "batches after each bucket's first; peak device memory %.1f MB "
+        "allocated" % (BUCKET_LM["vocab"], BUCKET_LM["hidden"],
+                       BUCKET_LM["embed"], BUCKET_BATCH, list(BUCKETS),
+                       BUCKET_LR, len(record), per_bucket, fit_s,
+                       len(mod._buckets), json.dumps(
+                           {b: round(v, 3) for b, v in by_bucket.items()}),
+                       positions, real, peak / 1e6))
+    log("[lm] lstm_bucketing: one profiled step at bucket 60 (%d graph "
+        "nodes): device busy %.3f ms, idle share at most %.3f, %d device "
+        "operations; by kind: %s; most device time: %s"
+        % (n_nodes, busy, 1 - busy / window, len(spans),
+           "; ".join("%s %.3f ms" % (k, t / 1e3) for k, t in kinds),
+           "; ".join("%s %.3f ms" % (n[:80], t / 1e3) for n, t in heads)))
+    log("[lm] lstm_bucketing: host ms a step at bucket 60 by stage "
+        "(median of 3 steps, a sync after each step; the metric's update "
+        "waits for the step's device work): %s; their sum %.3f ms; the "
+        "forward %.1f us a graph node"
+        % (", ".join("%s %.3f" % kv for kv in host.items()),
+           sum(host.values()), host["forward"] * 1e3 / n_nodes))
+    log("[lm] lstm_bucketing: perplexity a batch, real tokens "
+        "(ignore_label=0): %s; over every label the SoftmaxOutput trains "
+        "on (padding included): %s; flash-attention launches %s"
+        % (" ".join("%.0f" % v for v in ppl),
+           " ".join("%.0f" % v for v in ppl_all), launches))
+    if not (np.isfinite(ppl).all() and np.isfinite(ppl_all).all()):
+        fail("lstm_bucketing: a perplexity is not finite")
+    if not ppl_all[-5:].mean() < ppl_all[:5].mean():
+        fail("lstm_bucketing: the trained perplexity does not fall")
+    if any(launches.values()):
+        fail("lstm_bucketing: a flash-attention kernel launched: %s"
+             % launches)
+    if len(mod._buckets) != len(BUCKETS):
+        fail("lstm_bucketing: %d executors bound" % len(mod._buckets))
+    bucketing_sharing(mod)
+    bucketing_cpu_check(mod)
+    result = dict(ms_by_bucket=by_bucket, positions_per_sec=positions,
+                  tokens_per_sec=real, busy_ms=busy, idle=1 - busy / window,
+                  ops=len(spans), nodes=n_nodes, peak_mb=peak / 1e6,
+                  host_ms=host, launches=launches)
+    del mod, it
+    free_card()
+    return result
+
+
+def bucketing_host_split(mod, batch, steps=3):
+    """The host's ms in a step's forward, backward, update and the
+    metric's update: the host clock around each call, a sync after each
+    step, the median over ``steps``."""
+    metric = mx.metric.Perplexity(ignore_label=0)
+    times = []
+    for _ in range(steps):
+        t = [time.perf_counter()]
+        mod.forward(batch, is_train=True)
+        t.append(time.perf_counter())
+        mod.backward()
+        t.append(time.perf_counter())
+        mod.update()
+        t.append(time.perf_counter())
+        mod.update_metric(metric, batch.label)
+        t.append(time.perf_counter())
+        torch.cuda.synchronize()
+        times.append(np.diff(t) * 1e3)
+    return dict(zip(("forward", "backward", "update", "metric"),
+                    np.median(times, axis=0).tolist()))
+
+
+def bucketing_sharing(mod):
+    """Every bucket's executor holds the default bucket's tensors, one
+    per parameter name (and one gradient), and every bucket's Module
+    the default's optimizer, updater and states."""
+    default = mod.default_module
+    ptrs = {}
+    for m in mod._buckets.values():
+        ex = m._exec_group.execs[0]
+        for name in m._exec_group.param_names:
+            ptrs.setdefault(name, set()).add(
+                (ex.arg_dict[name]._data.data_ptr(),
+                 ex.grad_dict[name]._data.data_ptr()))
+    shared_opt = all(m._updater is default._updater and
+                     m._optimizer is default._optimizer
+                     for m in mod._buckets.values())
+    log("[lm] lstm_bucketing: %d parameters across %d executors, tensors "
+        "a name %s; one optimizer and updater: %s; %d optimizer states"
+        % (len(ptrs), len(mod._buckets),
+           sorted({len(v) for v in ptrs.values()}), shared_opt,
+           len(default._updater.states)))
+    if any(len(v) != 1 for v in ptrs.values()) or not shared_opt:
+        fail("lstm_bucketing: the buckets do not share their parameters "
+             "and optimizer")
+
+
+def bucketing_cpu_check(mod):
+    """One step at bucket 10 from the trained weights: the card's Module
+    against the port's CPU Module (the output and every gradient,
+    relative L2 within LM_CPU_TOL)."""
+    arg, _ = mod.get_params()
+    weights = {k: v.asnumpy() for k, v in arg.items()}
+    results = {}
+    for name, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        sym, data_names, label_names = bucket_sym_gen(10)
+        m = mx.mod.Module(sym, data_names, label_names, context=ctx)
+        batch = bucket_batch(10, ctx, seed=4)
+        m.bind(batch.provide_data, batch.provide_label)
+        m.init_params(arg_params={k: mx.nd.array(v, ctx=ctx)
+                                  for k, v in weights.items()})
+        m.forward(batch, is_train=True)
+        m.backward()
+        g = m._exec_group
+        results[name] = ({n: a[0]._data.detach().double().cpu()
+                          for n, a in zip(g.param_names, g.grad_arrays)},
+                         m.get_outputs()[0]._data.detach().double().cpu())
+    per = {k: rel_l2(results["card"][0][k], v)
+           for k, v in results["cpu"][0].items()}
+    worst = max(per, key=per.get)
+    out = rel_l2(results["card"][1], results["cpu"][1])
+    log("[lm] lstm_bucketing: one step at bucket 10, card vs CPU f32 from "
+        "the same weights: output %.3g, worst gradient %.3g (%s) "
+        "(relative L2; bound %g)" % (out, per[worst], worst, LM_CPU_TOL))
+    if not max(out, per[worst]) <= LM_CPU_TOL:
+        fail("lstm_bucketing: the card's step disagrees with the CPU step")
+
+
+def phase_lm():
+    """C4's check, the RNN op's check, the two LSTM LM rows and their
+    checks; returns each row's numbers (with its kernel launches)."""
+    t0 = time.monotonic()
+    c4_check()
+    op_err, op_ms = rnn_op_check()
+    gluon = word_lm_row()
+    word_lm_checks()
+    bucketing = bucketing_row()
+    log("[lm] the RNN op at (35, 32, 650) x 2 layers, forward and "
+        "backward, device ms: cuDNN %.3f, the plain loop %.3f, "
+        "torch.nn.LSTM %.3f; the phase took %.1f s"
+        % (op_ms["cudnn"], op_ms["plain"], op_ms["library"],
+           time.monotonic() - t0))
+    return {"word_lm_gluon": gluon, "lstm_bucketing": bucketing}
+
+
 def parse_args():
     ap = argparse.ArgumentParser(
         description="Chip smoke test of mxtpu_torch on one H100; with no "
@@ -2445,6 +3239,7 @@ def main():
     resnet = phase_resnet()
     fused = phase_fused()
     gluon = phase_gluon(resnet)
+    lm = phase_lm()
     sources = {"flash_fwd": ("flash_fwd.cu", 149),
                "flash_bwd_dq": ("flash_bwd.cu", 277),
                "flash_bwd_dkv": ("flash_bwd.cu", 309)}
@@ -2458,6 +3253,7 @@ def main():
                         for row, r in fused.items()})
         by_path.update({row: r["launches"][name]
                         for row, r in gluon.items()})
+        by_path.update({row: r["launches"][name] for row, r in lm.items()})
         kernels.append(dict(
             name=name, route="cuda",
             source="mxtpu_torch/ops/csrc/" + src,

@@ -25,7 +25,12 @@ Ported so far:
 * ``gluon`` (Parameter, Block and HybridBlock, whose ``hybridize()``
   runs the traced graph as one ``cached_op.CachedOp``, the ``nn``
   layers, the losses, the ResNets of the model zoo, Trainer), with the
-  ``_contrib_flash_attention`` op reaching the attention kernels.
+  ``_contrib_flash_attention`` op reaching the attention kernels;
+* the LSTM language model both ways: gluon's ``Embedding`` and
+  ``rnn.LSTM`` over the fused ``RNN`` op (cuDNN on the card), and the
+  symbolic cells of ``rnn`` unrolled per bucket under
+  ``mod.BucketingModule`` (``rnn.BucketSentenceIter``,
+  ``metric.Perplexity``, ``callback``).
 """
 from . import base
 from .base import MXNetError, MemoryExhaustedError, RequestShedError
@@ -47,10 +52,12 @@ from . import lr_scheduler
 from . import model
 from . import io
 from . import metric
+from . import callback
 from . import module
 from . import module as mod
 from . import cached_op
 from . import gluon
+from . import rnn
 from . import parallel
 from . import serve
 from .fused_train import FusedTrainLoop
@@ -58,7 +65,7 @@ from .fused_train import FusedTrainLoop
 __all__ = ["base", "context", "cpu", "gpu", "current_context", "ops",
            "amp", "autograd", "random", "ndarray", "nd", "symbol", "sym",
            "executor", "initializer", "init", "optimizer", "lr_scheduler",
-           "model", "io", "metric", "module", "mod", "cached_op", "gluon",
-           "parallel", "serve",
+           "model", "io", "metric", "callback", "module", "mod",
+           "cached_op", "gluon", "rnn", "parallel", "serve",
            "FusedTrainLoop",
            "MXNetError", "MemoryExhaustedError", "RequestShedError"]

@@ -20,8 +20,8 @@ CachedOp.
 * The AMP compute dtype is the one set when the CachedOp was made, as
   in the JAX package; random ops draw from the device's generator
   (``mxtpu_torch.random``).
-* A forward on the card with float32 arguments turns TF32 off, as the
-  executor's does.
+* float32 convolutions and products on the card run with TF32 off,
+  as everywhere (``ops.registry.float32_numerics``).
 
 The AOT ``warmup``, the shape buckets and their pad masks,
 ``call_fused`` and the inspect/health/perf/profiler hooks are not
@@ -36,7 +36,7 @@ import torch
 from . import amp as _amp
 from . import autograd as _ag
 from .base import MXNetError
-from .executor import _build_graph_fn, _set_conv_numerics
+from .executor import _build_graph_fn
 from .ndarray.ndarray import NDArray
 from .symbol.symbol import Symbol
 
@@ -89,7 +89,6 @@ class CachedOp(object):
         device = args[0].ctx
         training = _ag.is_training()
         fn = self._graph_fn(device, training)
-        _set_conv_numerics(device, args)
         with torch.set_grad_enabled(_ag.is_recording()):
             outs, aux_new = fn([a._data for a in args],
                                [a._data for a in aux_arrays])

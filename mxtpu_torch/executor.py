@@ -15,9 +15,10 @@ applies it.  ``forward(is_train=True)`` runs under
 with ones (or the given ``out_grads``), asks torch for the leaves'
 gradients and writes them into the gradient arrays (``write``) or adds
 them (``add``).  Arguments, aux states and gradients are written in
-place, so a Module's arrays and the executor's stay shared.  A forward
-on the card with float32 arguments turns TF32 off for cuBLAS and cuDNN:
-float32 means float32, as in the JAX package.
+place, so a Module's arrays and the executor's stay shared.  Each op
+that calls cuDNN or cuBLAS turns TF32 off for a float32 input on the
+card (``ops.registry.float32_numerics``): float32 means float32, as in
+the JAX package.
 
 ``MXNET_BACKWARD_DO_MIRROR`` (or ``MXTPU_...``) wraps the training
 graph in :func:`apply_remat` under ``MXTPU_REMAT_POLICY`` (default
@@ -158,18 +159,6 @@ def _build_graph_fn(symbol: Symbol, arg_names: List[str],
     return _maybe_remat(graph_fn) if is_train else graph_fn
 
 
-def _set_conv_numerics(device, arrays):
-    """float32 graphs on the card run in float32: TF32 off for cuDNN's
-    convolutions and cuBLAS's products.  The flags are process-wide, so
-    each forward on the card sets them, and a CUDA graph of a step must
-    be captured after they are set (the graph keeps the kernels chosen
-    at capture)."""
-    if device.type == "cuda" and any(a._data.dtype == torch.float32
-                                     for a in arrays):
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-
-
 class Executor(object):
     """A Symbol bound to arrays on one device."""
 
@@ -281,7 +270,6 @@ class Executor(object):
                 raise MXNetError("shape mismatch for %r: %s vs bound %s"
                                  % (name, src.shape, dst.shape))
             dst._set_data(src._data)
-        _set_conv_numerics(self._ctx, self.arg_arrays)
         aux_vals = [a._data for a in self.aux_arrays]
         if is_train and self._diff_idx:
             vals = [a._data for a in self.arg_arrays]

@@ -28,6 +28,10 @@ graph of one whole step, captured once and replayed K times a call:
   every call;
 * with random ops, the port's generator is registered with the graph,
   so each replay draws fresh numbers.
+* the graph keeps the kernels chosen at capture: each float32
+  convolution and product turns TF32 off before it runs
+  (``ops.registry.float32_numerics``), in the warm-up steps and in the
+  captured step alike, so the replays run float32 kernels.
 
 On the CPU the same step function runs eagerly K times.  The semantics
 are the per-step path's (``mxtpu/fused_train.py:21-25``): the rates of
@@ -57,7 +61,6 @@ import torch
 
 from . import random as _rnd
 from .base import MXNetError, getenv_int
-from .executor import _set_conv_numerics
 from .ndarray.ndarray import NDArray
 from .optimizer.optimizer import lr_groups
 
@@ -289,7 +292,6 @@ class FusedTrainLoop(object):
         rows = self._scan_step.host_sched(K)
         groups = lr_groups(rows)
         lr_rows = torch.from_numpy(rows).to(ex._ctx)
-        _set_conv_numerics(ex._ctx, ex.arg_arrays)
         on_card = ex._ctx.type == "cuda"
         if on_card:
             self._lr_row.copy_(lr_rows[0])

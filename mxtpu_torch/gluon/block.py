@@ -31,7 +31,6 @@ from .. import ndarray as nd_mod
 from .. import symbol as sym_mod
 from ..symbol.symbol import NameManager, Symbol
 from ..cached_op import CachedOp
-from ..executor import _set_conv_numerics
 from .parameter import (Parameter, ParameterDict,
                         DeferredInitializationError)
 
@@ -410,10 +409,6 @@ class HybridBlock(Block):
         flat = [a for a in _flatten(list(inputs), "input")[0]
                 if isinstance(a, NDArray)]
         ctx = flat[0].ctx if flat else None
-        if flat:
-            # float32 on the card means float32 here too, as in the
-            # executor's and the CachedOp's forward
-            _set_conv_numerics(ctx, flat)
         try:
             kwargs = {name: p.data(ctx)
                       for name, p in self._reg_params.items()}

@@ -1,8 +1,9 @@
 """Basic layers of the PyTorch port (counterpart of
 ``mxtpu/gluon/nn/basic_layers.py``): Sequential, HybridSequential,
-Dense, Dropout, BatchNorm, Flatten, Lambda, HybridLambda and
-Activation.  Embedding, LayerNorm, InstanceNorm and the LeakyReLU
-family wait for their ops (ROADMAP A13/A14).
+Dense, Dropout, BatchNorm, Embedding, Flatten, Lambda, HybridLambda
+and Activation.  LayerNorm, InstanceNorm and the LeakyReLU family wait
+for their ops (ROADMAP A13/A14); Embedding's row-sparse gradient
+(``sparse_grad=True``) raises (ROADMAP A10c).
 
 BatchNorm keeps gluon's defaults (``momentum`` 0.9, ``epsilon`` 1e-5,
 ``scale=True``, so ``fix_gamma`` False where the symbol's default is
@@ -19,7 +20,7 @@ from ...base import MXNetError
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
-           "Flatten", "Lambda", "HybridLambda", "Activation"]
+           "Embedding", "Flatten", "Lambda", "HybridLambda", "Activation"]
 
 
 class _Stack(object):
@@ -163,6 +164,29 @@ class BatchNorm(HybridBlock):
         if np.dtype(dtype) == np.float16:
             dtype = "float32"  # the statistics stay float32
         super().cast(dtype)
+
+
+class Embedding(HybridBlock):
+    """A lookup table: ids (any shape) -> their rows of ``weight``
+    (input_dim, output_dim); out-of-range ids are clipped."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, **kwargs):
+        super().__init__(**kwargs)
+        if sparse_grad:
+            raise MXNetError("Embedding(sparse_grad=True) needs row-sparse "
+                             "gradients, which are not ported (ROADMAP "
+                             "A10c, A14)")
+        with self.name_scope():
+            self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,
+                            "dtype": dtype}
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim),
+                init=weight_initializer, dtype=dtype,
+                allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, **self._kwargs)
 
 
 class Flatten(HybridBlock):

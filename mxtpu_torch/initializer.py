@@ -3,11 +3,11 @@
 Counterpart of ``mxtpu/initializer.py``: ``InitDesc``, the dispatch by
 parameter name (weight, bias, gamma, beta, moving_mean, moving_var, or
 an ``__init__`` attr), ``Uniform``, ``Normal``, ``Xavier``, ``Zero``,
-``One``, ``Constant``, ``register`` and ``create``.  Random draws come
-from ``mxtpu_torch.random`` on the array's own device, so the values
-differ from the JAX package's for the same seed; the distributions are
-the same.  ``Load``, ``Mixed``, ``Orthogonal``, ``MSRAPrelu``,
-``Bilinear`` and ``LSTMBias`` are not ported.
+``One``, ``Constant``, ``LSTMBias``, ``register`` and ``create``.
+Random draws come from ``mxtpu_torch.random`` on the array's own
+device, so the values differ from the JAX package's for the same seed;
+the distributions are the same.  ``Load``, ``Mixed``, ``Orthogonal``,
+``MSRAPrelu`` and ``Bilinear`` are not ported.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Zero", "One",
-           "Constant", "Xavier", "register", "create"]
+           "Constant", "Xavier", "LSTMBias", "register", "create"]
 
 _INIT_REGISTRY: Dict[str, type] = {}
 
@@ -219,3 +219,22 @@ class Xavier(Initializer):
             self._set(arr, self._rand_uniform(arr, -scale, scale))
         else:
             self._set(arr, self._rand_normal(arr, scale))
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros, and ``forget_bias`` in the forget gate's quarter (gates i,
+    f, g, o): the i2h bias of ``rnn.LSTMCell``."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        b = np.zeros(arr.shape, dtype=np.float32)
+        n = arr.shape[0] // 4
+        b[n:2 * n] = self.forget_bias
+        self._set(arr, b)
+
+    _init_default = _init_weight
+    _init_bias = _init_weight

@@ -1,17 +1,21 @@
 """Evaluation metrics of the PyTorch port (counterpart of
-``EvalMetric``, ``CompositeEvalMetric``, ``Accuracy`` and
-``CrossEntropy`` in ``mxtpu/metric.py``).  They read their arrays on
-the host."""
+``EvalMetric``, ``CompositeEvalMetric``, ``Accuracy``, ``CrossEntropy``
+and ``Perplexity`` in ``mxtpu/metric.py``).  Accuracy and CrossEntropy
+read their arrays on the host; Perplexity reduces on the arrays' device
+and moves two numbers a batch, where the JAX package moves every
+prediction (77 MB a batch at bucket 60 of a 10,000-word vocabulary)."""
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import numpy as _np
+import torch
 
 from .base import MXNetError
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "CrossEntropy",
-           "create"]
+           "Perplexity", "create"]
 
 _METRIC_REGISTRY: Dict[str, type] = {}
 
@@ -147,3 +151,50 @@ class CrossEntropy(EvalMetric):
 
 
 _METRIC_REGISTRY["ce"] = CrossEntropy
+
+
+def _as_tensor(x, device=None):
+    t = x._data if hasattr(x, "_data") else torch.as_tensor(_np.asarray(x))
+    return t.detach() if device is None else t.detach().to(device)
+
+
+@register
+class Perplexity(EvalMetric):
+    """exp of the mean negative log-probability of the labels, the
+    labels equal to ``ignore_label`` left out; each prediction is read
+    as (number of labels, classes), its probabilities clipped at 1e-10
+    below, as the JAX package's."""
+
+    def __init__(self, ignore_label=None, axis=-1, name="perplexity",
+                 output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names,
+                         ignore_label=ignore_label)
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def update(self, labels, preds):
+        if not isinstance(labels, (list, tuple)):
+            labels = [labels]
+        if not isinstance(preds, (list, tuple)):
+            preds = [preds]
+        labels, preds = check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            pred = _as_tensor(pred)
+            label = _as_tensor(label, pred.device).long().reshape(-1)
+            ignore = torch.zeros_like(label, dtype=torch.bool)
+            if self.ignore_label is not None:
+                ignore = label == int(self.ignore_label)
+            # an ignored label may lie outside the classes (-1)
+            probs = pred.reshape(label.numel(), -1).gather(
+                1, label.masked_fill(ignore, 0)[:, None])[:, 0]
+            probs = torch.where(ignore, torch.ones_like(probs), probs)
+            ignored = ignore.sum()
+            loss = -torch.log(probs.clamp(min=1e-10)).double().sum()
+            loss, n_ignored = torch.stack([loss, ignored.double()]).tolist()
+            self.sum_metric += loss
+            self.num_inst += label.numel() - int(n_ignored)
+
+    def get(self):
+        if self.num_inst == 0:
+            return (self.name, float("nan"))
+        return (self.name, math.exp(self.sum_metric / self.num_inst))

@@ -5,8 +5,11 @@ symbol at the batch's shapes, gives each argument its ``grad_req``
 (parameters ``write`` when training and not fixed, data ``write`` only
 with ``inputs_need_grad``, labels ``null``), copies each batch into the
 bound arrays, and exposes the parameter, gradient and aux arrays as
-[per-parameter][per-device] lists, as the JAX package's does.  Slicing
-a batch over several devices is not ported.
+[per-parameter][per-device] lists, as the JAX package's does.  A group
+bound with a ``shared_group`` (``BucketingModule``'s buckets) takes that
+group's parameter, gradient and aux arrays for its own: every bucket's
+executor holds the same tensors.  Slicing a batch over several devices
+is not ported.
 """
 from __future__ import annotations
 
@@ -35,8 +38,6 @@ class DataParallelExecutorGroup(object):
         if len(contexts) != 1:
             raise MXNetError("a Module over %d devices is not ported (one "
                              "device only)" % len(contexts))
-        if shared_group is not None:
-            raise MXNetError("shared executor groups are not ported")
         self.symbol = symbol
         self.contexts = contexts
         self.param_names = param_names
@@ -67,6 +68,8 @@ class DataParallelExecutorGroup(object):
                   for d in self.data_shapes + self.label_shapes}
         ex = symbol.simple_bind(ctx=contexts[0], grad_req=grad_req_dict,
                                 **shapes)
+        if shared_group is not None:
+            self._share_arrays(ex, shared_group.execs[0])
         self.execs = [ex]
         self.param_arrays = [[ex.arg_dict[name]] for name in self.param_names
                              if name in self.arg_names]
@@ -74,6 +77,27 @@ class DataParallelExecutorGroup(object):
                             for name in self.param_names
                             if name in self.arg_names]
         self.aux_arrays = [[ex.aux_dict[name]] for name in self.aux_names]
+
+    def _share_arrays(self, ex, src):
+        """Put ``src``'s parameter and gradient arrays, and its aux
+        arrays, in ``ex`` in place of its own."""
+        for name in self.param_names:
+            if name not in src.arg_dict or name not in ex.arg_dict:
+                continue
+            if src.arg_dict[name].shape != ex.arg_dict[name].shape:
+                raise MXNetError("shared parameter %r has shape %s here "
+                                 "and %s in the shared module" % (
+                                     name, ex.arg_dict[name].shape,
+                                     src.arg_dict[name].shape))
+            i = ex._arg_names.index(name)
+            ex.arg_arrays[i] = ex.arg_dict[name] = src.arg_dict[name]
+            grad = src.grad_dict.get(name)
+            if grad is not None and ex.grad_arrays[i] is not None:
+                ex.grad_arrays[i] = ex.grad_dict[name] = grad
+        for name, arr in src.aux_dict.items():
+            if name in ex.aux_dict:
+                ex.aux_arrays[ex._aux_names.index(name)] = \
+                    ex.aux_dict[name] = arr
 
     # -- params -----------------------------------------------------------
     def set_params(self, arg_params, aux_params, allow_extra=False):

@@ -5,8 +5,10 @@ group, ``init_params`` fills the parameters (from given arrays or an
 initializer, by name), ``init_optimizer`` makes the optimizer with
 ``rescale_grad = 1/batch`` and its updater (no kvstore on one device),
 ``forward``/``backward``/``update`` run a step, ``get_params``/
-``set_params``, ``get_outputs``, ``save_checkpoint`` and ``load``.
-``context=None`` is the card.  Bucketing, several devices, kvstores,
+``set_params``, ``get_outputs``, ``save_checkpoint`` and ``load``;
+``bind(shared_module=...)`` and ``borrow_optimizer`` let
+``BucketingModule``'s buckets share one set of parameters and one
+optimizer.  ``context=None`` is the card.  Several devices, kvstores,
 optimizer-state files and the tune/sharding/health/telemetry hooks are
 not ported.
 """
@@ -74,7 +76,10 @@ class Module(BaseModule):
         mod.params_initialized = True
         return mod
 
-    def save_checkpoint(self, prefix, epoch):
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        if save_optimizer_states:
+            raise MXNetError("optimizer-state files are not ported "
+                             "(ROADMAP A10c)")
         self._sync_params_from_devices()
         save_checkpoint(prefix, epoch, self.symbol, self._arg_params,
                         self._aux_params)
@@ -167,18 +172,28 @@ class Module(BaseModule):
         if self.binded:
             self.logger.warning("Already bound, ignoring bind()")
             return
+        shared_group = None
         if shared_module is not None:
-            raise MXNetError("shared_module is not ported")
+            if not (shared_module.binded and
+                    shared_module.params_initialized):
+                raise MXNetError("shared_module must be bound and "
+                                 "initialized")
+            shared_group = shared_module._exec_group
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self.binded = True
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, None, data_shapes,
             label_shapes if for_training else (label_shapes or None),
-            self._param_names, for_training, inputs_need_grad, None,
+            self._param_names, for_training, inputs_need_grad, shared_group,
             logger=self.logger, fixed_param_names=self._fixed_param_names,
             grad_req=grad_req)
-        if self.params_initialized:
+        if shared_module is not None:
+            # the shared arrays already hold the parameters
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+            self.params_initialized = True
+        elif self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
 
     # -- optimizer ----------------------------------------------------------
@@ -211,6 +226,22 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._kvstore = kvstore
         self._updater = opt_mod.get_updater(optimizer)
+        self.optimizer_initialized = True
+
+    def borrow_optimizer(self, shared_module):
+        """Use ``shared_module``'s optimizer and updater (its states
+        too), for a module bound with ``shared_module``: the updater
+        keys states by parameter index, so both must list the same
+        parameters in the same order."""
+        if not shared_module.optimizer_initialized:
+            raise MXNetError("shared module has no optimizer")
+        if self._exec_group.param_names != \
+                shared_module._exec_group.param_names:
+            raise MXNetError("borrow_optimizer: the modules' parameters "
+                             "differ")
+        self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._updater = shared_module._updater
         self.optimizer_initialized = True
 
     # -- execution ----------------------------------------------------------

@@ -1,9 +1,11 @@
 """Shape ops of the PyTorch port.
 
 Counterpart of the part of ``mxtpu/ops/matrix.py`` that the ResNet graph,
-NDArray and gluon's losses use: ``Reshape`` with the reference's special
-codes (0 copy, -1 infer, -2 copy the rest, -3 merge two, -4 split one),
-``reshape_like``, ``Flatten``, ``transpose`` and ``where``.
+NDArray, gluon's losses and the recurrent paths use: ``Reshape`` with
+the reference's special codes (0 copy, -1 infer, -2 copy the rest, -3
+merge two, -4 split one), ``reshape_like``, ``Flatten``, ``transpose``,
+``where``, ``SwapAxis``, ``stack``, ``Concat``, ``_rnn_param_concat``
+(the flat parameter vector of the ``RNN`` op) and ``SliceChannel``.
 """
 from __future__ import annotations
 
@@ -92,3 +94,35 @@ def _transpose(x, axes=None):
 @register("where")
 def _where(cond, x, y):
     return torch.where(cond != 0, x, y)
+
+
+@register("SwapAxis", aliases=("swapaxes", "SwapAxes"))
+def _swapaxis(x, dim1=0, dim2=0):
+    return x.transpose(dim1, dim2)
+
+
+@register("stack")
+def _stack(*args, axis=0, num_args=None):
+    return torch.stack(args, dim=axis)
+
+
+@register("Concat", aliases=("concat",))
+def _concat(*args, dim=1, num_args=None):
+    return torch.cat(args, dim=dim)
+
+
+@register("_rnn_param_concat")
+def _rnn_param_concat(*args, dim=0, num_args=None):
+    return torch.cat([a.reshape(-1) for a in args])
+
+
+@register("SliceChannel", aliases=("split",),
+          num_outputs=lambda attrs: attrs.get("num_outputs", 1))
+def _slice_channel(x, num_outputs=1, axis=1, squeeze_axis=False):
+    if x.shape[axis] % num_outputs:
+        raise MXNetError("SliceChannel: axis %d of size %d does not split "
+                         "into %d" % (axis, x.shape[axis], num_outputs))
+    parts = torch.chunk(x, num_outputs, dim=axis)
+    if squeeze_axis:
+        parts = [p.squeeze(axis) for p in parts]
+    return tuple(parts)

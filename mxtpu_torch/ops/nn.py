@@ -3,8 +3,10 @@
 Counterpart of part of ``mxtpu/ops/nn.py``: ``FullyConnected``,
 ``Convolution``, ``Pooling``, ``BatchNorm``, ``Activation``, ``relu``,
 ``softmax``, ``log_softmax``, ``Dropout`` and ``SoftmaxOutput``, with
-the reference's names, attrs and NCHW/OIHW layouts.  Convolution and the products are torch's calls (cuDNN and
-cuBLAS on the card), as the JAX package leaves them to XLA; a bf16 or
+the reference's names, attrs and NCHW/OIHW layouts.  Convolution and
+the products are torch's calls (cuDNN and cuBLAS on the card, float32
+with TF32 off: ``registry.float32_numerics``), as the JAX package
+leaves them to XLA; a bf16 or
 fp16 convolution on the CPU runs in float32 and rounds once, as those
 libraries accumulate.
 
@@ -70,7 +72,7 @@ def _check_layout(layout, ns):
 # FullyConnected
 # ---------------------------------------------------------------------------
 
-@register("FullyConnected")
+@register("FullyConnected", fp32_library=True)
 def _fully_connected(data, weight, *maybe_bias, num_hidden=0, no_bias=False,
                      flatten=True):
     x = data.reshape(data.shape[0], -1) if flatten else data
@@ -86,7 +88,8 @@ def _fully_connected(data, weight, *maybe_bias, num_hidden=0, no_bias=False,
 # Convolution (NCHW data, OIHW weight)
 # ---------------------------------------------------------------------------
 
-@register("Convolution", aliases=("Convolution_v1",))
+@register("Convolution", aliases=("Convolution_v1",),
+          fp32_library=True)
 def _convolution(data, weight, *maybe_bias, kernel=(), stride=(), dilate=(),
                  pad=(), num_filter=0, num_group=1, no_bias=False,
                  workspace=1024, layout=None, cudnn_tune=None,

@@ -12,15 +12,26 @@ Ops that take no tensor input (``_zeros``, ``_random_uniform``...) take
 a ``device`` keyword, which the caller supplies; ops with ``needs_rng``
 take a ``torch.Generator`` as their first argument where the JAX
 package's take a PRNG key.
+
+float32 means float32, as in the JAX package: an op that calls cuDNN
+or cuBLAS on the card (``fp32_library``: Convolution, FullyConnected,
+RNN) turns TF32 off for both libraries (:func:`float32_numerics`)
+before it runs on a float32 input, however it is called (``nd``, an
+executor, a CachedOp or a gluon block).  The flags are process-wide
+and stay off, so the op's backward, which autograd runs later, reads
+them off too, and a CUDA graph captured around the op keeps the
+float32 kernels.  On the CPU they change nothing.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import torch
+
 from ..base import MXNetError
 
 __all__ = ["OpDef", "register", "get_op", "list_ops", "invoke",
-           "add_post_register_hook"]
+           "add_post_register_hook", "float32_numerics"]
 
 _OP_REGISTRY: Dict[str, "OpDef"] = {}
 
@@ -51,6 +62,8 @@ class OpDef(object):
     train_aware : op takes an ``is_train`` attr from the caller's scope.
     mutate_inputs : indices of inputs the op updates (optimizer ops
         return the new values; the caller writes them back).
+    fp32_library : op calls cuDNN or cuBLAS, whose float32 must not
+        round through TF32 (:func:`float32_numerics`).
     """
 
     def __init__(self, name: str, fn: Callable, num_outputs: Any = 1,
@@ -58,7 +71,7 @@ class OpDef(object):
                  train_aware: bool = False,
                  mutate_inputs: Sequence[int] = (),
                  aliases: Sequence[str] = (), visible_outputs: Any = None,
-                 doc: Optional[str] = None):
+                 fp32_library: bool = False, doc: Optional[str] = None):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs
@@ -68,6 +81,7 @@ class OpDef(object):
         self.train_aware = train_aware
         self.mutate_inputs = tuple(mutate_inputs)
         self.aliases = tuple(aliases)
+        self.fp32_library = fp32_library
         self.doc = doc or (fn.__doc__ or "")
 
     def n_outputs(self, attrs: Dict[str, Any]) -> int:
@@ -89,14 +103,15 @@ class OpDef(object):
 def register(name: str, num_outputs: Any = 1, differentiable: bool = True,
              needs_rng: bool = False, train_aware: bool = False,
              mutate_inputs: Sequence[int] = (), aliases: Sequence[str] = (),
-             visible_outputs: Any = None):
+             visible_outputs: Any = None, fp32_library: bool = False):
     """Decorator registering a torch function as a framework op."""
 
     def deco(fn):
         opdef = OpDef(name, fn, num_outputs=num_outputs,
                       differentiable=differentiable, needs_rng=needs_rng,
                       train_aware=train_aware, mutate_inputs=mutate_inputs,
-                      aliases=aliases, visible_outputs=visible_outputs)
+                      aliases=aliases, visible_outputs=visible_outputs,
+                      fp32_library=fp32_library)
         for n in (name,) + tuple(aliases):
             if n in _OP_REGISTRY:
                 raise MXNetError("op %r already registered" % n)
@@ -120,9 +135,23 @@ def list_ops() -> List[str]:
     return sorted(_OP_REGISTRY)
 
 
+def float32_numerics(tensors: Sequence[torch.Tensor]):
+    """TF32 off for cuDNN and cuBLAS when any of ``tensors`` is float32.
+    The flags are set, not read: reading the legacy flag raises once
+    the newer per-op precision API has set cuDNN's convolutions and
+    RNNs apart."""
+    for t in tensors:
+        if t.dtype == torch.float32:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            return
+
+
 def invoke(opdef: OpDef, inputs: Sequence, attrs: Dict[str, Any],
            generator=None) -> tuple:
     """Run an op on tensors; always returns a tuple of tensors."""
+    if opdef.fp32_library:
+        float32_numerics(inputs)
     if opdef.needs_rng:
         out = opdef.fn(generator, *inputs, **attrs)
     else:

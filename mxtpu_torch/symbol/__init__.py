@@ -1,6 +1,7 @@
 """``mxtpu_torch.sym``: the symbolic API (counterpart of
 ``mxtpu/symbol/``).  Every registered op is attached as a composer; the
-``_contrib_*`` ops also as ``sym.contrib.*`` without the prefix.
+``_contrib_*`` ops also as ``sym.contrib.*`` without the prefix, and
+``_zeros`` also as ``zeros`` (the recurrent cells' begin states).
 
 ``ZOO["resnet50_v1"]()`` is ResNet-50 v1 (1000 classes) as ``bench.py``
 builds it: ``vision.resnet50_v1`` traced by the port's gluon
@@ -20,6 +21,7 @@ from ..ndarray.register import prefix_namespace as _prefix_namespace
 _this = _sys.modules[__name__]
 _register_mod._init_symbol_module(_this)
 contrib = _prefix_namespace(_this, "_contrib_", "contrib")
+zeros = _this._zeros
 
 
 def _resnet50_v1():

@@ -5,7 +5,8 @@ Forward shapes come from running the op on ``meta`` tensors, so this
 table carries only what that cannot give: input names (for auto-created
 variables such as ``fc1_weight``), which inputs are auxiliary states
 (BatchNorm's moving stats), and the parameter shapes solved backward
-from the data shape for FullyConnected, Convolution and BatchNorm.  Ops
+from the data shape for FullyConnected, Convolution, BatchNorm,
+Embedding and RNN (its flat parameter vector and its states).  Ops
 not listed take their input names from their function's signature.
 """
 from __future__ import annotations
@@ -119,3 +120,39 @@ for _bn in ("BatchNorm", "BatchNorm_v1"):
 # loss heads: the label is a plain input (not auto-shaped)
 register_meta("SoftmaxOutput", OpMeta(["data", "label"]))
 register_meta("Softmax", OpMeta(["data", "label"]))
+
+
+def _emb_shapes(shapes, attrs):
+    return {1: (int(attrs["input_dim"]), int(attrs["output_dim"]))}
+
+
+register_meta("Embedding", OpMeta(["data", "weight"],
+                                  param_shapes=_emb_shapes))
+
+
+def _rnn_inputs(attrs):
+    if attrs.get("mode", "lstm") == "lstm":
+        return ["data", "parameters", "state", "state_cell"]
+    return ["data", "parameters", "state"]
+
+
+def _rnn_shapes(shapes, attrs):
+    from ..ops.rnn_op import rnn_param_size
+
+    data = shapes[0]
+    if data is None:
+        return {}
+    _, n, input_size = data
+    h = int(attrs["state_size"])
+    layers = int(attrs.get("num_layers", 1))
+    bi = bool(attrs.get("bidirectional", False))
+    mode = attrs.get("mode", "lstm")
+    d = 2 if bi else 1
+    out = {1: (rnn_param_size(input_size, h, layers, bi, mode),),
+           2: (layers * d, n, h)}
+    if mode == "lstm":
+        out[3] = (layers * d, n, h)
+    return out
+
+
+register_meta("RNN", OpMeta(_rnn_inputs, param_shapes=_rnn_shapes))
