@@ -179,6 +179,36 @@ Phases, each of which fails the run (non-zero exit) on any error:
    name and one optimizer, one step at bucket 10 against the CPU's
    (``LM_CPU_TOL``).  No flash-attention kernel may launch on either
    row.
+9. sparse  -- BASELINE config #5, sparse linear classification, on
+   ``examples/sparse/linear_classification.py`` itself (its imports of
+   the JAX package turned into ``mxtpu_torch``: ``linear_example``).
+   Its ``synthesize()`` writes 65,536 rows at the Avazu-app set's
+   1,000,000 features (seed 0); one ``LibSVMIter`` at batch 8,192
+   (CSR batches on the card) serves three rows of its loop, 2 epochs
+   each: ``linear_cls_adagrad`` (AdaGrad lr 0.1, an Updater),
+   ``linear_cls_sgd`` (SGD lr 819.2, an Updater) and
+   ``linear_cls_kvlocal`` (AdaGrad on ``kv.create("local")``:
+   ``row_sparse_pull`` of the batch's columns, rows-only pushes).  Each
+   prints ms a batch, examples/s and nnz/s (host clock), the host's
+   split (the batch made on the host, its copy to the card, pull,
+   forward and loss, ``backward``, update or push), a profiled batch
+   (busy, idle share, operations, by kind), its host syncs (torch's
+   sync debug mode), peak memory, a bound (the CSR batch and the
+   touched rows read and written once at 3.35 TB/s), the mean loss by
+   epoch (finite and falling, or the run fails) and the training
+   accuracy (printed only).  Then: one AdaGrad step on the card
+   against the port's CPU step (``SPARSE_CPU_TOL``; every untouched
+   row and its history bitwise as before, with wd 0 and 1e-4); the
+   sparse products and the row-sparse gradient on 512 rows against the
+   densified product with TF32 off (``SPARSE_DOT_TOL``); the example's
+   ``main()`` at 50,000 features, 1,500 rows, 2 epochs, with and
+   without the local store (at least 0.9 accuracy); two row-sparse
+   pushes against their dense sum and ``row_sparse_pull`` into both
+   kinds of output; ``embedding_sparse`` and ``embedding_dense``
+   (``gluon.nn.Embedding(1,000,000, 32)``, ``Trainer`` SGD lr 0.1, 512
+   ids a step: ms a step, busy, operations, syncs, peak memory) and one
+   sparse step against one dense step (``EMBED_TOL``).  No
+   flash-attention kernel may launch on any row.
 
 The line before the last is the card's name and power limit, the line
 before that the kernels' JSON record; the last line is
@@ -205,16 +235,23 @@ its register split, its ring depth and its item order), in turns, on
 device time.
 """
 import argparse
+import contextlib
+import copy
 import dataclasses
+import io
 import json
 import logging
+import os
 import random
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import types
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -3198,6 +3235,622 @@ def phase_lm():
     return {"word_lm_gluon": gluon, "lstm_bucketing": bucketing}
 
 
+# ---------------------------------------------------------------------------
+# sparse: BASELINE config #5, sparse linear classification
+# ---------------------------------------------------------------------------
+
+# the Avazu-app set's feature count (LIBSVM datasets), which the reference
+# example/sparse/linear_classification trains on; its ~14.6 M rows cut to
+# 65,536 (8 batches an epoch); the reference train.py's batch
+SPARSE_FEATURES, SPARSE_DATA_ROWS, SPARSE_BATCH = 1_000_000, 65_536, 8192
+SPARSE_EPOCHS = 2
+# (row, optimizer, learning rate, kvstore): AdaGrad at the example's lr
+# 0.1; SGD at 0.1 x batch, the reference's step (its loss is summed
+# before rescale_grad = 1 / batch, the example's is averaged as well)
+SPARSE_ROWS = (("linear_cls_adagrad", "adagrad", 0.1, None),
+               ("linear_cls_sgd", "sgd", 0.1 * SPARSE_BATCH, None),
+               ("linear_cls_kvlocal", "adagrad", 0.1, "local"))
+SPARSE_SPLIT = 5            # batches in the host's split
+# one AdaGrad step on the card against the port's CPU step: the touched
+# weights (absolute) and history (relative to its largest value); the
+# card's index_add_ sums in no fixed order
+SPARSE_CPU_TOL = {"weight": 1e-6, "history": 1e-4}
+# the sparse products against the dense product of the densified CSR
+# (TF32 off), relative L2, on the first SPARSE_DOT_ROWS rows
+SPARSE_DOT_TOL, SPARSE_DOT_ROWS = 1e-5, 512
+# tests/test_sparse.py:223-258's sizes: a 128 MB table
+EMBED = dict(vocab=1_000_000, dim=32, ids=512, lr=0.1)
+EMBED_WARM, EMBED_STEPS = 2, 20
+EMBED_TOL = 1e-6            # the sparse step against the dense step
+SPARSE_KINDS = (("gather and scatter", ("index", "scatter", "gather",
+                                        "embedding", "Embedding")),
+                ("sort and unique", ("sort", "Sort", "unique", "radix",
+                                     "Radix", "scan", "Scan")),
+                ("reduction", ("reduce_kernel",)),
+                ("copy and fill", ("copy", "Memcpy", "Memset", "fill")),
+                ("elementwise", ("elementwise",)))
+EXAMPLE = Path(__file__).resolve().parent / "examples" / "sparse" / \
+    "linear_classification.py"
+
+
+def linear_example():
+    """examples/sparse/linear_classification.py as a module whose
+    imports of the JAX package name mxtpu_torch: its ``synthesize``,
+    ``forward``, ``loss_fn``, ``evaluate`` and ``main`` run the port."""
+    src, n = re.subn(r"^(import|from) mxtpu\b", r"\1 mxtpu_torch",
+                     EXAMPLE.read_text(), flags=re.M)
+    if n != 4:
+        fail("sparse: %s has %d imports of the JAX package, not 4"
+             % (EXAMPLE, n))
+    mod = types.ModuleType("linear_classification_port")
+    mod.__file__ = str(EXAMPLE)
+    exec(compile(src, str(EXAMPLE), "exec"), mod.__dict__)
+    return mod
+
+
+def count_syncs(fn):
+    """(fn()'s result, the host synchronisations it made), as
+    torch.cuda's sync debug mode reports them."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def zero_launches():
+    for kern in KERNELS.values():
+        kern.launches = 0
+
+
+def read_launches():
+    return {k: kern.launches for k, kern in KERNELS.items()}
+
+
+class LinearRun(object):
+    """examples/sparse/linear_classification.py's ``main()`` loop on the
+    card: the weight (features, 2) from RandomState(1), a row-sparse
+    gradient, the optimizer at ``rescale_grad`` 1 / batch, through an
+    Updater or through ``kv.create(kvstore)`` (``set_optimizer``,
+    ``row_sparse_pull`` of the batch's columns, rows-only pushes)."""
+
+    def __init__(self, ex, it, optimizer, lr, kvstore, features, batch,
+                 wd=0.0):
+        self.ex, self.it = ex, it
+        rng = np.random.RandomState(1)
+        self.weight = mx.nd.array(rng.normal(0, 0.01, (features, 2))
+                                  .astype(np.float32))
+        self.bias = mx.nd.array(np.zeros((2,), np.float32))
+        self.weight.attach_grad(stype="row_sparse")
+        self.bias.attach_grad()
+        self.opt = mx.optimizer.create(optimizer, learning_rate=lr, wd=wd,
+                                       rescale_grad=1.0 / batch)
+        self.updater = mx.optimizer.get_updater(self.opt)
+        self.kv = mx.kv.create(kvstore) if kvstore else None
+        if self.kv:
+            self.kv.init("weight", self.weight)
+            self.kv.init("bias", self.bias)
+            self.kv.set_optimizer(self.opt)
+
+    def pull(self, batch):
+        if self.kv:
+            self.kv.row_sparse_pull("weight", out=self.weight,
+                                    row_ids=batch.data[0].indices)
+            self.kv.pull("bias", out=self.bias)
+
+    def forward(self, batch):
+        with mx.autograd.record():
+            logits = self.ex.forward(batch, self.weight, self.bias)
+            return self.ex.loss_fn(logits, batch.label[0], 2.0)
+
+    def update(self):
+        if self.kv:
+            self.kv.push("weight", self.weight.grad)
+            self.kv.push("bias", self.bias.grad)
+        else:
+            self.updater(0, self.weight.grad, self.weight)
+            self.updater(1, self.bias.grad, self.bias)
+
+    def step(self, batch):
+        self.pull(batch)
+        loss = self.forward(batch)
+        loss.backward()
+        self.update()
+        return loss
+
+    def full_weight(self):
+        """The trained weight (from the store, as the example fetches it
+        for its evaluation)."""
+        if self.kv:
+            self.kv.row_sparse_pull("weight", out=self.weight,
+                                    row_ids=mx.nd.array(np.arange(
+                                        self.weight.shape[0],
+                                        dtype=np.float32)))
+            self.kv.pull("bias", out=self.bias)
+        return self.weight
+
+
+def linear_row(ex, it, name, optimizer, lr, kvstore):
+    """One of the rows: SPARSE_EPOCHS epochs of the example's loop, then
+    the host's split, a profiled batch and its syncs; fails unless the
+    losses are finite and the second epoch's mean is below the first's."""
+    free_card()
+    run = LinearRun(ex, it, optimizer, lr, kvstore, SPARSE_FEATURES,
+                    SPARSE_BATCH)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    epochs, walls = [], []
+    for _ in range(SPARSE_EPOCHS):
+        it.reset()
+        t0 = time.monotonic()
+        losses, nnz, stamps = [], 0, [t0]
+        for batch in it:
+            losses.append(run.step(batch)._data.detach())
+            nnz += batch.data[0].nnz
+            stamps.append(time.monotonic())
+        epochs.append(torch.stack(losses).cpu().numpy())
+        walls.append(time.monotonic() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    n_batches = len(epochs[-1])
+    ms = walls[-1] / n_batches * 1e3
+    spread = np.diff(stamps[:-1]) * 1e3  # the last batch waits for the sync
+    it.reset()
+    acc = ex.evaluate(it, run.full_weight(), run.bias)
+    # the host's split: the batch made on the host (the card iterator's
+    # triplets, cut into a CSR on the CPU), its copy to the card, then
+    # the loop's stages, a sync after each
+    host_it = copy.copy(it)
+    host_it.ctx = mx.cpu()
+    host_it.reset()
+    gpu = mx.gpu(0)
+    split = []
+    for _ in range(SPARSE_SPLIT):
+        stamps = [time.monotonic()]
+        hb = host_it.next()
+        stamps.append(time.monotonic())
+        batch = mx.io.DataBatch([hb.data[0].copyto(gpu)],
+                                [hb.label[0].copyto(gpu)], pad=hb.pad)
+        torch.cuda.synchronize()
+        stamps.append(time.monotonic())
+        run.pull(batch)
+        torch.cuda.synchronize()
+        stamps.append(time.monotonic())
+        loss = run.forward(batch)
+        float(loss.asnumpy())
+        stamps.append(time.monotonic())
+        loss.backward()
+        torch.cuda.synchronize()
+        stamps.append(time.monotonic())
+        run.update()
+        torch.cuda.synchronize()
+        stamps.append(time.monotonic())
+        split.append(np.diff(stamps) * 1e3)
+    split = dict(zip(("LibSVMIter.next (host)", "host-to-device copy",
+                      "row_sparse_pull" if kvstore else "pull (none)",
+                      "forward and loss", "backward",
+                      "push" if kvstore else "update"),
+                     np.median(split, axis=0).tolist()))
+    it.reset()
+    spans = device_spans(lambda: run.step(it.next()))
+    if not spans:
+        fail("%s: the profiler saw no device time in a batch" % name)
+    busy, window, heads = profile_summary(spans, top=6)
+    kinds = sorted(by_kind(spans, SPARSE_KINDS).items(),
+                   key=lambda kv: -kv[1])
+
+    def one_batch():
+        batch = it.next()
+        run.step(batch)
+        return batch
+
+    batch, syncs = count_syncs(one_batch)
+    csr = batch.data[0]
+    unique = int(run.weight.grad.indices.shape[0])
+    nbytes = (csr.nnz * (4 + 8) + (csr.shape[0] + 1) * 8
+              + csr.shape[0] * 4                       # CSR and labels
+              + 2 * unique * 2 * 4                     # weight rows
+              + (2 * unique * 2 * 4 if optimizer == "adagrad" else 0))
+    bound = nbytes / PEAK_BYTES_S * 1e3
+    means = [float(e.mean()) for e in epochs]
+    log("[sparse] %s (%d features, batch %d, %d rows, %s lr %g, %s): "
+        "mean loss by epoch %s: %.3f ms a batch (host clock, epoch %d of "
+        "%d batches, synchronised by value; its batches before the last "
+        "%.3f-%.3f ms), %.1f examples/s, %.4g nnz/s; the first epoch %.3f "
+        "ms a batch; peak device memory %.1f MB allocated in the epochs "
+        "(%.1f MB held before them); training accuracy after them %.4f "
+        "(not a gate: most labels are noise at 1,000,000 features); "
+        "flash-attention launches %s"
+        % (name, SPARSE_FEATURES, SPARSE_BATCH, SPARSE_DATA_ROWS,
+           optimizer, lr, "kvstore %s" % kvstore if kvstore else "Updater",
+           " -> ".join("%.6f" % m for m in means), ms, SPARSE_EPOCHS,
+           n_batches, spread.min(), spread.max(), SPARSE_BATCH / ms * 1e3,
+           nnz / walls[-1], walls[0] / len(epochs[0]) * 1e3, peak / 1e6,
+           held / 1e6, acc, launches))
+    log("[sparse] %s: host ms a batch by stage (median of %d, a sync "
+        "after each): %s; their sum %.3f"
+        % (name, SPARSE_SPLIT, ", ".join("%s %.3f" % kv for kv in
+                                         split.items()), sum(split.values())))
+    log("[sparse] %s: one profiled batch: device busy %.3f ms, idle share "
+        "at most %.3f, %d device operations, %d host syncs a batch (sync "
+        "debug mode, which does not see the syncs inside coalesce's "
+        "thrust calls); %d nnz, %d unique columns; bound %.4f ms (%.2f MB "
+        "at 3.35 TB/s: the CSR batch, the touched weight rows%s read and "
+        "written once)%s; by kind: %s; most device time: %s"
+        % (name, busy, 1 - busy / window, len(spans), syncs, csr.nnz, unique,
+           bound, nbytes / 1e6,
+           " and their history" if optimizer == "adagrad" else "",
+           "; the dense row_sparse_pull writes the whole (%d, 2) weight "
+           "a batch too: %.1f MB, %.4f ms" % (
+               SPARSE_FEATURES, SPARSE_FEATURES * 8 / 1e6,
+               SPARSE_FEATURES * 8 / PEAK_BYTES_S * 1e3) if kvstore else "",
+           "; ".join("%s %.3f ms" % (k, t / 1e3) for k, t in kinds),
+           "; ".join("%s %.3f ms" % (n[:70], t / 1e3) for n, t in heads)))
+    if not all(np.isfinite(e).all() for e in epochs):
+        fail("%s: a loss is not finite" % name)
+    if not means[-1] < means[0]:
+        fail("%s: the loss does not fall by epoch: %s" % (name, means))
+    if any(launches.values()):
+        fail("%s: a flash-attention kernel launched: %s" % (name, launches))
+    result = dict(ms=ms, examples_per_sec=SPARSE_BATCH / ms * 1e3,
+                  nnz_per_sec=nnz / walls[-1], busy_ms=busy,
+                  idle=1 - busy / window, ops=len(spans), syncs=syncs,
+                  peak_mb=peak / 1e6, bound_ms=bound, host_ms=split,
+                  loss_by_epoch=means, accuracy=acc, launches=launches)
+    del run
+    free_card()
+    return result
+
+
+def sparse_convergence(ex, workdir):
+    """The example's own ``main()`` on the card at tests/test_examples.py's
+    size (50,000 features, 1,500 rows, 2 epochs, AdaGrad), with no
+    kvstore and with ``--kvstore local``: at least 0.9 training accuracy
+    (its ``--min-accuracy`` exits non-zero below)."""
+    accs = {}
+    for kvstore in (None, "local"):
+        argv = ["linear_classification.py", "--synthesize", "--num-epoch",
+                "2", "--num-rows", "1500", "--num-features", "50000",
+                "--min-accuracy", "0.9"]
+        if kvstore:
+            argv += ["--kvstore", kvstore]
+        out = io.StringIO()
+        saved = sys.argv, os.environ.get("MXTPU_DATA_DIR")
+        sys.argv, os.environ["MXTPU_DATA_DIR"] = argv, workdir
+        try:
+            with contextlib.redirect_stdout(out):
+                ex.main()
+        except SystemExit as e:
+            fail("sparse convergence (%s): the example exited %s: %s"
+                 % (kvstore or "no kvstore", e.code, out.getvalue()[-300:]))
+        finally:
+            sys.argv = saved[0]
+            if saved[1] is None:
+                os.environ.pop("MXTPU_DATA_DIR", None)
+            else:
+                os.environ["MXTPU_DATA_DIR"] = saved[1]
+        m = re.search(r"FINAL_ACCURACY ([0-9.]+)", out.getvalue())
+        if not m or float(m.group(1)) < 0.9:
+            fail("sparse convergence: %r" % out.getvalue()[-300:])
+        accs[kvstore or "none"] = float(m.group(1))
+    log("[sparse] convergence: the example's main() on the card at 50,000 "
+        "features, 1,500 rows, 2 epochs, AdaGrad lr 0.1: final training "
+        "accuracy %s (at least 0.9)"
+        % ", ".join("%s %.4f" % kv for kv in accs.items()))
+
+
+def _host_batch(batch):
+    return mx.io.DataBatch([batch.data[0].copyto(mx.cpu())],
+                           [batch.label[0].copyto(mx.cpu())])
+
+
+def _plain_loss(logits, label, positive_cls_weight):
+    """The example's loss_fn with its class weights on the logits'
+    device (the example puts them on the default device, the card)."""
+    logp = mx.nd.log_softmax(logits)
+    lab = label.asnumpy()
+    w = mx.nd.array(np.where(lab == 1, positive_cls_weight, 1.0)
+                    .astype(np.float32), ctx=logits.ctx)
+    per = -(logp * mx.nd.one_hot(label, depth=2)).sum(axis=1) * w
+    return per.sum() / max(1, len(lab))
+
+
+def sparse_cpu_check(ex, it):
+    """One AdaGrad step of the linear classifier on a real batch, on the
+    card and on the CPU from the same weights, with wd 0 and 1e-4: the
+    touched rows and their history within SPARSE_CPU_TOL; every other
+    row bitwise equal to its value before the step."""
+    it.reset()
+    batch = it.next()
+    host = _host_batch(batch)
+    w0 = np.random.RandomState(1).normal(0, 0.01, (SPARSE_FEATURES, 2)) \
+        .astype(np.float32)
+    report = []
+    for wd in (0.0, 1e-4):
+        got = []
+        for dev, b in ((mx.gpu(0), batch), (mx.cpu(), host)):
+            weight = mx.nd.array(w0, ctx=dev)
+            bias = mx.nd.array(np.zeros((2,), np.float32), ctx=dev)
+            weight.attach_grad(stype="row_sparse")
+            bias.attach_grad()
+            opt = mx.optimizer.create("adagrad", learning_rate=0.1, wd=wd,
+                                      rescale_grad=1.0 / SPARSE_BATCH)
+            upd = mx.optimizer.get_updater(opt)
+            with mx.autograd.record():
+                loss = _plain_loss(ex.forward(b, weight, bias), b.label[0],
+                                   2.0)
+            loss.backward()
+            rows = weight.grad.indices._data.cpu()
+            upd(0, weight.grad, weight)
+            upd(1, bias.grad, bias)
+            got.append((float(loss.asnumpy()), rows,
+                        weight._data.detach().cpu(),
+                        upd.states[0]._data.cpu()))
+        (lc, rc, wc, hc), (lh, rh, wh, hh) = got
+        if not torch.equal(rc, rh):
+            fail("sparse: the card's gradient rows differ from the CPU's")
+        untouched = torch.ones(SPARSE_FEATURES, dtype=torch.bool)
+        untouched[rc] = False
+        base = torch.from_numpy(w0)
+        w_err = float((wc[rc] - wh[rc]).abs().max())
+        h_err = float((hc[rc] - hh[rc]).abs().max() / hh[rc].abs().max())
+        same = torch.equal(wc[untouched], base[untouched]) and \
+            torch.equal(hc[untouched], torch.zeros_like(hc[untouched]))
+        report.append((wd, abs(lc - lh), w_err, h_err, same,
+                       int(untouched.sum())))
+        if not same:
+            fail("sparse: an untouched row changed in the lazy step (wd %g)"
+                 % wd)
+        if w_err > SPARSE_CPU_TOL["weight"] or \
+                h_err > SPARSE_CPU_TOL["history"]:
+            fail("sparse: the card's step is %.3g / %.3g from the CPU's "
+                 "(weight / history; bounds %s)" % (w_err, h_err,
+                                                    SPARSE_CPU_TOL))
+    log("[sparse] one AdaGrad step, card against CPU on a batch of %d "
+        "rows (%d touched rows): %s (bounds: weight %g absolute, history "
+        "%g relative)"
+        % (SPARSE_BATCH, len(rc), "; ".join(
+            "wd %g: loss %.3g apart, touched weights %.3g, history %.3g, "
+            "the %d untouched rows and their history bitwise as before: %s"
+            % (wd, dl, we, he, n, s) for wd, dl, we, he, s, n in report),
+           SPARSE_CPU_TOL["weight"], SPARSE_CPU_TOL["history"]))
+
+
+def sparse_dot_check(path):
+    """csr·W, csrᵀ·W and dense·csr on SPARSE_DOT_ROWS rows of the data,
+    and the row-sparse gradient of csr·W, against the dense products of
+    the densified CSR with TF32 off; the gradient's rows are the batch's
+    unique column ids."""
+    it = mx.io.LibSVMIter(data_libsvm=path, data_shape=(SPARSE_FEATURES,),
+                          batch_size=SPARSE_DOT_ROWS)
+    csr = it.next().data[0]
+    dense = csr.todense()._data
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.randn(SPARSE_FEATURES, 2, device="cuda", generator=gen)
+    wt = torch.randn(SPARSE_DOT_ROWS, 2, device="cuda", generator=gen)
+    dl = torch.randn(3, SPARSE_DOT_ROWS, device="cuda", generator=gen)
+    og = torch.randn(SPARSE_DOT_ROWS, 2, device="cuda", generator=gen)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sp = mx.nd.sparse
+    errs = {
+        "csr.W": rel_l2(sp.dot(csr, mx.nd.NDArray(w))._data, dense @ w),
+        "csrT.W": rel_l2(sp.dot(csr, mx.nd.NDArray(wt),
+                                transpose_a=True)._data, dense.t() @ wt),
+        "D.csr": rel_l2(sp.dot(mx.nd.NDArray(dl), csr)._data, dl @ dense)}
+    weight = mx.nd.NDArray(w.clone())
+    weight.attach_grad(stype="row_sparse")
+    with mx.autograd.record():
+        out = sp.dot(csr, weight)
+    out.backward(mx.nd.NDArray(og))
+    grad = weight.grad
+    errs["row-sparse gradient"] = rel_l2(grad.todense()._data, dense.t() @ og)
+    rows_ok = torch.equal(grad.indices._data,
+                          torch.unique(csr.indices._data))
+    log("[sparse] sparse dot on %d rows x %d features (%d nnz) against the "
+        "densified product (TF32 off), relative L2: %s; the gradient's %d "
+        "rows are the batch's unique columns: %s (bound %g)"
+        % (SPARSE_DOT_ROWS, SPARSE_FEATURES, csr.nnz,
+           ", ".join("%s %.3g" % kv for kv in errs.items()),
+           grad.indices.shape[0], rows_ok, SPARSE_DOT_TOL))
+    if not rows_ok or max(errs.values()) > SPARSE_DOT_TOL:
+        fail("sparse dot: %s, rows %s" % (errs, rows_ok))
+    del dense
+    free_card()
+
+
+def sparse_kvstore_check():
+    """Two row-sparse pushes of one key sum to their dense sum;
+    row_sparse_pull into a row-sparse output holds exactly the requested
+    rows, into a dense one zeros elsewhere (full width)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shape = (SPARSE_FEATURES, 2)
+    kv = mx.kv.create("local")
+    kv.init("w", mx.nd.zeros(shape))
+    parts = []
+    for n in (5000, 7000):
+        rows = torch.unique(torch.randint(0, SPARSE_FEATURES, (n,),
+                                          device="cuda", generator=gen))
+        vals = torch.randn(rows.numel(), 2, device="cuda", generator=gen)
+        parts.append(mx.nd.sparse.row_sparse_array(
+            (mx.nd.NDArray(vals), mx.nd.NDArray(rows)), shape=shape))
+    kv.push("w", parts)
+    out = mx.nd.zeros(shape)
+    kv.pull("w", out=out)
+    want = parts[0].todense()._data + parts[1].todense()._data
+    sum_err = float((out._data - want).abs().max())
+    store = torch.randn(shape, device="cuda", generator=gen)
+    kv2 = mx.kv.create("local")
+    kv2.init("w", mx.nd.NDArray(store))
+    ids = torch.randint(0, SPARSE_FEATURES, (4096,), device="cuda",
+                        generator=gen)
+    rsp = mx.nd.sparse.zeros("row_sparse", shape)
+    kv2.row_sparse_pull("w", out=rsp, row_ids=mx.nd.NDArray(ids))
+    uniq = torch.unique(ids)
+    rsp_ok = torch.equal(rsp.indices._data, uniq) and \
+        torch.equal(rsp.data._data, store[uniq])
+    dense = mx.nd.NDArray(torch.full(shape, 7.0, device="cuda"))
+    kv2.row_sparse_pull("w", out=dense, row_ids=mx.nd.NDArray(ids))
+    keep = torch.zeros(SPARSE_FEATURES, dtype=torch.bool, device="cuda")
+    keep[uniq] = True
+    dense_ok = torch.equal(dense._data[keep], store[keep]) and \
+        not bool(dense._data[~keep].any())
+    log("[sparse] kvstore on the card: two row-sparse pushes of %d and %d "
+        "rows against their dense sum, max error %.3g; row_sparse_pull of "
+        "%d ids (%d unique) into a row-sparse output: exactly those rows %s; "
+        "into a dense one: those rows and zeros elsewhere %s"
+        % (parts[0].indices.shape[0], parts[1].indices.shape[0], sum_err,
+           ids.numel(), uniq.numel(), rsp_ok, dense_ok))
+    if sum_err > 0 or not rsp_ok or not dense_ok:
+        fail("sparse kvstore check failed")
+
+
+def embedding_net(sparse, weight=None):
+    with mx.sym.NameManager():
+        net = mx.gluon.nn.Embedding(EMBED["vocab"], EMBED["dim"],
+                                    sparse_grad=sparse)
+    net.initialize(mx.init.Normal(0.01))
+    if weight is not None:
+        net.weight.set_data(weight)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": EMBED["lr"]})
+    return net, trainer
+
+
+def embedding_step(net, trainer, ids):
+    with mx.autograd.record():
+        loss = net(ids).sum()
+    loss.backward()
+    trainer.step(EMBED["ids"])
+    return loss
+
+
+def embedding_row(name, sparse, ids, weight):
+    """gluon.nn.Embedding(1,000,000, 32) with sparse_grad or not and
+    Trainer('sgd', lr 0.1), 512 random ids a step: ms a step, busy,
+    operations, syncs, peak memory."""
+    free_card()
+    net, trainer = embedding_net(sparse, weight)
+    for x in ids[:EMBED_WARM]:
+        embedding_step(net, trainer, x)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.monotonic()
+    for x in ids[EMBED_WARM:EMBED_WARM + EMBED_STEPS]:
+        loss = embedding_step(net, trainer, x)
+    float(loss.asnumpy())
+    float(net.weight.data()._data.detach()[0, 0])
+    ms = (time.monotonic() - t0) / EMBED_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    spans = device_spans(lambda: embedding_step(net, trainer, ids[-1]))
+    if not spans:
+        fail("%s: the profiler saw no device time in a step" % name)
+    busy, window, heads = profile_summary(spans, top=5)
+    _, syncs = count_syncs(lambda: embedding_step(net, trainer, ids[-1]))
+    log("[sparse] %s (vocabulary %d x %d, %d ids a step, SGD lr %g): %.3f "
+        "ms a step (host clock, %d steps after %d warm), device busy %.3f "
+        "ms, idle share at most %.3f, %d device operations and %d host "
+        "syncs a step; peak device memory %.1f MB allocated in the timed "
+        "steps (%.1f MB held before them: the table, the same weights "
+        "kept for the other row, the ids); most device time: %s; "
+        "flash-attention launches %s"
+        % (name, EMBED["vocab"], EMBED["dim"], EMBED["ids"], EMBED["lr"], ms,
+           EMBED_STEPS, EMBED_WARM, busy, 1 - busy / window, len(spans),
+           syncs, peak / 1e6, held / 1e6,
+           "; ".join("%s %.3f ms" % (n[:60], t / 1e3) for n, t in heads),
+           launches))
+    if any(launches.values()):
+        fail("%s: a flash-attention kernel launched: %s" % (name, launches))
+    result = dict(ms=ms, busy_ms=busy, idle=1 - busy / window,
+                  ops=len(spans), syncs=syncs, peak_mb=peak / 1e6,
+                  held_mb=held / 1e6, launches=launches)
+    del net, trainer
+    free_card()
+    return result
+
+
+def embedding_rows():
+    """The sparse row and its dense twin, and one sparse step against one
+    dense step from the same weights (within EMBED_TOL)."""
+    gen = np.random.RandomState(0)
+    ids = [mx.nd.array(gen.randint(0, EMBED["vocab"], EMBED["ids"])
+                       .astype(np.float32))
+           for _ in range(EMBED_WARM + EMBED_STEPS + 1)]
+    mx.random.seed(0)
+    weight = embedding_net(True)[0].weight.data().copy()
+    nets = [embedding_net(s, weight) for s in (True, False)]
+    for net, trainer in nets:
+        embedding_step(net, trainer, ids[0])
+    (sn, _), (dn, _) = nets
+    err = float((sn.weight.data()._data - dn.weight.data()._data)
+                .detach().abs().max())
+    grad = sn.weight.grad()
+    ids_ok = bool((grad.indices._data[1:] > grad.indices._data[:-1]).all()) \
+        and torch.equal(grad.indices._data,
+                        torch.unique(ids[0]._data.long()))
+    log("[sparse] embedding: one sparse_grad step against one dense step "
+        "from the same weights: max weight difference %.3g (bound %g); the "
+        "row-sparse gradient's %d ids are the step's sorted unique ids: %s"
+        % (err, EMBED_TOL, grad.indices.shape[0], ids_ok))
+    if err > EMBED_TOL or not ids_ok:
+        fail("embedding_sparse: the sparse step is %.3g from the dense one"
+             " (ids %s)" % (err, ids_ok))
+    del nets, sn, dn, grad
+    free_card()
+    rows = {"embedding_sparse": embedding_row("embedding_sparse", True, ids,
+                                              weight),
+            "embedding_dense": embedding_row("embedding_dense", False, ids,
+                                             weight)}
+    s, d = rows["embedding_sparse"], rows["embedding_dense"]
+    log("[sparse] embedding: sparse_grad %.3f ms a step against dense "
+        "%.3f (%s faster, %.2fx); peak %.1f MB against %.1f"
+        % (s["ms"], d["ms"], "sparse" if s["ms"] < d["ms"] else "dense",
+           max(s["ms"], d["ms"]) / min(s["ms"], d["ms"]), s["peak_mb"],
+           d["peak_mb"]))
+    return rows
+
+
+def phase_sparse():
+    """BASELINE config #5 on the card: the three linear classification
+    rows, the example's convergence, the card-against-CPU step, the
+    sparse dot and kvstore checks, the two embedding rows; returns each
+    row's numbers (with its kernel launches)."""
+    t0 = time.monotonic()
+    ex = linear_example()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sparse_") as tmp:
+        path = str(Path(tmp) / "avazu_synth.libsvm")
+        t1 = time.monotonic()
+        ex.synthesize(path, num_rows=SPARSE_DATA_ROWS,
+                      num_features=SPARSE_FEATURES)
+        t2 = time.monotonic()
+        it = mx.io.LibSVMIter(data_libsvm=path,
+                              data_shape=(SPARSE_FEATURES,),
+                              batch_size=SPARSE_BATCH)
+        log("[sparse] data: the example's synthesize() at %d rows x %d "
+            "features (seed 0, 20 power-law draws a row) in %.1f s; "
+            "LibSVMIter parsed it in %.1f s"
+            % (SPARSE_DATA_ROWS, SPARSE_FEATURES, t2 - t1,
+               time.monotonic() - t2))
+        rows = {}
+        for name, optimizer, lr, kvstore in SPARSE_ROWS:
+            rows[name] = linear_row(ex, it, name, optimizer, lr, kvstore)
+        sparse_cpu_check(ex, it)
+        sparse_dot_check(path)
+        sparse_convergence(ex, tmp)
+    sparse_kvstore_check()
+    rows.update(embedding_rows())
+    log("[sparse] the phase took %.1f s" % (time.monotonic() - t0))
+    return rows
+
+
 def parse_args():
     ap = argparse.ArgumentParser(
         description="Chip smoke test of mxtpu_torch on one H100; with no "
@@ -3240,6 +3893,7 @@ def main():
     fused = phase_fused()
     gluon = phase_gluon(resnet)
     lm = phase_lm()
+    sparse = phase_sparse()
     sources = {"flash_fwd": ("flash_fwd.cu", 149),
                "flash_bwd_dq": ("flash_bwd.cu", 277),
                "flash_bwd_dkv": ("flash_bwd.cu", 309)}
@@ -3254,6 +3908,8 @@ def main():
         by_path.update({row: r["launches"][name]
                         for row, r in gluon.items()})
         by_path.update({row: r["launches"][name] for row, r in lm.items()})
+        by_path.update({row: r["launches"][name]
+                        for row, r in sparse.items()})
         kernels.append(dict(
             name=name, route="cuda",
             source="mxtpu_torch/ops/csrc/" + src,

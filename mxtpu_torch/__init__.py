@@ -30,7 +30,13 @@ Ported so far:
   ``rnn.LSTM`` over the fused ``RNN`` op (cuDNN on the card), and the
   symbolic cells of ``rnn`` unrolled per bucket under
   ``mod.BucketingModule`` (``rnn.BucketSentenceIter``,
-  ``metric.Perplexity``, ``callback``).
+  ``metric.Perplexity``, ``callback``);
+* BASELINE config #5 in one process, sparse linear classification:
+  ``nd.sparse`` (CSR and row-sparse arrays, the sparse ``dot`` whose
+  weight gradient is row-sparse), ``io.LibSVMIter``, the lazy SGD and
+  AdaGrad updates, and ``kv`` (the local KVStore with
+  ``row_sparse_pull``); ``Embedding(sparse_grad=True)`` on the same
+  machinery.
 """
 from . import base
 from .base import MXNetError, MemoryExhaustedError, RequestShedError
@@ -51,6 +57,8 @@ from . import optimizer
 from . import lr_scheduler
 from . import model
 from . import io
+from . import kvstore
+from . import kvstore as kv
 from . import metric
 from . import callback
 from . import module
@@ -65,7 +73,8 @@ from .fused_train import FusedTrainLoop
 __all__ = ["base", "context", "cpu", "gpu", "current_context", "ops",
            "amp", "autograd", "random", "ndarray", "nd", "symbol", "sym",
            "executor", "initializer", "init", "optimizer", "lr_scheduler",
-           "model", "io", "metric", "callback", "module", "mod",
+           "model", "io", "kvstore", "kv", "metric", "callback",
+           "module", "mod",
            "cached_op", "gluon", "rnn", "parallel", "serve",
            "FusedTrainLoop",
            "MXNetError", "MemoryExhaustedError", "RequestShedError"]

@@ -8,6 +8,16 @@ enabled only under ``record()``, and a marked variable is a leaf tensor
 that requires grad.  ``backward`` asks torch for the gradients of the
 heads with respect to the marked leaves it reaches and writes them into
 their ``.grad`` arrays by their ``grad_req`` (``write`` or ``add``).
+
+Row-sparse gradients (the JAX package's ``SparseCot``): a sparse
+lookup or product (``Embedding(sparse_grad=True)``, ``sparse.dot``)
+hands a leaf weight a sparse COO gradient, which the engine sums with
+the leaf's other contributions.  A leaf whose ``.grad`` is a
+``RowSparseNDArray`` (``attach_grad(stype="row_sparse")``) takes it
+coalesced (rows sorted and unique, duplicates summed), or, when a dense
+path reached the leaf too, the rows of the dense sum that hold a
+non-zero (``cast_storage``); ``grad_req="add"`` raises for it, as in
+the reference.  A dense ``.grad`` takes the densified gradient.
 ``grad(create_graph=True)`` and the custom ``Function`` are not ported.
 """
 from __future__ import annotations
@@ -160,9 +170,35 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
         for var, g in zip(leaves, grads):
             if var._grad is None:
                 continue
+            if var._grad.stype == "row_sparse":
+                _write_row_sparse(var, g)
+                continue
             if g is None:
                 g = torch.zeros_like(var._data)
+            elif g.is_sparse:
+                g = g.to_dense()
             if var._grad_req == "add":
                 var._grad._data.add_(g)
             elif var._grad_req == "write":
                 var._grad._data.copy_(g)
+
+
+def _write_row_sparse(var, g):
+    """Write the gradient ``g`` (sparse COO, dense or None) into the
+    ``RowSparseNDArray`` ``var._grad``."""
+    from .ndarray.ndarray import NDArray
+    from .ndarray.sparse import RowSparseNDArray, cast_storage, zeros
+
+    if var._grad_req == "add":
+        raise MXNetError("grad_req='add' is not supported for row_sparse "
+                         "gradients (reference parity)")
+    dtype = var._grad._data.dtype
+    if g is None:
+        rsp = zeros("row_sparse", var.shape, ctx=var.ctx, dtype=dtype)
+    elif g.is_sparse:
+        g = g.coalesce()
+        rsp = RowSparseNDArray(g.values().to(dtype), (g.indices()[0],),
+                               var.shape)
+    else:
+        rsp = cast_storage(NDArray(g.to(dtype)), "row_sparse")
+    var._grad._assign(rsp)

@@ -2,8 +2,10 @@
 ``mxtpu/gluon/nn/basic_layers.py``): Sequential, HybridSequential,
 Dense, Dropout, BatchNorm, Embedding, Flatten, Lambda, HybridLambda
 and Activation.  LayerNorm, InstanceNorm and the LeakyReLU family wait
-for their ops (ROADMAP A13/A14); Embedding's row-sparse gradient
-(``sparse_grad=True``) raises (ROADMAP A10c).
+for their ops (ROADMAP A13/A14).  ``Embedding(sparse_grad=True)`` gives
+its weight a row-sparse gradient when it runs imperatively; hybridized,
+the traced op's gradient is dense and reaches the weight as the rows
+holding a non-zero, as in the JAX package.
 
 BatchNorm keeps gluon's defaults (``momentum`` 0.9, ``epsilon`` 1e-5,
 ``scale=True``, so ``fix_gamma`` False where the symbol's default is
@@ -168,21 +170,19 @@ class BatchNorm(HybridBlock):
 
 class Embedding(HybridBlock):
     """A lookup table: ids (any shape) -> their rows of ``weight``
-    (input_dim, output_dim); out-of-range ids are clipped."""
+    (input_dim, output_dim); out-of-range ids are clipped.  With
+    ``sparse_grad`` the weight's gradient is a ``RowSparseNDArray``."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, **kwargs):
         super().__init__(**kwargs)
-        if sparse_grad:
-            raise MXNetError("Embedding(sparse_grad=True) needs row-sparse "
-                             "gradients, which are not ported (ROADMAP "
-                             "A10c, A14)")
         with self.name_scope():
             self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,
-                            "dtype": dtype}
+                            "dtype": dtype, "sparse_grad": sparse_grad}
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim),
                 init=weight_initializer, dtype=dtype,
+                grad_stype="row_sparse" if sparse_grad else "default",
                 allow_deferred_init=True)
 
     def hybrid_forward(self, F, x, weight):

@@ -8,7 +8,11 @@ a ``grad_req`` other than ``null`` that array is a marked variable of
 ``autograd`` (a leaf tensor that requires grad), so a recorded forward,
 hybridized or not, reaches it; everything that writes a Parameter
 (``set_data``, the Trainer's update) writes into that tensor in place,
-so the leaf stays the one ``backward`` finds.
+so the leaf stays the one ``backward`` finds.  With
+``grad_stype="row_sparse"`` the gradient is a ``RowSparseNDArray``
+(``nn.Embedding(sparse_grad=True)``), which the Trainer's optimizer
+updates lazily; the weight itself stays dense (``stype="row_sparse"``
+weights are not ported, ROADMAP A14).
 
 :func:`load_numpy` copies ``{name: numpy array}`` into a block's
 parameters by name: the bridge from the JAX package's weights, whose
@@ -47,9 +51,12 @@ class Parameter(object):
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
-        if stype != "default" or grad_stype != "default":
-            raise MXNetError("sparse parameters are not ported (ROADMAP "
-                             "A14)")
+        if stype != "default":
+            raise MXNetError("row_sparse weights (stype=%r) are not ported "
+                             "(ROADMAP A14)" % stype)
+        if grad_stype not in ("default", "row_sparse"):
+            raise MXNetError("unknown grad_stype %r" % grad_stype)
+        self._grad_stype = grad_stype
         self._var = None
         self._data: Optional[List[NDArray]] = None
         self._grad: Optional[List[NDArray]] = None
@@ -149,7 +156,7 @@ class Parameter(object):
             self._grad = None
             return
         for d in self._data:
-            d.attach_grad(self.grad_req)
+            d.attach_grad(self.grad_req, stype=self._grad_stype)
         self._grad = [d.grad for d in self._data]
 
     # -- access -----------------------------------------------------------
@@ -196,7 +203,10 @@ class Parameter(object):
 
     def zero_grad(self):
         for g in self._grad or ():
-            g._data.zero_()
+            if g.stype == "row_sparse":
+                g._assign(g.retain([]))  # no rows stored
+            else:
+                g._data.zero_()
 
     def set_data(self, data):
         """Write ``data`` (an NDArray or array-like) into the

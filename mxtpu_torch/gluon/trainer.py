@@ -5,7 +5,9 @@
 ``scale / batch_size``, reduces the gradients across devices (nothing
 to do on one) and updates every Parameter with a gradient in one
 ``Updater.update_multi`` call (the optimizer's ``torch._foreach_*``
-step over all of them).  The optimizer sees each Parameter through
+step over all of them; with a row-sparse gradient among them, the
+optimizer updates one Parameter at a time, the row-sparse ones
+lazily).  The optimizer sees each Parameter through
 ``param_dict``, so its ``lr_mult`` and ``wd_mult`` apply; a weight
 decay applies to every such Parameter, biases included, as gluon's
 does.

@@ -1,4 +1,4 @@
 """``mxtpu_torch.io`` (counterpart of ``mxtpu/io/``)."""
-from .io import DataDesc, DataBatch, DataIter, NDArrayIter
+from .io import DataDesc, DataBatch, DataIter, NDArrayIter, LibSVMIter
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "LibSVMIter"]

@@ -1,7 +1,8 @@
 """Data iteration of the PyTorch port (counterpart of ``DataDesc``,
-``DataBatch``, ``DataIter`` and ``NDArrayIter`` in ``mxtpu/io/io.py``).
-Batches are made on the host and become NDArrays on ``ctx`` (default:
-the card) as they are taken."""
+``DataBatch``, ``DataIter``, ``NDArrayIter`` and ``LibSVMIter`` in
+``mxtpu/io/io.py``).  Batches are made on the host and become NDArrays
+(CSR arrays for ``LibSVMIter``) on ``ctx`` (default: the card) as they
+are taken."""
 from __future__ import annotations
 
 from collections import namedtuple
@@ -11,7 +12,8 @@ import numpy as np
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray, array as nd_array
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
+           "LibSVMIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -155,3 +157,111 @@ class NDArrayIter(DataIter):
         if self.last_batch_handle == "pad" and hi > self.num_data:
             return hi - self.num_data
         return 0
+
+
+class LibSVMIter(DataIter):
+    """LibSVM text (``label id:value ...`` a row) as CSR batches
+    (reference ``src/io/iter_libsvm.cc``).  The file parses straight into
+    host CSR triplets, so a million-feature set costs O(nnz); each batch
+    is a ``CSRNDArray`` on ``ctx`` (default: the card) cut from them.
+    ``num_parts``/``part_index`` keep every ``num_parts``-th row (a
+    shard, which may be empty: it then gives no batch); a separate
+    ``label_libsvm`` file (rows of numbers) is sharded the same way.
+    With ``round_batch`` the last batch wraps around to the first rows
+    and ``pad`` says how many it borrowed; without, it is dropped."""
+
+    def __init__(self, data_libsvm, data_shape, label_libsvm=None,
+                 label_shape=None, batch_size=1, round_batch=True,
+                 num_parts=1, part_index=0, ctx=None, **_):
+        super().__init__(batch_size)
+        self.data_shape = tuple(data_shape) if isinstance(
+            data_shape, (tuple, list)) else (int(data_shape),)
+        self._num_col = int(np.prod(self.data_shape))
+        self.round_batch = round_batch
+        self.ctx = ctx
+
+        def mine(row_no):
+            return num_parts <= 1 or row_no % num_parts == part_index
+
+        labels, cols, vals, indptr = [], [], [], [0]
+        row_no = 0  # non-empty rows seen, for the shard
+        with open(data_libsvm) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                row_no += 1
+                if not mine(row_no - 1):
+                    continue
+                labels.append([float(parts[0])])
+                for kv in parts[1:]:
+                    k, v = kv.split(":")
+                    cols.append(int(k))
+                    vals.append(float(v))
+                indptr.append(len(cols))
+        if row_no == 0:
+            raise MXNetError("no rows in %s" % data_libsvm)
+        if label_libsvm is not None:
+            labels, lrow = [], 0
+            with open(label_libsvm) as f:
+                for line in f:
+                    if not line.strip():
+                        continue
+                    lrow += 1
+                    if mine(lrow - 1):
+                        labels.append([float(t) for t in line.split()])
+        self._labels = np.asarray(labels, np.float32) \
+            if labels else np.zeros((0, 1), np.float32)
+        self._cols = np.asarray(cols, np.int64)
+        self._vals = np.asarray(vals, np.float32)
+        self._indptr = np.asarray(indptr, np.int64)
+        if len(self._labels) != len(self._indptr) - 1:
+            raise MXNetError("label rows (%d) != data rows (%d) in %s"
+                             % (len(self._labels), len(self._indptr) - 1,
+                                data_libsvm))
+        self.reset()
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size, self._num_col),
+                         np.float32)]
+
+    @property
+    def provide_label(self):
+        lw = self._labels.shape[1]
+        shape = (self.batch_size,) if lw == 1 else (self.batch_size, lw)
+        return [DataDesc("softmax_label", shape, np.float32)]
+
+    def reset(self):
+        self._cursor = 0
+
+    def _csr_batch(self, lo, hi):
+        """Rows [lo, hi) of the triplets (wrapping past the end) as a
+        CSR array on ``ctx``, and their labels."""
+        from ..ndarray import sparse as _sp
+
+        sel = np.arange(lo, hi) % len(self._labels)
+        starts = self._indptr[sel]
+        counts = self._indptr[sel + 1] - starts
+        indptr = np.zeros(len(sel) + 1, np.int64)
+        np.cumsum(counts, out=indptr[1:])
+        take = np.arange(indptr[-1]) + np.repeat(starts - indptr[:-1],
+                                                 counts)
+        csr = _sp.csr_matrix((self._vals[take], self._cols[take], indptr),
+                             shape=(len(sel), self._num_col), ctx=self.ctx)
+        label = self._labels[sel]
+        return csr, label[:, 0] if label.shape[1] == 1 else label
+
+    def next(self):
+        n = len(self._labels)
+        hi = self._cursor + self.batch_size
+        if self._cursor >= n or (hi > n and not self.round_batch):
+            raise StopIteration
+        csr, label = self._csr_batch(self._cursor, hi)
+        pad = max(0, hi - n)
+        self._cursor = hi
+        return DataBatch(data=[csr], label=[nd_array(label, ctx=self.ctx)],
+                         pad=pad, provide_data=self.provide_data,
+                         provide_label=self.provide_label)
+
+    __next__ = next

@@ -1,6 +1,7 @@
 """``mxtpu_torch.nd``: the imperative NDArray API (counterpart of
 ``mxtpu/ndarray/``).  Every registered op is attached as a function;
-the ``_contrib_*`` ops also as ``nd.contrib.*`` without the prefix."""
+the ``_contrib_*`` ops also as ``nd.contrib.*`` without the prefix; the
+sparse arrays are ``nd.sparse``."""
 import sys as _sys
 
 from .ndarray import (NDArray, imperative_invoke, array, zeros, ones, full,
@@ -17,3 +18,7 @@ _this.ones = ones
 _this.full = full
 
 from .. import random as random  # noqa: E402
+
+# `nd.sparse` sub-namespace (reference: mxnet.ndarray.sparse)
+from . import sparse  # noqa: E402
+from .sparse import CSRNDArray, RowSparseNDArray  # noqa: E402

@@ -10,7 +10,9 @@ into its tensor in place, so every holder of the array sees them.
 
 ``save``/``load`` write and read the JAX package's container (an
 ``np.savez`` archive with a ``__keys__`` entry), so one ``.params`` file
-reads in both packages.  Sparse arrays are not ported.
+reads in both packages.  The sparse arrays (``stype`` ``csr`` and
+``row_sparse``) live in :mod:`.sparse`; an op without a sparse form
+runs on the densified array (the reference's storage fallback).
 """
 from __future__ import annotations
 
@@ -96,6 +98,10 @@ class NDArray(object):
     context = ctx
 
     @property
+    def stype(self) -> str:
+        return "default"
+
+    @property
     def grad(self) -> Optional["NDArray"]:
         return self._grad
 
@@ -146,6 +152,10 @@ class NDArray(object):
     def copyto(self, other) -> "NDArray":
         """Copy into the array ``other`` (in place, cast to its dtype),
         or onto the device ``other``."""
+        if isinstance(other, NDArray) and other.stype != "default":
+            from .sparse import cast_storage
+
+            return cast_storage(self, other.stype).copyto(other)
         if isinstance(other, NDArray):
             other._set_data(self._data)
             return other
@@ -161,12 +171,27 @@ class NDArray(object):
     def detach(self) -> "NDArray":
         return NDArray(self._data.detach())
 
+    def tostype(self, stype: str):
+        if stype == "default":
+            return self
+        from .sparse import cast_storage
+
+        return cast_storage(self, stype)
+
     # -- autograd -----------------------------------------------------------
-    def attach_grad(self, grad_req: str = "write"):
+    def attach_grad(self, grad_req: str = "write", stype=None):
         """Attach a gradient buffer: this array becomes a marked
-        variable of ``autograd``."""
-        _ag.mark_variables([self], [NDArray(torch.zeros_like(
-            self._data, requires_grad=False))], grad_req)
+        variable of ``autograd``.  ``stype="row_sparse"`` makes the
+        buffer a ``RowSparseNDArray``, which ``backward`` fills with
+        the rows the gradient touches."""
+        if stype == "row_sparse":
+            from .sparse import zeros as _sparse_zeros
+
+            grad = _sparse_zeros("row_sparse", self.shape, ctx=self.ctx,
+                                 dtype=self._data.dtype)
+        else:
+            grad = NDArray(torch.zeros_like(self._data, requires_grad=False))
+        _ag.mark_variables([self], [grad], grad_req)
 
     def backward(self, out_grad: Optional["NDArray"] = None,
                  retain_graph: bool = False, train_mode: bool = True):
@@ -268,6 +293,12 @@ class NDArray(object):
         return self._binary(other, "elemwise_div", "_div_scalar",
                             "_rdiv_scalar", swap=True)
 
+    def __pow__(self, other):
+        if not isinstance(other, (int, float, np.generic)):
+            return NotImplemented
+        return imperative_invoke("_power_scalar", self,
+                                 scalar=float(other))[0]
+
     def __neg__(self):
         return imperative_invoke("negative", self)[0]
 
@@ -275,6 +306,12 @@ class NDArray(object):
         return self._binary(other, "_greater", "_greater_scalar")
 
     def _inplace_result(self, res):
+        if not _ag.is_recording() and _ag._owner(self._data) is self \
+                and res.shape == self.shape:
+            # a marked variable outside record(): write into its leaf
+            # tensor, which backward finds again
+            self._set_data(res)
+            return self
         # rebind, so that a result recorded under autograd keeps its link
         self._data = res._data
         return self
@@ -307,6 +344,9 @@ def imperative_invoke(op_name: str, *inputs, out=None,
     opdef = _reg.get_op(op_name)
     attrs = {k: v for k, v in attrs.items()
              if v is not None and v is not _Null}
+    # storage fallback: ops take sparse arrays densified
+    inputs = [x.todense() if isinstance(x, NDArray) and x.stype != "default"
+              else x for x in inputs]
     if opdef.train_aware and "is_train" not in attrs:
         attrs["is_train"] = _ag.is_training()
     ctx = attrs.pop("ctx", None)
@@ -335,13 +375,25 @@ def imperative_invoke(op_name: str, *inputs, out=None,
 
         gen = _rnd.generator(device)
     with torch.set_grad_enabled(_ag.is_recording() and opdef.differentiable):
-        outs = _reg.invoke(opdef, tensors, attrs, gen)
+        if opdef.name == "Embedding" and attrs.get("sparse_grad") \
+                and _ag.is_recording():
+            # recorded imperatively, the lookup's weight gradient is
+            # row-sparse (the JAX package's _record_embedding_sparse);
+            # traced into a graph, the op's gradient is dense
+            from ..ops.indexing import embedding_sparse_grad
+
+            outs = (embedding_sparse_grad(*tensors),)
+        else:
+            outs = _reg.invoke(opdef, tensors, attrs, gen)
     results = [NDArray(o) for o in outs]
     if not _full_outputs:
         results = results[:opdef.n_visible_outputs(attrs)]
     if out is not None:
         outs_list = out if isinstance(out, (list, tuple)) else [out]
         for dst, src in zip(outs_list, results):
+            if dst.stype != "default":
+                raise MXNetError("out= with %s storage is not supported for "
+                                 "%s" % (dst.stype, op_name))
             dst._set_data(src._data)
         return tuple(outs_list)
     return tuple(results)

@@ -43,6 +43,7 @@ _scalar_op("_rminus_scalar", lambda x, s: s - x)
 _scalar_op("_mul_scalar", lambda x, s: x * s)
 _scalar_op("_div_scalar", lambda x, s: x / s)
 _scalar_op("_rdiv_scalar", lambda x, s: s / x)
+_scalar_op("_power_scalar", lambda x, s: torch.pow(x, s))
 
 
 register("_greater_scalar", differentiable=False)(

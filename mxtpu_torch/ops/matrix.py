@@ -5,7 +5,9 @@ NDArray, gluon's losses and the recurrent paths use: ``Reshape`` with
 the reference's special codes (0 copy, -1 infer, -2 copy the rest, -3
 merge two, -4 split one), ``reshape_like``, ``Flatten``, ``transpose``,
 ``where``, ``SwapAxis``, ``stack``, ``Concat``, ``_rnn_param_concat``
-(the flat parameter vector of the ``RNN`` op) and ``SliceChannel``.
+(the flat parameter vector of the ``RNN`` op) and ``SliceChannel``;
+``one_hot`` and ``dot`` (the dense product, on cuBLAS on the card, with
+TF32 off for float32: ``fp32_library``).
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, torch_dtype
 from .registry import register
 
 
@@ -126,3 +128,29 @@ def _slice_channel(x, num_outputs=1, axis=1, squeeze_axis=False):
     if squeeze_axis:
         parts = [p.squeeze(axis) for p in parts]
     return tuple(parts)
+
+
+@register("one_hot", differentiable=False)
+def _one_hot(indices, depth=1, on_value=1.0, off_value=0.0,
+             dtype="float32"):
+    """Rows of ``depth`` classes; an id outside [0, depth) gives a row of
+    ``off_value`` (a comparison, so no host check of the ids)."""
+    classes = torch.arange(int(depth), device=indices.device)
+    hot = (indices.long().unsqueeze(-1) == classes).to(torch_dtype(dtype))
+    return hot * (on_value - off_value) + off_value
+
+
+def _reverse_axes(x):
+    return x.permute(*reversed(range(x.dim())))
+
+
+@register("dot", fp32_library=True)
+def _dot(lhs, rhs, transpose_a=False, transpose_b=False,
+         forward_stype=None):
+    """The last axis of ``lhs`` against the first of ``rhs`` (all axes
+    reversed first where transposed)."""
+    a = _reverse_axes(lhs) if transpose_a else lhs
+    b = _reverse_axes(rhs) if transpose_b else rhs
+    if a.dim() == 1 and b.dim() == 1:
+        return torch.dot(a, b)
+    return torch.tensordot(a, b, dims=([a.dim() - 1], [0]))

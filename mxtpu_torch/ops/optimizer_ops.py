@@ -1,6 +1,6 @@
 """Optimizer update ops of the PyTorch port (counterpart of
-``sgd_update``, ``sgd_mom_update`` and ``adam_update`` in
-``mxtpu/ops/optimizer_ops.py``).
+``sgd_update``, ``sgd_mom_update``, ``adam_update`` and
+``_sparse_adagrad_update`` in ``mxtpu/ops/optimizer_ops.py``).
 
 Each returns the new weight first, then the new states; the caller
 writes them back.  The optimizers' ``fused_update_multi``
@@ -45,3 +45,13 @@ def _adam_update(weight, grad, mean, var, lr=0.001, beta1=0.9, beta2=0.999,
     new_var = beta2 * var + (1.0 - beta2) * torch.square(g)
     new_w = weight - lr * new_mean / (torch.sqrt(new_var) + epsilon)
     return new_w, new_mean, new_var
+
+
+@register("_sparse_adagrad_update", differentiable=False, num_outputs=2,
+          aliases=("adagrad_update",))
+def _adagrad_update(weight, grad, history, lr=0.01, epsilon=1e-7, wd=0.0,
+                    rescale_grad=1.0, clip_gradient=-1.0):
+    g = _rescale_clip(grad, rescale_grad, clip_gradient)
+    new_hist = history + torch.square(g)
+    new_w = weight - lr * (g / (torch.sqrt(new_hist) + epsilon) + wd * weight)
+    return new_w, new_hist

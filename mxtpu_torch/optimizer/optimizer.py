@@ -3,7 +3,7 @@
 Counterpart of part of ``mxtpu/optimizer/optimizer.py``: the
 ``Optimizer`` base (``lr``/``wd`` and their per-parameter multipliers,
 an ``lr_scheduler``, ``rescale_grad``, ``clip_gradient``, the update
-counts), ``SGD`` and ``Adam``, the ``Updater`` and ``get_updater``,
+counts), ``SGD``, ``Adam`` and ``AdaGrad``, the ``Updater`` and ``get_updater``,
 ``create`` and ``register``, ``param_dict`` (gluon's Parameters, whose
 ``lr_mult``/``wd_mult`` win) and the Updater's ``get_states``/
 ``set_states``.  Each optimizer's per-parameter ``update``
@@ -11,6 +11,16 @@ runs its update op (``sgd_update``, ``sgd_mom_update``,
 ``adam_update``); its ``fused_update_multi`` does the same arithmetic
 over every parameter at once with ``torch._foreach_*`` (the JAX
 package's one jitted call).
+
+A row-sparse gradient (``RowSparseNDArray``, rows sorted and unique)
+takes the lazy update: SGD (``lazy_update=True``, with or without
+momentum) and AdaGrad read, update and write back only the gradient's
+rows of the weight and its states (``index_select``, ``index_copy_``);
+every other row stays as it was, bit for bit, weight decay included,
+as the reference's ``sgd_update``/``_sparse_adagrad_update`` with a
+row_sparse gradient.  ``fused_update_multi`` declines any tree with a
+sparse gradient, and the Updater then updates one parameter at a time.
+Adam takes a sparse gradient densified.
 
 ``make_scan_step`` gives the whole-tree step that
 ``mxtpu_torch.fused_train.FusedTrainLoop`` runs K times a call: a
@@ -21,8 +31,8 @@ captured CUDA graph reads new rates on every replay), and whose
 Adam's bias correction included, without touching a counter.
 
 Multi-precision is not ported (ROADMAP A10c): ``multi_precision=True``
-with a low-precision weight raises.  The other optimizers and sparse
-gradients are not ported either.
+with a low-precision weight raises.  The other optimizers are not
+ported either.
 """
 from __future__ import annotations
 
@@ -36,8 +46,8 @@ import torch
 from ..base import MXNetError
 from ..ndarray.ndarray import array, imperative_invoke, zeros
 
-__all__ = ["Optimizer", "SGD", "Adam", "ScanStep", "Updater", "get_updater",
-           "create", "register"]
+__all__ = ["Optimizer", "SGD", "Adam", "AdaGrad", "ScanStep", "Updater",
+           "get_updater", "create", "register"]
 
 _LOWP = (torch.float16, torch.bfloat16)
 
@@ -204,6 +214,50 @@ register = Optimizer.register
 create = Optimizer.create_optimizer
 
 
+def _any_sparse(grads) -> bool:
+    return any(g.stype != "default" for g in grads)
+
+
+def _lazy_rows(opt, grad):
+    """(rows, g): a row-sparse gradient's row ids and its rows rescaled
+    and clipped, as the dense ops do."""
+    g = grad._data * opt.rescale_grad
+    if opt.clip_gradient is not None and opt.clip_gradient >= 0:
+        g = torch.clamp(g, -opt.clip_gradient, opt.clip_gradient)
+    return grad._aux[0], g
+
+
+def _write_rows(t, rows, value):
+    with torch.no_grad():
+        t._data.index_copy_(0, rows, value)
+
+
+def _lazy_sgd(opt, weight, grad, mom, lr, wd):
+    """SGD on the gradient's rows only (the JAX package's
+    ``_lazy_sgd_kernel``)."""
+    rows, g = _lazy_rows(opt, grad)
+    wr = weight._data.detach().index_select(0, rows)
+    if mom is None:
+        _write_rows(weight, rows, wr - lr * (g + wd * wr))
+        return
+    mr = mom._data.index_select(0, rows)
+    mr = opt.momentum * mr - lr * (g + wd * wr)
+    _write_rows(weight, rows, wr + mr)
+    _write_rows(mom, rows, mr)
+
+
+def _lazy_adagrad(opt, weight, grad, history, lr, wd):
+    """AdaGrad on the gradient's rows only (the JAX package's
+    ``_lazy_adagrad_kernel``)."""
+    rows, g = _lazy_rows(opt, grad)
+    hr = history._data.index_select(0, rows) + g * g
+    wr = weight._data.detach().index_select(0, rows)
+    _write_rows(weight, rows, wr - lr * (g / (torch.sqrt(hr)
+                                              + opt.float_stable_eps)
+                                         + wd * wr))
+    _write_rows(history, rows, hr)
+
+
 class ScanStep(object):
     """The whole-tree optimizer step of a fused multi-step training loop
     (``mxtpu_torch/fused_train.py``; the JAX package's ``ScanStep``).
@@ -273,6 +327,9 @@ class SGD(Optimizer):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
+        if grad.stype == "row_sparse" and self.lazy_update:
+            _lazy_sgd(self, weight, grad, state, lr, wd)
+            return
         kw = self._common_kwargs()
         if state is None:
             self._apply("sgd_update", weight, grad, (), lr=lr, wd=wd, **kw)
@@ -297,6 +354,8 @@ class SGD(Optimizer):
     def fused_update_multi(self, indices, weights, grads, states) -> bool:
         """The per-parameter arithmetic of ``update``, over every
         parameter in one sequence of ``torch._foreach_*`` calls."""
+        if _any_sparse(grads):
+            return False
         for i in indices:
             self._update_count(i)
         lrs = [self._get_lr(i) for i in indices]
@@ -377,7 +436,7 @@ class Adam(Optimizer):
             torch._foreach_sub_(w, upd)
 
     def fused_update_multi(self, indices, weights, grads, states) -> bool:
-        if self.multi_precision:
+        if self.multi_precision or _any_sparse(grads):
             return False
         for i in indices:
             self._update_count(i)
@@ -418,6 +477,30 @@ class Adam(Optimizer):
             return out
 
         return ScanStep(pack_states, step, host_sched)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad: ``g = clip(rescale * grad)``, ``h += g^2``, ``w -= lr *
+    (g / (sqrt(h) + eps) + wd * w)`` (the ``_sparse_adagrad_update``
+    op; lazily on a row-sparse gradient's rows)."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return zeros(weight.shape, ctx=weight.ctx, dtype=weight.dtype)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        if grad.stype == "row_sparse":
+            _lazy_adagrad(self, weight, grad, state, lr, wd)
+            return
+        self._apply("_sparse_adagrad_update", weight, grad, (state,), lr=lr,
+                    wd=wd, epsilon=self.float_stable_eps,
+                    **self._common_kwargs())
 
 
 class Updater(object):

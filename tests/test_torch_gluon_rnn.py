@@ -113,8 +113,18 @@ def test_embedding_layer_matches_the_reference(hybridize):
 
 
 def test_embedding_layer_sparse_grad_raises():
-    with pytest.raises(MXNetError, match="sparse"):
-        tmx.gluon.nn.Embedding(10, 4, sparse_grad=True)
+    """A row-sparse gradient cannot accumulate (grad_req="add"), as in
+    the reference; a row-sparse weight (stype) is not ported."""
+    layer = tmx.gluon.nn.Embedding(10, 4, sparse_grad=True)
+    layer.initialize(ctx=tmx.cpu())
+    layer.weight.grad_req = "add"
+    layer.weight._init_grad()
+    with tmx.autograd.record():
+        loss = layer(tmx.nd.array([[1.0, 2.0]], ctx=tmx.cpu())).sum()
+    with pytest.raises(MXNetError, match="grad_req='add'"):
+        loss.backward()
+    with pytest.raises(MXNetError, match="A14"):
+        tmx.gluon.Parameter("w", shape=(10, 4), stype="row_sparse")
 
 
 def _word_lm(mx, tied, dropout=0.0):

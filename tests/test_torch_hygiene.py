@@ -77,7 +77,7 @@ def test_importing_gluon_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def test_entry_points_without_a_device_need_a_card(monkeypatch):
+def test_entry_points_without_a_device_need_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ttf.TransformerConfig(vocab=16, d_model=16, n_heads=2,
                                 n_layers=1, d_ff=32, max_len=8,
@@ -102,6 +102,19 @@ def test_entry_points_without_a_device_need_a_card(monkeypatch):
                  lambda: tmx.random.uniform(shape=(2,)),
                  lambda: tmx.mod.Module(net),
                  lambda: net.simple_bind(data=(2, 3), softmax_label=(2,))):
+        with pytest.raises(MXNetError, match="no CUDA device"):
+            call()
+    libsvm = tmp_path / "d.libsvm"
+    libsvm.write_text("1 0:1.5 3:2.0\n0 2:1.0\n")
+    for call in (lambda: tmx.nd.sparse.zeros("row_sparse", (4, 2)),
+                 lambda: tmx.nd.sparse.zeros("csr", (4, 2)),
+                 lambda: tmx.nd.sparse.csr_matrix(
+                     ([1.0], [0], [0, 1]), shape=(1, 4)),
+                 lambda: tmx.nd.sparse.csr_matrix(np.eye(2)),
+                 lambda: tmx.io.LibSVMIter(data_libsvm=str(libsvm),
+                                           data_shape=(4,),
+                                           batch_size=2).next(),
+                 lambda: tmx.kv.create("local")):
         with pytest.raises(MXNetError, match="no CUDA device"):
             call()
     assert context.current_context() == torch.device("cuda", 0)

@@ -225,9 +225,16 @@ def test_embedding_matches_the_reference():
     got.backward(tmx.nd.array(head, ctx=tmx.cpu()))
     assert np.array_equal(got.asnumpy(), np.asarray(out))
     assert _rel(w.grad.asnumpy(), want_grad) <= TOL
-    with pytest.raises(MXNetError, match="sparse"):
-        tmx.nd.Embedding(tmx.nd.array(ids, ctx=tmx.cpu()), w,
-                         input_dim=vocab, output_dim=dim, sparse_grad=True)
+    # sparse_grad: the same output, and the same gradient once densified
+    w.attach_grad(stype="row_sparse")
+    with tmx.autograd.record():
+        got = tmx.nd.Embedding(tmx.nd.array(ids, ctx=tmx.cpu()), w,
+                               input_dim=vocab, output_dim=dim,
+                               sparse_grad=True)
+    got.backward(tmx.nd.array(head, ctx=tmx.cpu()))
+    assert np.array_equal(got.asnumpy(), np.asarray(out))
+    assert w.grad.stype == "row_sparse"
+    assert _rel(w.grad.asnumpy(), want_grad) <= TOL
 
 
 SHAPE_OPS = [
