@@ -209,15 +209,65 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ids a step: ms a step, busy, operations, syncs, peak memory) and one
    sparse step against one dense step (``EMBED_TOL``).  No
    flash-attention kernel may launch on any row.
+10. dist   -- BASELINE config #5's distributed half: the same example's
+   ``main()`` (``--synthesize``, 65,536 rows, 1,000,000 features, batch
+   8,192, ``DIST_EPOCHS`` epochs over each worker's half, AdaGrad lr
+   0.1, on the sparse phase's file) as the two workers of the port's
+   launcher, ``mxtpu_torch/tools/launch.py -n 2 -s 1`` (``LAUNCHER``;
+   this script in its ``--dist-worker`` mode; both workers on the one
+   card, the scheduler and the server CPU processes), once with
+   ``--kvstore dist_async`` (``linear_cls_dist_async``) and once with
+   ``dist_sync`` (``linear_cls_dist_sync``).  Each worker prints ms a
+   batch and examples/s (host clock, the mean over all epochs but the
+   first, with the least, the median and the most), its split
+   (``row_sparse_pull`` and the bias pull, the step on the card, the
+   pushes), the bytes it sent and received a batch (its
+   parameter-server frames, counted by wrapping
+   ``_ps._send_msg``/``_recv_msg`` here), and its ``FINAL_ACCURACY``,
+   which must reach ``DIST_MIN_ACCURACY`` (the example's
+   ``--min-accuracy``).  The server's ops, the waits for its lock and
+   its AdaGrad are timed in its own process (``SERVER_HOOK``, loaded
+   there as ``sitecustomize``).  Checks: once both workers are done,
+   the server's version of each key (the updates it applied) is the
+   number of pushes (``dist_async``) or rounds (``dist_sync``); a
+   weight push's bytes are those of the batch's unique rows (24 bytes a
+   row: two floats and a span), not of 1,000,000; under ``dist_sync``
+   the two workers' final weights are bitwise equal and within
+   ``DIST_REPLAY_TOL`` (relative L2) of a replay on the card in this
+   process: the same lazy AdaGrad applied, round by round, to the sum
+   of the two shards' row-sparse gradients.  The kernels' launches are
+   counted in the workers and in the replay.
+11. mnist  -- BASELINE config #1,
+   ``examples/image-classification/train_mnist.py --network lenet
+   --dummy`` (its imports renamed, ``mx.tpu()``/``num_tpus()`` made
+   ``mx.gpu()``/``num_gpus()``: ``mnist_example``): 6,000 synthetic
+   examples, batch 64, 2 epochs (its default 3) of ``Module.fit``, SGD
+   lr 0.1 momentum 0.9, on the card from ``mx.random.seed(0)``:
+   first ``MNIST_CPU_STEPS`` Module steps on the card against the CPU
+   (``MNIST_CPU_TOL``), then ``mnist_lenet_local`` in this process and
+   ``mnist_lenet_dist_sync`` as two launched workers
+   (``--mnist-worker``) with one server.  Prints ms a batch and
+   images/s (host clock, the last epoch) and the validation accuracy
+   (random labels: about 0.1).  Under ``dist_sync`` the two workers'
+   final parameters must be bitwise equal, the server must have applied
+   one update of each key a batch, rank 0 must start from the local
+   run's parameters, and the final parameters must lie within
+   ``MNIST_DIST_TOL`` of the local run's movement from its final ones:
+   both workers see the same batches, so a round's summed gradient at
+   half the rescale is the local step's.  No flash-attention kernel may
+   launch in either phase (counted in the workers too).
 
 The line before the last is the card's name and power limit, the line
 before that the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
 
-Options (none by default): ``--baseline DIR`` also builds the kernels
-of the checkout DIR (such as the parent commit unpacked by ``git
-archive``) and times each (the forward with and without the LSE, dq,
+Options (none by default): ``--parent DIR`` runs only the sparse and
+lm phases of the checkout DIR (such as the parent commit unpacked by
+``git archive``) and of this one, in turns (DIR, this, this, DIR), each
+in a process of its own, and prints each row's ms, busy ms, device
+operations and syncs side by side; ``--baseline DIR`` also builds the
+kernels of the checkout DIR and times each (the forward with and without the LSE, dq,
 dk/dv) against this one's at the served shape, in turns, on device time,
 after holding both against the plain version; ``--fault-run`` builds
 copies of the sources with planted faults (``MUTANTS``: three in the
@@ -235,6 +285,7 @@ its register split, its ring depth and its item order), in turns, on
 device time.
 """
 import argparse
+import atexit
 import contextlib
 import copy
 import dataclasses
@@ -254,8 +305,12 @@ import types
 import warnings
 from pathlib import Path
 
-import numpy as np
-import torch
+# the wall clock when this process began its imports: a launched
+# worker's start-up is read against it
+T_IMPORT = time.time()
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 # peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -3273,6 +3328,26 @@ EXAMPLE = Path(__file__).resolve().parent / "examples" / "sparse" / \
     "linear_classification.py"
 
 
+_SPARSE_DATA = {}
+
+
+def sparse_data(ex):
+    """(directory, path, seconds): the example's ``synthesize()`` at
+    SPARSE_DATA_ROWS x SPARSE_FEATURES (seed 0), written once a run
+    under the name the example's ``main()`` looks for in
+    ``MXTPU_DATA_DIR``, so that the dist phase's workers read the sparse
+    phase's file; removed when the run ends."""
+    if not _SPARSE_DATA:
+        d = tempfile.mkdtemp(prefix="chip_smoke_data_")
+        atexit.register(shutil.rmtree, d, True)
+        path = os.path.join(d, "avazu_synth_%d.libsvm" % SPARSE_FEATURES)
+        t0 = time.monotonic()
+        ex.synthesize(path, num_rows=SPARSE_DATA_ROWS,
+                      num_features=SPARSE_FEATURES)
+        _SPARSE_DATA.update(dir=d, path=path, s=time.monotonic() - t0)
+    return _SPARSE_DATA["dir"], _SPARSE_DATA["path"], _SPARSE_DATA["s"]
+
+
 def linear_example():
     """examples/sparse/linear_classification.py as a module whose
     imports of the JAX package name mxtpu_torch: its ``synthesize``,
@@ -3826,10 +3901,7 @@ def phase_sparse():
     t0 = time.monotonic()
     ex = linear_example()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sparse_") as tmp:
-        path = str(Path(tmp) / "avazu_synth.libsvm")
-        t1 = time.monotonic()
-        ex.synthesize(path, num_rows=SPARSE_DATA_ROWS,
-                      num_features=SPARSE_FEATURES)
+        _, path, synth_s = sparse_data(ex)
         t2 = time.monotonic()
         it = mx.io.LibSVMIter(data_libsvm=path,
                               data_shape=(SPARSE_FEATURES,),
@@ -3837,7 +3909,7 @@ def phase_sparse():
         log("[sparse] data: the example's synthesize() at %d rows x %d "
             "features (seed 0, 20 power-law draws a row) in %.1f s; "
             "LibSVMIter parsed it in %.1f s"
-            % (SPARSE_DATA_ROWS, SPARSE_FEATURES, t2 - t1,
+            % (SPARSE_DATA_ROWS, SPARSE_FEATURES, synth_s,
                time.monotonic() - t2))
         rows = {}
         for name, optimizer, lr, kvstore in SPARSE_ROWS:
@@ -3849,6 +3921,907 @@ def phase_sparse():
     rows.update(embedding_rows())
     log("[sparse] the phase took %.1f s" % (time.monotonic() - t0))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# dist: BASELINE config #5 over the parameter server; mnist: config #1
+# ---------------------------------------------------------------------------
+
+REPO_ROOT = Path(__file__).resolve().parent
+# the launched workers run this script again, in a worker mode
+WORKER_CMD = [sys.executable, str(Path(__file__).resolve())]
+# ``python -m mxtpu_torch.tools.launch``'s module, run by its path: the
+# launcher needs only the standard library, and ``-m`` would import the
+# package, and with it torch, first (7.2 s for ``import torch`` alone on
+# an NVIDIA H100 80GB HBM3, 700.00 W machine)
+LAUNCHER = REPO_ROOT / "mxtpu_torch" / "tools" / "launch.py"
+DIST_ROWS = (("linear_cls_dist_async", "dist_async"),
+             ("linear_cls_dist_sync", "dist_sync"))
+DIST_WORKERS = 2
+# epochs over each worker's shard of the sparse phase's 65,536 rows: 4
+# batches an epoch, 20 in all; the times are those of the last 4 epochs
+# (6 epochs took the phase to 55.5 s on an NVIDIA H100 80GB HBM3,
+# 700.00 W machine, near its 60)
+DIST_EPOCHS = 5
+# the example's --min-accuracy for the workers.  At DIST_EPOCHS a CPU
+# rehearsal of the phase read 0.797 on every worker (at 6 epochs,
+# 0.847-0.854 there and on the H100 machine, async and sync alike); a
+# server that applies no push leaves the weight at its initial values,
+# at about the labels' majority class (0.505), and 2 epochs read
+# 0.543-0.545 (the example rescales by 1 / (batch x workers), which
+# leaves AdaGrad's steps small).  That the server applied every push
+# is checked by its versions too.
+DIST_MIN_ACCURACY = 0.75
+# the sync workers' final weight against the replay on the card: the
+# server's dense AdaGrad on the CPU against the card's lazy one
+DIST_REPLAY_TOL = 1e-5
+DIST_LAUNCH_TIMEOUT = 150   # seconds, the launcher's --timeout
+# a weight push: its value (two float32 a row) and its span (two int64)
+DIST_ROW_BYTES = 2 * 4 + 2 * 8
+DIST_FRAME_SLACK = 1024     # the frames' headers, a push's reply
+MNIST_EXAMPLE = REPO_ROOT / "examples" / "image-classification" / \
+    "train_mnist.py"
+# 6,000 examples, batch 64; 2 epochs (the example's default is 3) keep
+# the phase's launch under its time
+MNIST_ARGS = ["--network", "lenet", "--dummy", "--num-epochs", "2"]
+MNIST_BATCH = 64
+MNIST_CPU_STEPS = 4
+MNIST_CPU_TOL = 1e-4        # relative L2, the card's steps against the CPU's
+# relative to the local run's movement (L2 from its initial to its
+# final parameters): the dist_sync run's distance from the local run's
+# final parameters (a server that applied nothing reads 1)
+MNIST_DIST_TOL = 0.05
+
+
+# written as ``sitecustomize.py`` into a directory put first on the
+# launched processes' PYTHONPATH, so that the interpreter loads it at
+# start-up in each of them; in the server role it times the server's
+# ops (their nesting joined by "/"), the waits for its lock and its
+# replies, and writes them when the role ends
+SERVER_HOOK = '''\
+import os
+import sys
+
+# load the interpreter's own sitecustomize, if it has one, as well
+_here = os.path.dirname(os.path.abspath(__file__))
+_me = sys.modules.pop("sitecustomize")
+_path = list(sys.path)
+sys.path[:] = [p for p in sys.path
+               if os.path.abspath(p or os.curdir) != _here]
+try:
+    import sitecustomize  # noqa: F401
+except ImportError:
+    pass
+finally:
+    sys.path[:] = _path
+    sys.modules["sitecustomize"] = _me
+
+
+def _install(path):
+    import json
+    import threading
+    import time
+
+    from mxtpu_torch import _ps
+
+    stats, local = {}, threading.local()
+
+    def note(name, t0):
+        stats.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+
+    def stack():
+        return local.__dict__.setdefault("stack", [])
+
+    class TimedLock(object):
+        """The server's lock, timing each wait to take it (not the
+        waits of its condition variable, which the ops' times hold)."""
+
+        def __init__(self):
+            self._lock = threading.Lock()
+
+        def acquire(self, blocking=True, timeout=-1):
+            t0 = time.perf_counter()
+            ok = self._lock.acquire(blocking, timeout)
+            if blocking:
+                note("/".join(stack()) + " lock wait", t0)
+            return ok
+
+        __enter__ = acquire
+
+        def __exit__(self, *exc):
+            self._lock.release()
+
+        def release(self):
+            self._lock.release()
+
+        def _is_owned(self):
+            return self._lock.locked()
+
+        def _release_save(self):
+            self._lock.release()
+
+        def _acquire_restore(self, state):
+            self._lock.acquire()
+
+    init = _ps.Server.__init__
+
+    def server_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self._lock = TimedLock()
+        self._cv = threading.Condition(self._lock)
+
+    _ps.Server.__init__ = server_init
+
+    def timed(name, fn):
+        def wrapper(self, *args, **kwargs):
+            stack().append(name)
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                note("/".join(stack()), t0)
+                stack().pop()
+                local.last = name
+        return wrapper
+
+    for name in ("_push", "_push_rows", "_pull", "_pull_rows", "_apply",
+                 "_wait_version_locked"):
+        setattr(_ps.Server, name,
+                timed(name.lstrip("_"), getattr(_ps.Server, name)))
+    send = _ps._send_msg
+
+    def send_msg(sock, obj):
+        op, local.last = getattr(local, "last", None), None
+        t0 = time.perf_counter()
+        try:
+            return send(sock, obj)
+        finally:
+            if op is not None:
+                note(op + " reply", t0)
+
+    _ps._send_msg = send_msg
+    run = _ps.run_server
+
+    def run_server(*args, **kwargs):
+        try:
+            return run(*args, **kwargs)
+        finally:
+            with open("%s.%d" % (path, os.getpid()), "w") as f:
+                json.dump({k: list(v) for k, v in list(stats.items())}, f)
+
+    _ps.run_server = run_server
+
+
+if os.environ.get("MXTPU_ROLE") == "server" and \\
+        os.environ.get("CHIP_SMOKE_SERVER_STATS"):
+    _install(os.environ["CHIP_SMOKE_SERVER_STATS"])
+'''
+
+
+def launch_job(tag, worker_args, env_extra):
+    """The port's launcher, ``-n 2 -s 1``, running this script with
+    ``worker_args`` as each worker, its server timed by SERVER_HOOK:
+    (its stdout, its seconds, the wall clock when it began, the
+    server's times: {name: [ms]}).  Fails the run if the launch fails
+    or outlives its time, or the server wrote no times."""
+    cmd = [sys.executable, str(LAUNCHER), "-n", str(DIST_WORKERS), "-s",
+           "1", "--timeout", str(DIST_LAUNCH_TIMEOUT)] + WORKER_CMD + \
+        worker_args
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hook_") as hook:
+        Path(hook, "sitecustomize.py").write_text(SERVER_HOOK)
+        stats = os.path.join(hook, "server")
+        env = dict(os.environ, CHIP_SMOKE_SERVER_STATS=stats, **env_extra)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (hook, str(REPO_ROOT), os.environ.get("PYTHONPATH"))
+            if p)
+        for name in ("MXTPU_ROLE", "DMLC_ROLE"):
+            env.pop(name, None)
+        t0, began = time.monotonic(), time.time()
+        proc = subprocess.Popen(cmd, cwd=str(REPO_ROOT), env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=DIST_LAUNCH_TIMEOUT + 30)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            out, err = proc.communicate()
+            fail("%s: the launch outlived %d s: %s"
+                 % (tag, DIST_LAUNCH_TIMEOUT + 30, (out + err)[-3000:]))
+        if proc.returncode != 0:
+            fail("%s: the launch exited %d: %s"
+                 % (tag, proc.returncode, (out + err)[-3000:]))
+        wall = time.monotonic() - t0
+        files = [f for f in os.listdir(hook) if f.startswith("server.")]
+        if len(files) != 1:
+            fail("%s: %d servers wrote their times, not 1: %s"
+                 % (tag, len(files), err[-2000:]))
+        with open(os.path.join(hook, files[0])) as f:
+            server = json.load(f)
+    return out, wall, began, server
+
+
+def server_summary(server):
+    """{name: (count, mean ms, median ms, max ms)} of the server's times."""
+    return {k: (len(v), float(np.mean(v)), float(np.median(v)),
+                float(np.max(v))) for k, v in sorted(server.items())}
+
+
+def log_server(phase, row, server):
+    log("[%s] %s: the server's times (in its process; count, mean, "
+        "median, max ms; nested ops joined by /): %s"
+        % (phase, row, "; ".join(
+            "%s %d, %.3f, %.3f, %.3f" % ((k,) + v)
+            for k, v in server_summary(server).items())))
+
+
+def server_versions(kv):
+    """{key: [the server's version of each of its chunks]}: how many
+    updates the server applied to each key of the store ``kv``."""
+    w = kv._worker
+    out = {}
+    for key, (shape, _) in w._meta_shape.items():
+        size = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        out[str(key)] = [
+            w._server_request(sidx, {"op": "version", "key": sub})["version"]
+            for sidx, sub, _, _ in w._chunks(key, size)]
+    return out
+
+
+def _count_wire():
+    """Wrap the parameter server's frame send and receive so that they
+    count the bytes this process's main thread moves (the heartbeat
+    thread's are left out); returns the counts."""
+    from mxtpu_torch import _ps
+
+    counts = {"sent": 0, "recv": 0}
+    main_thread = threading.main_thread()
+
+    class Counted(object):
+        def __init__(self, sock):
+            self.sock = sock
+
+        def sendall(self, data):
+            counts["sent"] += len(data)
+            self.sock.sendall(data)
+
+        def recv(self, n):
+            data = self.sock.recv(n)
+            counts["recv"] += len(data)
+            return data
+
+    send, recv = _ps._send_msg, _ps._recv_msg
+
+    def counted_send(sock, obj):
+        mine = threading.current_thread() is main_thread
+        return send(Counted(sock) if mine else sock, obj)
+
+    def counted_recv(sock):
+        mine = threading.current_thread() is main_thread
+        return recv(Counted(sock) if mine else sock)
+
+    _ps._send_msg, _ps._recv_msg = counted_send, counted_recv
+    return counts
+
+
+def dist_worker(mode, out_dir):
+    """One worker of the dist phase: the example's ``main()`` over the
+    store ``mode``, its store timed and its frames counted; writes
+    ``worker<rank>.json`` and the final pulled weight and bias."""
+    counts = _count_wire()
+    ex = linear_example()
+    stores = []
+
+    class TimedStore(mx.kv.KVStoreDist):
+        """The example's store, timing each call of a batch (a sync
+        before each push, so the step on the card is the step's)."""
+
+        def __init__(self, name):
+            super().__init__(name)
+            self.batches, self.full_pulls, self.final = [], [], {}
+            self.cur, self.eval_pull = None, False
+            stores.append(self)
+
+        def _mark(self):
+            return time.monotonic(), counts["sent"], counts["recv"]
+
+        def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
+            t0 = self._mark()
+            super().row_sparse_pull(key, out=out, row_ids=row_ids)
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            if row_ids.shape[0] == out.shape[0]:  # the evaluation's pull
+                self.full_pulls.append((t1 - t0[0]) * 1e3)
+                self.final["weight"] = out.asnumpy()
+                self.eval_pull = True
+                return
+            self.cur = {"start": t0, "pull_ms": (t1 - t0[0]) * 1e3}
+
+        def pull(self, key, out=None, priority=0, ignore_sparse=True):
+            t0 = time.monotonic()
+            super().pull(key, out=out)
+            torch.cuda.synchronize()
+            if self.eval_pull:
+                self.final[key] = out.asnumpy()
+                self.eval_pull = False
+                return
+            self.cur["pull_ms"] += (time.monotonic() - t0) * 1e3
+            self.cur["pulled"] = time.monotonic()
+
+        def push(self, key, value, priority=0):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            sent = counts["sent"]
+            if key == "weight":
+                self.cur["step_ms"] = (t0 - self.cur["pulled"]) * 1e3
+                self.cur["push_ms"] = 0.0
+                self.cur["unique_rows"] = int(value.indices.shape[0])
+            super().push(key, value)
+            self.cur["push_ms"] += (time.monotonic() - t0) * 1e3
+            if key == "weight":
+                self.cur["weight_push_bytes"] = counts["sent"] - sent
+            else:
+                start, s0, r0 = self.cur.pop("start")
+                self.cur.update(start=start,
+                                ms=(time.monotonic() - start) * 1e3,
+                                sent=counts["sent"] - s0,
+                                recv=counts["recv"] - r0)
+                self.cur.pop("pulled")
+                self.batches.append(self.cur)
+                self.cur = None
+
+        def close(self):
+            # once every worker is here, all pushes are in (each is
+            # acknowledged after the server applied or counted it)
+            self.barrier()
+            self.versions = server_versions(self)
+            super().close()
+
+    marks = {"import": T_IMPORT, "worker": time.time()}
+
+    def store(name, ctx=None):
+        kv = TimedStore(name)
+        marks["store"] = time.time()
+        return kv
+
+    def data_iter(*args, **kwargs):
+        it = mx.io.LibSVMIter(*args, **kwargs)
+        marks["data"] = time.time()
+        return it
+
+    mx.kv.create = store
+    ex.LibSVMIter = data_iter
+    sys.argv = ["linear_classification.py", "--synthesize", "--num-epoch",
+                str(DIST_EPOCHS), "--num-rows", str(SPARSE_DATA_ROWS),
+                "--num-features", str(SPARSE_FEATURES), "--batch-size",
+                str(SPARSE_BATCH), "--kvstore", mode, "--optimizer",
+                "adagrad", "--lr", "0.1", "--min-accuracy",
+                str(DIST_MIN_ACCURACY)]
+    out = io.StringIO()
+    code = 0
+    zero_launches()
+    t0 = time.monotonic()
+    try:
+        with contextlib.redirect_stdout(out):
+            ex.main()
+    except SystemExit as e:
+        code = e.code
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    print(out.getvalue(), end="", flush=True)
+    kv = stores[0]
+    m = re.search(r"FINAL_ACCURACY ([0-9.]+)", out.getvalue())
+    rank = kv.rank
+    np.save(os.path.join(out_dir, "weight%d.npy" % rank),
+            kv.final["weight"])
+    np.save(os.path.join(out_dir, "bias%d.npy" % rank), kv.final["bias"])
+    marks["end"] = time.time()
+    with open(os.path.join(out_dir, "worker%d.json" % rank), "w") as f:
+        json.dump({"rank": rank, "batches": kv.batches, "marks": marks,
+                   "full_pull_ms": kv.full_pulls, "wall_s": wall,
+                   "accuracy": float(m.group(1)) if m else None,
+                   "versions": kv.versions, "launches": launches,
+                   "exit": code}, f)
+    if code:
+        sys.exit(code)
+
+
+def dist_replay(ex, path, rounds):
+    """The sync job on the card in this process: from the example's
+    initial weight, each round the two shards' batches' row-sparse
+    gradients at the current weight, summed, then the lazy AdaGrad of
+    the server's optimizer (``rescale_grad`` 1 / (batch x workers));
+    returns (weight, bias)."""
+    its = [mx.io.LibSVMIter(data_libsvm=path, data_shape=(SPARSE_FEATURES,),
+                            batch_size=SPARSE_BATCH,
+                            num_parts=DIST_WORKERS, part_index=k)
+           for k in range(DIST_WORKERS)]
+    rng = np.random.RandomState(1)
+    weight = mx.nd.array(rng.normal(0, 0.01, (SPARSE_FEATURES, 2))
+                         .astype(np.float32))
+    bias = mx.nd.array(np.zeros((2,), np.float32))
+    weight.attach_grad(stype="row_sparse")
+    bias.attach_grad()
+    opt = mx.optimizer.create("adagrad", learning_rate=0.1,
+                              rescale_grad=1.0 / SPARSE_BATCH
+                              / DIST_WORKERS)
+    updater = mx.optimizer.get_updater(opt)
+    done = 0
+    for _ in range(DIST_EPOCHS):
+        for it in its:
+            it.reset()
+        for batches in zip(*its):
+            wgrads, bgrads = [], []
+            for batch in batches:
+                with mx.autograd.record():
+                    loss = ex.loss_fn(ex.forward(batch, weight, bias),
+                                      batch.label[0], 2.0)
+                loss.backward()
+                wgrads.append(weight.grad.copy())
+                bgrads.append(bias.grad.copy())
+            updater(0, mx.nd.sparse.add(wgrads[0], wgrads[1]), weight)
+            updater(1, bgrads[0] + bgrads[1], bias)
+            done += 1
+    if done != rounds:
+        fail("dist: the replay made %d rounds, the workers %d"
+             % (done, rounds))
+    return weight.asnumpy(), bias.asnumpy()
+
+
+def dist_row(name, mode, tmp, data_dir, path):
+    """One launch of the dist phase: each worker's times, bytes and
+    accuracy; the server's times, taken in its process; the checks;
+    the kernels' launches in the workers (and in this process's
+    replay)."""
+    out_dir = Path(tmp) / mode
+    out_dir.mkdir()
+    stdout, wall, began, server = launch_job(
+        name, ["--dist-worker", mode, "--out", str(out_dir)],
+        {"MXTPU_DATA_DIR": data_dir})
+    workers = []
+    for k in range(DIST_WORKERS):
+        with open(out_dir / ("worker%d.json" % k)) as f:
+            workers.append(json.load(f))
+    if stdout.count("FINAL_ACCURACY") != DIST_WORKERS:
+        fail("%s: %d FINAL_ACCURACY lines, not %d: %s"
+             % (name, stdout.count("FINAL_ACCURACY"), DIST_WORKERS,
+                stdout[-1000:]))
+    per_epoch = SPARSE_DATA_ROWS // SPARSE_BATCH // DIST_WORKERS
+    # every push applied: async, each worker's; sync, one a round
+    want = per_epoch * DIST_EPOCHS * (DIST_WORKERS if mode == "dist_async"
+                                      else 1)
+    srv = server_summary(server)
+
+    def srv_mean(k):
+        return srv[k][1] if k in srv else 0.0
+
+    def srv_total(k):
+        return srv[k][0] * srv[k][1] if k in srv else 0.0
+
+    # the server's handling of a weight push, means a push: the wait for
+    # its lock to read the stored chunk, the dense expansion, the wait
+    # for the lock to sum or apply, AdaGrad on CPU tensors (under sync,
+    # one push in two applies); its two connections' threads share the
+    # interpreter's lock, whose waits these times hold
+    pushes = srv["push_rows"][0]
+    weight_push = dict(
+        ms=srv_mean("push_rows"),
+        first_lock_wait=srv_mean("push_rows lock wait"),
+        expansion=srv_mean("push_rows") - srv_mean("push_rows/push")
+        - srv_mean("push_rows lock wait"),
+        lock_wait=srv_mean("push_rows/push lock wait"),
+        apply=srv_total("push_rows/push/apply") / pushes,
+        apply_each=srv_mean("push_rows/push/apply"))
+    rows = []
+    for w in workers:
+        b = w["batches"]
+        if len(b) != DIST_EPOCHS * per_epoch:
+            fail("%s: worker %d made %d batches" % (name, w["rank"], len(b)))
+        window = b[per_epoch:]   # all but the first epoch
+        # a batch from its pull to the next batch's of its epoch
+        # (LibSVMIter.next in between; not the epoch's evaluation)
+        gaps = [(window[i + 1]["start"] - window[i]["start"]) * 1e3
+                for i in range(len(window) - 1) if (i + 1) % per_epoch]
+        mean = {k: float(np.mean([x[k] for x in window]))
+                for k in ("pull_ms", "step_ms", "push_ms", "sent", "recv")}
+        mean["ms"] = float(np.mean(gaps))
+        spread = (min(gaps), float(np.median(gaps)), max(gaps))
+        if w["accuracy"] is None or w["accuracy"] < DIST_MIN_ACCURACY:
+            fail("%s: worker %d's accuracy %s is below %s"
+                 % (name, w["rank"], w["accuracy"], DIST_MIN_ACCURACY))
+        for key, versions in sorted(w["versions"].items()):
+            if versions != [want]:
+                fail("%s: the server applied %s updates of %r, not %d"
+                     % (name, versions, key, want))
+        for x in b:
+            need = x["unique_rows"] * DIST_ROW_BYTES
+            if not need <= x["weight_push_bytes"] <= need + DIST_FRAME_SLACK:
+                fail("%s: a weight push of %d unique rows sent %d bytes, "
+                     "not %d-%d" % (name, x["unique_rows"],
+                                    x["weight_push_bytes"], need,
+                                    need + DIST_FRAME_SLACK))
+        log("[dist] %s worker %d (%d features, batch %d, its shard of %d "
+            "rows, %d epochs, AdaGrad lr 0.1, 2 workers and 1 server): "
+            "%.3f ms a batch (host clock, from a batch's pull to the "
+            "next's in its epoch: the mean of epochs 2-%d's %d; min %.1f, "
+            "median %.1f, max %.1f; from its pull to its last push, all "
+            "%s), %.1f examples/s; means over epochs 2-%d: "
+            "row_sparse_pull and bias pull %.3f ms, the step on the card "
+            "%.3f, the two pushes %.3f; %.0f bytes sent and %.0f received "
+            "a batch; weight pushes of %s unique rows sent %s bytes (%d a "
+            "row and the frame; a dense push would send %d); the "
+            "evaluations' full pulls %s ms; FINAL_ACCURACY %.4f "
+            "(--min-accuracy %s); the server's versions %s (%d expected); "
+            "the worker's main() took %.1f s"
+            % (name, w["rank"], SPARSE_FEATURES, SPARSE_BATCH,
+               SPARSE_DATA_ROWS // DIST_WORKERS, DIST_EPOCHS, mean["ms"],
+               DIST_EPOCHS, len(gaps), spread[0], spread[1], spread[2],
+               " ".join("%.1f" % x["ms"] for x in b),
+               SPARSE_BATCH / mean["ms"] * 1e3, DIST_EPOCHS,
+               mean["pull_ms"], mean["step_ms"], mean["push_ms"],
+               mean["sent"], mean["recv"],
+               "/".join(str(x["unique_rows"]) for x in b),
+               "/".join(str(x["weight_push_bytes"]) for x in b),
+               DIST_ROW_BYTES, SPARSE_FEATURES * 8,
+               " ".join("%.1f" % t for t in w["full_pull_ms"]),
+               w["accuracy"], DIST_MIN_ACCURACY, w["versions"], want,
+               w["wall_s"]))
+        mk = w["marks"]
+        first = b[0]
+        log("[dist] %s worker %d: start-up from the launch (wall clock): "
+            "its imports begin at %.1f s, its worker code at %.1f, the "
+            "store joins the job at %.1f, LibSVMIter has its shard at %.1f, "
+            "its main() ends at %.1f; the first batch %.1f ms (pulls "
+            "%.1f, step %.1f, pushes %.1f)"
+            % (name, w["rank"], mk["import"] - began,
+               mk["worker"] - began, mk["store"] - began,
+               mk["data"] - began, mk["end"] - began, first["ms"],
+               first["pull_ms"], first["step_ms"], first["push_ms"]))
+        rows.append(dict(rank=w["rank"], accuracy=w["accuracy"],
+                         examples_per_sec=SPARSE_BATCH / mean["ms"] * 1e3,
+                         ms_min_median_max=spread, **mean))
+    log_server("dist", name, server)
+    log("[dist] %s: the server's handling of a weight push (means of "
+        "%d): %.3f ms, of which the wait for its lock to read the chunk "
+        "%.3f, the dense expansion %.3f, the wait for its lock to sum or "
+        "apply %.3f, AdaGrad on CPU tensors of %d x 2 %.3f (%.3f an "
+        "update); of a row_sparse_pull %.3f ms (the wait for its round "
+        "%.3f, the reply %.3f more), of a bias push %.3f, a bias pull %.3f"
+        % (name, pushes, weight_push["ms"], weight_push["first_lock_wait"],
+           weight_push["expansion"], weight_push["lock_wait"],
+           SPARSE_FEATURES, weight_push["apply"], weight_push["apply_each"],
+           srv_mean("pull_rows"), srv_mean("pull_rows/wait_version_locked"),
+           srv_mean("pull_rows reply"), srv_mean("push"), srv_mean("pull")))
+    weights = [np.load(out_dir / ("weight%d.npy" % k))
+               for k in range(DIST_WORKERS)]
+    biases = [np.load(out_dir / ("bias%d.npy" % k))
+              for k in range(DIST_WORKERS)]
+    result = dict(workers=rows, launch_s=wall, server_weight_push=weight_push,
+                  server_pull_rows_ms=srv_mean("pull_rows"))
+    zero_launches()
+    if mode == "dist_sync":
+        for k in range(1, DIST_WORKERS):
+            if not (np.array_equal(weights[k], weights[0])
+                    and np.array_equal(biases[k], biases[0])):
+                fail("%s: the workers' final weights differ" % name)
+        ex = linear_example()
+        rw, rb = dist_replay(ex, path, len(workers[0]["batches"]))
+        err = float(np.linalg.norm(weights[0] - rw) / np.linalg.norm(rw))
+        berr = float(np.linalg.norm(biases[0] - rb)
+                     / max(np.linalg.norm(rb), 1e-30))
+        moved = float(np.linalg.norm(rw - np.random.RandomState(1).normal(
+            0, 0.01, (SPARSE_FEATURES, 2)).astype(np.float32)))
+        log("[dist] %s: the two workers' final weight and bias are bitwise "
+            "equal; against the replay on the card (the lazy AdaGrad on "
+            "the sum of the two shards' row-sparse gradients, %d rounds): "
+            "relative L2 %.3g on the weight, %.3g on the bias (at most "
+            "%g); the replay moved the weight by %.4f (L2)"
+            % (name, len(workers[0]["batches"]), err, berr,
+               DIST_REPLAY_TOL, moved))
+        if not (err <= DIST_REPLAY_TOL and berr <= DIST_REPLAY_TOL):
+            fail("%s: the sync weights are %.3g / %.3g from the replay"
+                 % (name, err, berr))
+        if not moved > 0:
+            fail("%s: the replay did not move the weight" % name)
+        result.update(replay_rel_l2=err)
+    here = read_launches()
+    launches = {k: here[k] + sum(w["launches"][k] for w in workers)
+                for k in here}
+    result["launches"] = launches
+    if any(launches.values()):
+        fail("%s: a flash-attention kernel launched: %s" % (name, launches))
+    log("[dist] %s: the launch took %.1f s (4 processes: scheduler, "
+        "server, 2 workers); flash-attention launches in the workers and "
+        "the replay: %s" % (name, wall, launches))
+    return result
+
+
+def phase_dist():
+    """BASELINE config #5 over the parameter server: the two rows, on
+    the sparse phase's data (made here if this phase runs alone)."""
+    t0 = time.monotonic()
+    rows = {}
+    data_dir, path, _ = sparse_data(linear_example())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        for name, mode in DIST_ROWS:
+            rows[name] = dist_row(name, mode, tmp, data_dir, path)
+    log("[dist] the phase took %.1f s" % (time.monotonic() - t0))
+    return rows
+
+
+def mnist_example():
+    """examples/image-classification/train_mnist.py as a module of the
+    port: its imports (the indented one too) name mxtpu_torch, and its
+    ``mx.tpu()``/``mx.num_tpus()`` are ``mx.gpu()``/``mx.num_gpus()``."""
+    src, n = re.subn(r"^(\s*)(import|from) mxtpu\b", r"\1\2 mxtpu_torch",
+                     MNIST_EXAMPLE.read_text(), flags=re.M)
+    src, m = re.subn(r"\bmx\.(tpu|num_tpus)\(",
+                     lambda g: "mx.%s(" % {"tpu": "gpu",
+                                           "num_tpus": "num_gpus"}[
+                                               g.group(1)], src)
+    if (n, m) != (4, 2):
+        fail("mnist: %s has %d imports of the JAX package and %d TPU "
+             "calls, not 4 and 2" % (MNIST_EXAMPLE, n, m))
+    mod = types.ModuleType("train_mnist_port")
+    mod.__file__ = str(MNIST_EXAMPLE)
+    exec(compile(src, str(MNIST_EXAMPLE), "exec"), mod.__dict__)
+    return mod
+
+
+def run_mnist(kvstore):
+    """The example's ``main()`` with ``--kv-store kvstore``, its Module
+    stamping each batch's end, from ``mx.random.seed(0)`` (the
+    initializer's draws); returns ms a batch over the last epoch, its
+    batches, the validation accuracy, the parameters after
+    ``init_params`` and at the end, the kernels' launches, and, for a
+    distributed store, the worker's rank and the server's versions of
+    each key (read once every worker is done; the store then closed)."""
+    ex = mnist_example()
+    mods = []
+
+    class StampedModule(mx.mod.Module):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.stamps, self.scores, self.initial = [], [], None
+            mods.append(self)
+
+        def init_params(self, *args, **kwargs):
+            super().init_params(*args, **kwargs)
+            if self.initial is None:
+                self.initial = {k: v.asnumpy()
+                                for k, v in self.get_params()[0].items()}
+
+        def fit(self, *args, batch_end_callback=None, **kwargs):
+            cbs = list(batch_end_callback) \
+                if isinstance(batch_end_callback, (list, tuple)) \
+                else [batch_end_callback] if batch_end_callback else []
+
+            def stamp(param):
+                self.stamps.append((param.epoch, time.monotonic()))
+
+            return super().fit(*args, batch_end_callback=cbs + [stamp],
+                               **kwargs)
+
+        def score(self, *args, **kwargs):
+            res = super().score(*args, **kwargs)
+            self.scores.append(res)
+            return res
+
+    saved = sys.argv, mx.mod.Module, logging.getLogger().level
+    sys.argv = ["train_mnist.py"] + MNIST_ARGS + ["--kv-store", kvstore]
+    mx.mod.Module = StampedModule
+    mx.random.seed(0)
+    zero_launches()
+    try:
+        code = ex.main()
+    finally:
+        sys.argv, mx.mod.Module = saved[0], saved[1]
+        logging.getLogger().setLevel(saved[2])
+    launches = read_launches()
+    if code != 0:
+        fail("mnist (%s): the example returned %s" % (kvstore, code))
+    mod = mods[0]
+    last = max(e for e, _ in mod.stamps)
+    ts = [t for e, t in mod.stamps if e == last]
+    params = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    run = dict(ms=(ts[-1] - ts[0]) / (len(ts) - 1) * 1e3, batches=len(ts),
+               updates=len(mod.stamps), accuracy=mod.scores[-1][0][1],
+               params=params, initial=mod.initial, launches=launches,
+               rank=0)
+    if mod._kvstore is not None and "dist" in mod._kvstore.type:
+        kv = mod._kvstore
+        run["rank"] = kv.rank
+        kv.barrier()
+        run["versions"] = server_versions(kv)
+        kv.close()
+    return run
+
+
+def mnist_worker(kvstore, out_dir):
+    """One worker of the mnist phase's launch: writes its numbers and
+    its initial and final parameters."""
+    run = run_mnist(kvstore)
+    params, initial = run.pop("params"), run.pop("initial")
+    np.savez(os.path.join(out_dir, "params%d.npz" % run["rank"]), **params)
+    np.savez(os.path.join(out_dir, "initial%d.npz" % run["rank"]),
+             **initial)
+    with open(os.path.join(out_dir, "worker%d.json" % run["rank"]),
+              "w") as f:
+        json.dump(run, f)
+
+
+def mnist_cpu_check():
+    """MNIST_CPU_STEPS steps of the example's LeNet through ``Module``
+    (``forward_backward``, ``update``: SGD lr 0.1 momentum 0.9) on the
+    card and on the CPU from the same parameters and batches (the
+    example's synthetic data); the parameters' relative L2 distance,
+    the worst array's, and the steps' movement."""
+    ex = mnist_example()
+    rng = np.random.RandomState(42)
+    n = MNIST_CPU_STEPS * MNIST_BATCH
+    x = rng.rand(n, 1, 28, 28).astype(np.float32)
+    y = rng.randint(0, 10, n).astype(np.float32)
+    out, start = {}, None
+    for where, ctx in (("card", mx.gpu()), ("cpu", mx.cpu())):
+        it = mx.io.NDArrayIter(x, y, MNIST_BATCH, label_name="softmax_label")
+        mod = mx.mod.Module(ex.lenet_symbol(), context=[ctx])
+        mod.bind(data_shapes=it.provide_data,
+                 label_shapes=it.provide_label)
+        if start is None:
+            mx.random.seed(0)
+            mod.init_params(mx.init.Uniform(0.01))
+            start = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        else:
+            mod.set_params({k: mx.nd.array(v, ctx=ctx)
+                            for k, v in start.items()}, {})
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.1, "momentum": 0.9})
+        for batch in it:
+            mod.forward_backward(batch)
+            mod.update()
+        out[where] = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    card, cpu = out["card"], out["cpu"]
+    per = {k: float(np.linalg.norm(card[k] - cpu[k])
+                    / np.linalg.norm(cpu[k])) for k in cpu}
+    flat = [np.concatenate([d[k].ravel() for k in sorted(d)])
+            for d in (card, cpu, start)]
+    return (float(np.linalg.norm(flat[0] - flat[1])
+                  / np.linalg.norm(flat[1])), per,
+            float(np.linalg.norm(flat[1] - flat[2])
+                  / np.linalg.norm(flat[2])))
+
+
+def phase_mnist():
+    """BASELINE config #1: LeNet through ``Module`` on the card against
+    the CPU, then ``Module.fit`` local on the card in this process, then
+    ``dist_sync`` over two launched workers and one server, held to the
+    local run."""
+    t0 = time.monotonic()
+    rows = {}
+    err, per, step_moved = mnist_cpu_check()
+    worst = max(per, key=per.get)
+    log("[mnist] %d steps of LeNet through Module (SGD lr 0.1 momentum "
+        "0.9, batch %d) on the card against the CPU from the same "
+        "parameters: relative L2 %.3g over all parameters, the worst "
+        "array %s %.3g (bound %g); the steps moved them by %.3g (relative "
+        "L2)" % (MNIST_CPU_STEPS, MNIST_BATCH, err, worst, per[worst],
+                 MNIST_CPU_TOL, step_moved))
+    if not max(err, per[worst]) <= MNIST_CPU_TOL:
+        fail("mnist: the card's Module steps disagree with the CPU's")
+    local = run_mnist("local")
+    ms, n, acc = local["ms"], local["batches"], local["accuracy"]
+    rows["mnist_lenet_local"] = dict(ms=ms, images_per_sec=MNIST_BATCH / ms
+                                     * 1e3, accuracy=acc,
+                                     launches=local["launches"])
+    log("[mnist] mnist_lenet_local: train_mnist.py --network lenet --dummy "
+        "(6,000 synthetic examples, batch 64, SGD lr 0.1 momentum 0.9, 2 "
+        "epochs of Module.fit on the card, mx.random.seed(0)): %.3f ms a "
+        "batch (host clock, the last epoch's %d batches), %.1f images/s; "
+        "validation accuracy %.4f (random labels: about 0.1)"
+        % (ms, n, MNIST_BATCH / ms * 1e3, acc))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mnist_") as tmp:
+        _, wall, _, server = launch_job(
+            "mnist_lenet_dist_sync",
+            ["--mnist-worker", "dist_sync", "--out", tmp], {})
+        workers, params, initial = [], [], []
+        for k in range(DIST_WORKERS):
+            with open(Path(tmp) / ("worker%d.json" % k)) as f:
+                workers.append(json.load(f))
+            params.append(dict(np.load(Path(tmp) / ("params%d.npz" % k))))
+            initial.append(dict(np.load(Path(tmp) / ("initial%d.npz" % k))))
+    for k in range(1, DIST_WORKERS):
+        if sorted(params[k]) != sorted(params[0]) or not all(
+                np.array_equal(params[k][p], params[0][p])
+                for p in params[0]):
+            fail("mnist_lenet_dist_sync: the workers' final parameters "
+                 "differ")
+    for w in workers:
+        for key, versions in sorted(w["versions"].items()):
+            if versions != [w["updates"]]:
+                fail("mnist_lenet_dist_sync: the server applied %s updates "
+                     "of %r, not %d" % (versions, key, w["updates"]))
+        log("[mnist] mnist_lenet_dist_sync worker %d (2 workers, 1 server, "
+            "the optimizer on the server): %.3f ms a batch (host clock, the "
+            "last epoch's %d batches), %.1f images/s; validation accuracy "
+            "%.4f; the server applied %d updates of each of %d keys"
+            % (w["rank"], w["ms"], w["batches"],
+               MNIST_BATCH / w["ms"] * 1e3, w["accuracy"], w["updates"],
+               len(w["versions"])))
+    log_server("mnist", "mnist_lenet_dist_sync", server)
+    # both workers see the example's batches in the same order, so each
+    # round's sum is twice the local step's gradient, and its rescale
+    # half the local one: the dist run follows the local run from the
+    # same initial parameters, apart from the two optimizers' rounding
+    # (CPU and card) and the convolutions' order of summation
+    if sorted(initial[0]) != sorted(local["initial"]) or not all(
+            np.array_equal(initial[0][p], local["initial"][p])
+            for p in initial[0]):
+        fail("mnist_lenet_dist_sync: rank 0 did not start from the local "
+             "row's parameters")
+    flat = [np.concatenate([d[k].ravel() for k in sorted(d)])
+            for d in (params[0], local["params"], local["initial"])]
+    moved = float(np.linalg.norm(flat[1] - flat[2]))
+    off = float(np.linalg.norm(flat[0] - flat[1])) / moved
+    dist_moved = float(np.linalg.norm(flat[0] - flat[2])) / moved
+    log("[mnist] mnist_lenet_dist_sync: the two workers' final parameters "
+        "(%d arrays) are bitwise equal; from the same initial parameters "
+        "as mnist_lenet_local, they lie %.3g of the local run's movement "
+        "(L2 %.4f) from its final parameters (bound %g) and moved %.4f of "
+        "it; the launch took %.1f s"
+        % (len(params[0]), off, moved, MNIST_DIST_TOL, dist_moved, wall))
+    if not off <= MNIST_DIST_TOL:
+        fail("mnist_lenet_dist_sync: the final parameters are %.3g of the "
+             "movement from the local run's" % off)
+    rows["mnist_lenet_dist_sync"] = dict(
+        workers=[dict(rank=w["rank"], ms=w["ms"], accuracy=w["accuracy"],
+                      images_per_sec=MNIST_BATCH / w["ms"] * 1e3)
+                 for w in workers], launch_s=wall, off_local=off,
+        launches={k: sum(w["launches"][k] for w in workers)
+                  for k in KERNELS})
+    for name, r in rows.items():
+        if any(r["launches"].values()):
+            fail("%s: a flash-attention kernel launched: %s"
+                 % (name, r["launches"]))
+    log("[mnist] the phase took %.1f s" % (time.monotonic() - t0))
+    return rows
+
+
+# a process of the --parent comparison: the sparse and lm phases of the
+# checkout in its working directory, their rows printed as JSON
+PARENT_CODE = ("import json, sys; sys.argv = ['chip_smoke.py']; "
+               "import chip_smoke as c; r = c.phase_sparse(); "
+               "r.update(c.phase_lm()); "
+               "print('PHASE_ROWS ' + json.dumps(r, default=str), "
+               "flush=True)")
+
+
+def phase_parent(parent):
+    """The sparse and lm phases of the checkout ``parent`` against this
+    one's, in turns (parent, this, this, parent), each run in a process
+    of its own: each row's ms, busy ms, device operations and syncs."""
+    runs = []
+    for label, root in (("parent", Path(parent).resolve()),
+                        ("this", REPO_ROOT), ("this", REPO_ROOT),
+                        ("parent", Path(parent).resolve())):
+        t0 = time.monotonic()
+        proc = subprocess.run([sys.executable, "-c", PARENT_CODE],
+                              cwd=str(root), env=dict(
+                                  os.environ, PYTHONPATH=str(root)),
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            fail("--parent: the %s run in %s exited %d: %s"
+                 % (label, root, proc.returncode,
+                    (proc.stdout + proc.stderr)[-3000:]))
+        line = [x for x in proc.stdout.splitlines()
+                if x.startswith("PHASE_ROWS ")][-1]
+        runs.append((label, json.loads(line[len("PHASE_ROWS "):])))
+        log("[parent] the %s run (%s) took %.1f s"
+            % (label, root, time.monotonic() - t0))
+    for row in runs[0][1]:
+        for key in ("ms", "busy_ms", "ops", "syncs"):
+            if key in runs[0][1][row]:
+                log("[parent] %s %s, in turns: %s" % (row, key, ", ".join(
+                    "%s %s" % (label, r[row][key]) for label, r in runs)))
 
 
 def parse_args():
@@ -3866,16 +4839,36 @@ def parse_args():
     ap.add_argument("--ablate", action="store_true",
                     help="build and the ablations only: the kernels "
                     "against copies with a part taken out, on device time")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="only the sparse and lm phases of the checkout "
+                    "DIR against this one's, in turns, each in a process "
+                    "of its own")
+    ap.add_argument("--dist-worker", choices=["dist_async", "dist_sync"],
+                    help="a worker of the dist phase's launch (run by "
+                    "the launcher, not by hand)")
+    ap.add_argument("--mnist-worker", metavar="KVSTORE",
+                    help="a worker of the mnist phase's launch")
+    ap.add_argument("--out", metavar="DIR",
+                    help="where a worker writes its results")
     return ap.parse_args()
 
 
 def main():
     args = parse_args()
+    if args.dist_worker:
+        dist_worker(args.dist_worker, args.out)
+        return
+    if args.mnist_worker:
+        mnist_worker(args.mnist_worker, args.out)
+        return
     name_limit = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log("[card] %s" % name_limit)
+    if args.parent:
+        phase_parent(args.parent)
+        return
     phase_build()
     if args.fault_run:
         phase_fault_run()
@@ -3894,6 +4887,8 @@ def main():
     gluon = phase_gluon(resnet)
     lm = phase_lm()
     sparse = phase_sparse()
+    dist = phase_dist()
+    mnist = phase_mnist()
     sources = {"flash_fwd": ("flash_fwd.cu", 149),
                "flash_bwd_dq": ("flash_bwd.cu", 277),
                "flash_bwd_dkv": ("flash_bwd.cu", 309)}
@@ -3910,6 +4905,10 @@ def main():
         by_path.update({row: r["launches"][name] for row, r in lm.items()})
         by_path.update({row: r["launches"][name]
                         for row, r in sparse.items()})
+        by_path.update({row: r["launches"][name]
+                        for row, r in dist.items()})
+        by_path.update({row: r["launches"][name]
+                        for row, r in mnist.items()})
         kernels.append(dict(
             name=name, route="cuda",
             source="mxtpu_torch/ops/csrc/" + src,

@@ -36,12 +36,20 @@ Ported so far:
   weight gradient is row-sparse), ``io.LibSVMIter``, the lazy SGD and
   AdaGrad updates, and ``kv`` (the local KVStore with
   ``row_sparse_pull``); ``Embedding(sparse_grad=True)`` on the same
-  machinery.
+  machinery;
+* the distributed stores ``dist_sync`` and ``dist_async``: the
+  parameter server (``_ps``, ``kvstore_server``) and its launcher
+  (``python -m mxtpu_torch.tools.launch``), with ``mod.Module`` and
+  ``gluon.Trainer`` over a store, and ``io.MNISTIter``.
+
+Importing the package starts no parameter-server role, whatever
+``MXTPU_ROLE`` says: a launched server or scheduler runs
+``kvstore_server.init_module()``.
 """
 from . import base
 from .base import MXNetError, MemoryExhaustedError, RequestShedError
 from . import context
-from .context import cpu, gpu, current_context
+from .context import cpu, gpu, num_gpus, current_context
 from . import ops
 from . import amp
 from . import autograd
@@ -70,7 +78,8 @@ from . import parallel
 from . import serve
 from .fused_train import FusedTrainLoop
 
-__all__ = ["base", "context", "cpu", "gpu", "current_context", "ops",
+__all__ = ["base", "context", "cpu", "gpu", "num_gpus", "current_context",
+           "ops",
            "amp", "autograd", "random", "ndarray", "nd", "symbol", "sym",
            "executor", "initializer", "init", "optimizer", "lr_scheduler",
            "model", "io", "kvstore", "kv", "metric", "callback",

@@ -2,11 +2,12 @@
 config and small helpers.
 
 Counterpart of ``mxtpu/base.py`` (``MXNetError``, ``MemoryExhaustedError``,
-``RequestShedError``, ``_Null``, ``np_dtype``, ``shape2tuple``,
-``getenv``/``getenv_int``), kept as a copy of its own so that the port
-imports nothing of the JAX package.  It adds the map between numpy's
-dtypes, which the API speaks, and torch's, which the tensors carry
-(``torch_dtype``, ``dtype_of_torch``).
+``RequestShedError``, the parameter server's ``KVStoreTimeoutError``,
+``PSConnectError`` and ``ServerDiedError``, ``_Null``, ``np_dtype``,
+``shape2tuple``, ``getenv``/``getenv_int``), kept as a copy of its own
+so that the port imports nothing of the JAX package.  It adds the map
+between numpy's dtypes, which the API speaks, and torch's, which the
+tensors carry (``torch_dtype``, ``dtype_of_torch``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 __all__ = ["MXNetError", "MemoryExhaustedError", "RequestShedError",
+           "KVStoreTimeoutError", "PSConnectError", "ServerDiedError",
            "integer_types", "mx_real_t",
            "_Null", "np_dtype", "torch_dtype", "dtype_of_torch",
            "shape2tuple", "getenv", "getenv_int"]
@@ -35,6 +37,22 @@ class MemoryExhaustedError(MXNetError, MemoryError):
     def __init__(self, msg: str, report: Optional[dict] = None):
         super().__init__(msg)
         self.report = report or {}
+
+
+class KVStoreTimeoutError(MXNetError, TimeoutError):
+    """A kvstore push/pull got no server response within
+    MXTPU_KVSTORE_TIMEOUT.  Subclasses TimeoutError so the retry layer
+    treats it as transient."""
+
+
+class PSConnectError(MXNetError, ConnectionError):
+    """The parameter server's transport could not reach a peer within
+    its backoff and deadline budget (``_ps._Client._connect``)."""
+
+
+class ServerDiedError(MXNetError):
+    """A parameter server is dead and no replica can take over.  Not an
+    OSError, so the retry layer propagates it at once."""
 
 
 class RequestShedError(MXNetError):

@@ -1,7 +1,7 @@
 """Devices of the PyTorch port.
 
 Counterpart of ``mxtpu/context.py`` (``cpu()``, ``gpu()``,
-``default_ctx``, ``current_context``).  A device is a
+``num_gpus()``, ``default_ctx``, ``current_context``).  A device is a
 ``torch.device``; ``gpu(i)`` is CUDA device ``i`` and the default is
 ``cuda:0``.  There is no ``tpu()``, and no ``with ctx:`` scope: a
 ``torch.device`` used as one would change torch's own default device.
@@ -19,7 +19,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["cpu", "gpu", "default_ctx", "current_context", "resolve"]
+__all__ = ["cpu", "gpu", "num_gpus", "default_ctx", "current_context",
+           "resolve"]
 
 
 def cpu(device_id: int = 0) -> torch.device:
@@ -28,6 +29,11 @@ def cpu(device_id: int = 0) -> torch.device:
 
 def gpu(device_id: int = 0) -> torch.device:
     return torch.device("cuda", int(device_id))
+
+
+def num_gpus() -> int:
+    """The number of CUDA devices (0 without a card)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
 
 
 def default_ctx() -> torch.device:

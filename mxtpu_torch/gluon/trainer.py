@@ -2,8 +2,8 @@
 ``mxtpu/gluon/trainer.py``), on one device.
 
 ``step(batch_size)`` sets the optimizer's ``rescale_grad`` to
-``scale / batch_size``, reduces the gradients across devices (nothing
-to do on one) and updates every Parameter with a gradient in one
+``scale / batch_size``, reduces the gradients through the kvstore when
+there is one, and updates every Parameter with a gradient in one
 ``Updater.update_multi`` call (the optimizer's ``torch._foreach_*``
 step over all of them; with a row-sparse gradient among them, the
 optimizer updates one Parameter at a time, the row-sparse ones
@@ -13,10 +13,15 @@ decay applies to every such Parameter, biases included, as gluon's
 does.
 
 The kvstore rule is the reference's: with one device, ``"local"`` and
-``"device"`` (the default) mean no kvstore and a local update; any
-other kvstore, and several devices, are not ported (ROADMAP A15).
-ZeRO-1, the bad-step guard and the health, perf, tracing and
-checkpoint hooks are not ported either (ROADMAP A10b, A17, A18).
+``"device"`` (the default) mean no kvstore and a local update.  A store
+object, or another name (``"dist_sync"``, ``"dist_async"``...), is
+used: each gradient is pushed to it (2-bit compressed with
+``compression_params``); with ``update_on_kvstore`` the store runs the
+optimizer and the weights are pulled back, else the summed gradients
+are pulled and updated here.  Several devices and ZeRO-1 are not
+ported (ROADMAP A15b); the bad-step guard and the health, perf,
+tracing and checkpoint hooks are not ported either (ROADMAP A10b,
+A17, A18).
 """
 from __future__ import annotations
 
@@ -42,14 +47,13 @@ class Trainer(object):
             if not isinstance(p, Parameter):
                 raise MXNetError("invalid parameter %r" % p)
             self._params.append(p)
-        if compression_params or update_on_kvstore:
-            raise MXNetError("gradient compression and update_on_kvstore "
-                             "need a kvstore, which is not ported "
-                             "(ROADMAP A15)")
+        self._compression_params = compression_params
         optimizer_params = optimizer_params or {}
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         self._init_optimizer(optimizer, optimizer_params)
         self._kvstore_type = kvstore
+        self._kvstore = None
+        self._update_on_kvstore = update_on_kvstore
         self._kv_initialized = False
         self._num_steps = 0
 
@@ -76,13 +80,29 @@ class Trainer(object):
                 raise MXNetError("all Parameters must be on the same "
                                  "devices, got %s and %s" % (contexts, ctx))
             contexts = ctx
-        kv = self._kvstore_type
         if len(contexts or ()) > 1:
             raise MXNetError("a Trainer over %d devices is not ported "
-                             "(ROADMAP A15)" % len(contexts))
-        if not (kv is None or kv in ("", "none", "local", "device")):
-            raise MXNetError("kvstore %r is not ported (ROADMAP A15)"
-                             % (kv,))
+                             "(ROADMAP A15b)" % len(contexts))
+        kv = self._kvstore_type
+        if kv is None or (isinstance(kv, str)
+                          and kv in ("", "none", "local", "device")):
+            self._kvstore = None
+            self._update_on_kvstore = False
+        else:
+            from .. import kvstore as kv_mod
+
+            self._kvstore = kv if not isinstance(kv, str) \
+                else kv_mod.create(kv)
+            if self._compression_params:
+                self._kvstore.set_gradient_compression(
+                    self._compression_params)
+            if self._update_on_kvstore is None:
+                self._update_on_kvstore = False
+            if self._update_on_kvstore:
+                self._kvstore.set_optimizer(self._optimizer)
+            for i, param in enumerate(self._params):
+                if param.grad_req != "null":
+                    self._kvstore.init(i, param.data())
         self._kv_initialized = True
 
     @property
@@ -118,12 +138,24 @@ class Trainer(object):
         self._allreduce_grads()
 
     def _allreduce_grads(self):
-        """One device: the gradients are already reduced."""
+        """Push each gradient to the store; without
+        ``update_on_kvstore``, pull the sum back into the gradient."""
+        if self._kvstore is None:
+            return
+        for i, param in enumerate(self._params):
+            if param.grad_req != "null":
+                self._kvstore.push(i, param.list_grad(), priority=-i)
+                if not self._update_on_kvstore:
+                    self._kvstore.pull(i, param.list_grad(), priority=-i,
+                                       ignore_sparse=False)
 
     def update(self, batch_size, ignore_stale_grad=False):
         """The update of ``step`` alone (after ``allreduce_grads``)."""
         if not self._kv_initialized:
             self._init_kvstore()
+        if self._update_on_kvstore:
+            raise MXNetError("update() not supported with "
+                             "update_on_kvstore=True; call step()")
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 
@@ -136,6 +168,9 @@ class Trainer(object):
                 if not ignore_stale_grad:
                     raise MXNetError("Parameter %s has not been "
                                      "initialized" % param.name)
+                continue
+            if self._update_on_kvstore:
+                self._kvstore.pull(i, param.list_data(), priority=-i)
                 continue
             triples.append((i, param.list_grad()[0], param.list_data()[0]))
         if triples:

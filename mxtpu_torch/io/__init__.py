@@ -1,4 +1,6 @@
 """``mxtpu_torch.io`` (counterpart of ``mxtpu/io/``)."""
-from .io import DataDesc, DataBatch, DataIter, NDArrayIter, LibSVMIter
+from .io import (DataDesc, DataBatch, DataIter, NDArrayIter, LibSVMIter,
+                 MNISTIter)
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "LibSVMIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "LibSVMIter",
+           "MNISTIter"]

@@ -1,10 +1,12 @@
 """Data iteration of the PyTorch port (counterpart of ``DataDesc``,
-``DataBatch``, ``DataIter``, ``NDArrayIter`` and ``LibSVMIter`` in
-``mxtpu/io/io.py``).  Batches are made on the host and become NDArrays
-(CSR arrays for ``LibSVMIter``) on ``ctx`` (default: the card) as they
-are taken."""
+``DataBatch``, ``DataIter``, ``NDArrayIter``, ``LibSVMIter`` and
+``MNISTIter`` in ``mxtpu/io/io.py``).  Batches are made on the host
+and become NDArrays (CSR arrays for ``LibSVMIter``) on ``ctx``
+(default: the card) as they are taken."""
 from __future__ import annotations
 
+import gzip
+import struct
 from collections import namedtuple
 
 import numpy as np
@@ -13,7 +15,7 @@ from ..base import MXNetError
 from ..ndarray.ndarray import NDArray, array as nd_array
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
-           "LibSVMIter"]
+           "LibSVMIter", "MNISTIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -265,3 +267,57 @@ class LibSVMIter(DataIter):
                          provide_label=self.provide_label)
 
     __next__ = next
+
+
+def _read_idx_file(path):
+    """An IDX (MNIST) file as an array; ``.gz`` files are read through
+    gzip."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        magic = struct.unpack(">I", f.read(4))[0]
+        ndim = magic & 0xFF
+        dtype_code = (magic >> 8) & 0xFF
+        dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        dt = {0x08: np.uint8, 0x09: np.int8, 0x0B: np.int16, 0x0C: np.int32,
+              0x0D: np.float32, 0x0E: np.float64}[dtype_code]
+        data = np.frombuffer(f.read(), dtype=np.dtype(dt).newbyteorder(">"))
+        return data.reshape(dims).astype(dt)
+
+
+class MNISTIter(DataIter):
+    """Batches of MNIST idx (or idx.gz) files: images scaled to [0, 1],
+    as (batch, 1, 28, 28), or (batch, 784) with ``flat``; ``shuffle``
+    permutes the examples once with ``RandomState(seed)``; the last
+    short batch is discarded."""
+
+    def __init__(self, image, label, batch_size=128, shuffle=True, flat=False,
+                 silent=False, seed=0, ctx=None, **_):
+        super().__init__(batch_size)
+        img = _read_idx_file(image).astype(np.float32) / 255.0
+        lab = _read_idx_file(label).astype(np.float32)
+        if flat:
+            img = img.reshape(img.shape[0], -1)
+        else:
+            img = img.reshape(img.shape[0], 1, img.shape[1], img.shape[2])
+        if shuffle:
+            order = np.random.RandomState(seed).permutation(img.shape[0])
+            img, lab = img[order], lab[order]
+        self._inner = NDArrayIter({"data": img}, {"softmax_label": lab},
+                                  batch_size=batch_size,
+                                  last_batch_handle="discard", ctx=ctx)
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def __next__(self):
+        return self._inner.next()
+
+    next = __next__

@@ -8,7 +8,11 @@ initializer, by name), ``init_optimizer`` makes the optimizer with
 ``set_params``, ``get_outputs``, ``save_checkpoint`` and ``load``;
 ``bind(shared_module=...)`` and ``borrow_optimizer`` let
 ``BucketingModule``'s buckets share one set of parameters and one
-optimizer.  ``context=None`` is the card.  Several devices, kvstores,
+optimizer.  ``context=None`` is the card.  ``init_optimizer(kvstore=)``
+takes a store object or name (``model._create_kvstore``); over a
+``dist_*`` store the optimizer runs on the servers, ``update`` pushes
+the gradients and pulls the weights back, and a ``_sync`` store scales
+``rescale_grad`` by the number of workers.  Several devices,
 optimizer-state files and the tune/sharding/health/telemetry hooks are
 not ported.
 """
@@ -24,7 +28,8 @@ from ..base import MXNetError
 from ..context import current_context, resolve
 from ..initializer import InitDesc, Uniform
 from ..io.io import DataDesc
-from ..model import (_create_kvstore, _update_params, load_checkpoint,
+from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
+                     _update_params_on_kvstore, load_checkpoint,
                      save_checkpoint)
 from ..ndarray.ndarray import NDArray
 from .. import optimizer as opt_mod
@@ -61,6 +66,7 @@ class Module(BaseModule):
         self._exec_group: Optional[DataParallelExecutorGroup] = None
         self._optimizer = None
         self._kvstore = None
+        self._update_on_kvstore = False
         self._updater = None
 
     @staticmethod
@@ -119,6 +125,9 @@ class Module(BaseModule):
     def _sync_params_from_devices(self):
         if self._params_dirty and self._exec_group is not None:
             self._exec_group.get_params(self._arg_params, self._aux_params)
+            if self._kvstore is not None and self._update_on_kvstore:
+                for name, arr in sorted(self._arg_params.items()):
+                    self._kvstore.pull(name, arr)
             self._params_dirty = False
 
     def init_params(self, initializer=Uniform(0.01), arg_params=None,
@@ -200,16 +209,20 @@ class Module(BaseModule):
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
-        """Make the optimizer (by name, with ``rescale_grad = 1/batch``
-        unless given) and its updater."""
+        """Make the optimizer (by name, with ``rescale_grad`` = 1 / the
+        batch over all workers of a ``dist_*_sync`` store, unless
+        given) and either send it to the store or make its updater."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("bind() and init_params() first")
         if self.optimizer_initialized and not force_init:
             return
         self._sync_params_from_devices()
-        kvstore, _ = _create_kvstore(kvstore, len(self._context),
-                                     self._arg_params)
-        rescale_grad = 1.0 / self._exec_group.batch_size
+        kvstore, update_on_kvstore = _create_kvstore(
+            kvstore, len(self._context), self._arg_params)
+        batch_size = self._exec_group.batch_size
+        if kvstore and "dist" in kvstore.type and "_sync" in kvstore.type:
+            batch_size *= kvstore.num_workers
+        rescale_grad = 1.0 / batch_size
         idx2name = dict(enumerate(self._exec_group.param_names))
         if isinstance(optimizer, str):
             optimizer_params = dict(optimizer_params)
@@ -225,7 +238,18 @@ class Module(BaseModule):
             optimizer.idx2name = idx2name.copy()
         self._optimizer = optimizer
         self._kvstore = kvstore
-        self._updater = opt_mod.get_updater(optimizer)
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None
+        if kvstore:
+            _initialize_kvstore(kvstore=kvstore,
+                                param_arrays=self._exec_group.param_arrays,
+                                arg_params=self._arg_params,
+                                param_names=self._exec_group.param_names,
+                                update_on_kvstore=update_on_kvstore)
+        if update_on_kvstore:
+            kvstore.set_optimizer(self._optimizer)
+        else:
+            self._updater = opt_mod.get_updater(optimizer)
         self.optimizer_initialized = True
 
     def borrow_optimizer(self, shared_module):
@@ -241,6 +265,7 @@ class Module(BaseModule):
                              "differ")
         self._optimizer = shared_module._optimizer
         self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
         self._updater = shared_module._updater
         self.optimizer_initialized = True
 
@@ -281,10 +306,15 @@ class Module(BaseModule):
                 self.optimizer_initialized):
             raise MXNetError("init_optimizer() first")
         self._params_dirty = True
-        _update_params(self._exec_group.param_arrays,
-                       self._exec_group.grad_arrays, updater=self._updater,
-                       num_device=len(self._context), kvstore=self._kvstore,
-                       param_names=self._exec_group.param_names)
+        g = self._exec_group
+        if self._update_on_kvstore:
+            _update_params_on_kvstore(g.param_arrays, g.grad_arrays,
+                                      self._kvstore, g.param_names)
+        else:
+            _update_params(g.param_arrays, g.grad_arrays,
+                           updater=self._updater,
+                           num_device=len(self._context),
+                           kvstore=self._kvstore, param_names=g.param_names)
 
     def get_outputs(self, merge_multi_context=True):
         return self._exec_group.get_outputs(merge_multi_context)

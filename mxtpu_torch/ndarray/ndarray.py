@@ -6,7 +6,11 @@ Counterpart of ``mxtpu/ndarray/ndarray.py``.  An NDArray holds one
 :func:`imperative_invoke`, which runs the registered op on the tensors
 (with grad enabled only under ``autograd.record()``).  Writes into an
 array (``a[:] = x``, ``copyto``, the optimizer and the executor) copy
-into its tensor in place, so every holder of the array sees them.
+into its tensor in place, so every holder of the array sees them.  No
+two arrays share memory, as in the JAX package, whose arrays are
+immutable: an op output or a subscript that torch returns as a view
+of its input (``Reshape``, ``transpose``, ``a[1]``, ``a[:, 2]``...) is
+copied, and ``detach`` copies.  Only ``a[:]`` is ``a`` itself.
 
 ``save``/``load`` write and read the JAX package's container (an
 ``np.savez`` archive with a ``__keys__`` entry), so one ``.params`` file
@@ -169,7 +173,7 @@ class NDArray(object):
     as_in_ctx = as_in_context
 
     def detach(self) -> "NDArray":
-        return NDArray(self._data.detach())
+        return NDArray(self._data.detach().clone())
 
     def tostype(self, stype: str):
         if stype == "default":
@@ -199,28 +203,64 @@ class NDArray(object):
                      train_mode=train_mode)
 
     # -- indexing -----------------------------------------------------------
-    @staticmethod
-    def _canon_index(key):
+    def _canon_index(self, key):
+        """(key, axes): NDArray subscripts become index tensors, and each
+        slice with a negative step becomes the positive-step slice that
+        picks the same elements from the array flipped along ``axes``
+        (torch has no negative strides)."""
         if isinstance(key, NDArray):
-            return key._data.long()
-        if isinstance(key, tuple):
-            return tuple(k._data.long() if isinstance(k, NDArray) else k
-                         for k in key)
-        return key
+            key = key._data.long()
+        elif isinstance(key, tuple):
+            key = tuple(k._data.long() if isinstance(k, NDArray) else k
+                        for k in key)
+        items = key if isinstance(key, tuple) else (key,)
+        if not any(isinstance(k, slice) and k.step is not None
+                   and k.step < 0 for k in items):
+            return key, ()
+
+        def width(k):  # the input axes a subscript item consumes
+            if k is None or k is Ellipsis:
+                return 0
+            if isinstance(k, (torch.Tensor, np.ndarray)) \
+                    and k.dtype in (torch.bool, np.bool_):
+                return k.ndim
+            return 1
+
+        axis, axes, out = 0, [], []
+        for k in items:
+            if k is Ellipsis:
+                axis += self.ndim - sum(width(j) for j in items)
+            elif isinstance(k, slice) and k.step is not None and k.step < 0:
+                n = self.shape[axis]
+                picked = range(*k.indices(n))
+                k = slice(0, 0) if not picked else \
+                    slice(n - 1 - picked[0], n - picked[-1], -k.step)
+                axes.append(axis)
+            axis += width(k)
+            out.append(k)
+        return tuple(out), tuple(axes)
 
     def __getitem__(self, key):
-        key = self._canon_index(key)
+        if isinstance(key, slice) and key == slice(None):
+            return self
+        key, axes = self._canon_index(key)
         with torch.set_grad_enabled(_ag.is_recording()):
-            return NDArray(self._data[key])
+            src = self._data.flip(axes) if axes else self._data
+            return NDArray(_unshared(src[key], (self._data,)))
 
     def __setitem__(self, key, value):
-        key = self._canon_index(key)
+        key, axes = self._canon_index(key)
         if isinstance(value, NDArray):
             value = value._data
         elif not isinstance(value, torch.Tensor):
             value = torch.as_tensor(np.asarray(value), device=self.ctx)
         with torch.no_grad():
-            self._data[key] = value.to(self._data.dtype)
+            if not axes:
+                self._data[key] = value.to(self._data.dtype)
+                return
+            flipped = self._data.flip(axes)
+            flipped[key] = value.to(self._data.dtype)
+            self._data.copy_(flipped.flip(axes))
 
     # -- shape manipulation (through the registered ops) --------------------
     def reshape(self, *shape, **kwargs) -> "NDArray":
@@ -335,6 +375,20 @@ class NDArray(object):
 # Imperative invoke: the funnel every op call goes through
 # ---------------------------------------------------------------------------
 
+def _unshared(t: torch.Tensor, sources) -> torch.Tensor:
+    """``t``, or a copy of it where it shares memory with one of the
+    tensors ``sources`` (a view that torch returned for an op or a
+    subscript); the copy is recorded under autograd like the view."""
+    if t.layout != torch.strided or t.numel() == 0:
+        return t
+    ptr = t.untyped_storage().data_ptr()
+    for s in sources:
+        if isinstance(s, torch.Tensor) and s.layout == torch.strided \
+                and s.untyped_storage().data_ptr() == ptr:
+            return t.clone()
+    return t
+
+
 def imperative_invoke(op_name: str, *inputs, out=None,
                       _full_outputs: bool = False, **attrs):
     """Run the registered op ``op_name`` on NDArrays (numpy arrays and
@@ -385,7 +439,7 @@ def imperative_invoke(op_name: str, *inputs, out=None,
             outs = (embedding_sparse_grad(*tensors),)
         else:
             outs = _reg.invoke(opdef, tensors, attrs, gen)
-    results = [NDArray(o) for o in outs]
+    results = [NDArray(_unshared(o, tensors)) for o in outs]
     if not _full_outputs:
         results = results[:opdef.n_visible_outputs(attrs)]
     if out is not None:

@@ -52,6 +52,22 @@ __all__ = ["Optimizer", "SGD", "Adam", "AdaGrad", "ScanStep", "Updater",
 _LOWP = (torch.float16, torch.bfloat16)
 
 
+class _Mults(object):
+    """What the optimizer reads of a gluon Parameter."""
+
+    __slots__ = ("lr_mult", "wd_mult")
+
+    def __init__(self, lr_mult, wd_mult):
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
+
+    def __getstate__(self):
+        return (self.lr_mult, self.wd_mult)
+
+    def __setstate__(self, state):
+        self.lr_mult, self.wd_mult = state
+
+
 class Optimizer(object):
     opt_registry: Dict[str, type] = {}
 
@@ -91,6 +107,16 @@ class Optimizer(object):
             self.sym_info = (sym.attr_dict(), sym.list_arguments())
         self.set_lr_mult({})
         self.set_wd_mult({})
+
+    def __getstate__(self):
+        """Pickled (``set_optimizer`` sends the optimizer to the
+        parameter servers), each gluon Parameter of ``param_dict``
+        travels as its ``lr_mult`` and ``wd_mult`` alone, not with its
+        arrays."""
+        state = dict(self.__dict__)
+        state["param_dict"] = {i: _Mults(p.lr_mult, p.wd_mult)
+                               for i, p in self.param_dict.items()}
+        return state
 
     def create_state(self, index, weight):
         return None

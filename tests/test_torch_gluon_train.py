@@ -155,13 +155,14 @@ def test_learning_rate_and_the_kvstore_rule():
             step=1, factor=0.5)})
     with pytest.raises(MXNetError, match="lr_scheduler"):
         sched.set_learning_rate(0.1)
-    for kv in ("dist_sync", "tpu"):
-        with pytest.raises(MXNetError, match="not ported"):
-            tmx.gluon.Trainer(net.collect_params(), "sgd",
-                              kvstore=kv).step(2)
     with pytest.raises(MXNetError, match="not ported"):
         tmx.gluon.Trainer(net.collect_params(), "sgd",
-                          update_on_kvstore=True)
+                          kvstore="tpu").step(2)
+    # on one device "device" means no store, update_on_kvstore or not
+    local = tmx.gluon.Trainer(net.collect_params(), "sgd",
+                              update_on_kvstore=True)
+    local.update(2)
+    assert local._kvstore is None and local._update_on_kvstore is False
     with pytest.raises(MXNetError, match="Optimizer instance"):
         tmx.gluon.Trainer(net.collect_params(), tmx.optimizer.SGD(),
                           {"learning_rate": 0.1})

@@ -5,20 +5,26 @@
 * Entry points called without a device run on the card, and raise when
   there is none instead of carrying on quietly on the CPU.
 * `chip_smoke.py` fails, and prints no result, without a card.
+* Importing the port in a process whose `MXTPU_ROLE` is `server`
+  starts no role; a distributed store with no scheduler to reach
+  raises a typed error within its connect budget, and does not hang.
 """
 import os
 import re
 import shutil
+import signal
+import socket
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
 import torch
 
 import mxtpu_torch as tmx
-from mxtpu_torch import context
-from mxtpu_torch.base import MXNetError
+from mxtpu_torch import _ps, context
+from mxtpu_torch.base import MXNetError, PSConnectError
 from mxtpu_torch.parallel import mesh as tmesh
 from mxtpu_torch.parallel import transformer as ttf
 
@@ -141,3 +147,34 @@ def test_chip_smoke_fails_without_a_card(alone, tmp_path):
                           env=env)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_importing_the_port_as_a_server_role_starts_nothing():
+    env = dict(os.environ, MXTPU_ROLE="server", MXTPU_PS_ROOT_PORT="1",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, "-c", "import mxtpu_torch"],
+                            cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=120)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    assert proc.returncode == 0, out + err
+
+
+def test_a_dist_store_without_a_scheduler_raises_a_typed_error(monkeypatch):
+    # a port that is bound and not listening refuses every connection
+    with socket.socket() as closed:
+        closed.bind(("127.0.0.1", 0))
+        monkeypatch.setenv("MXTPU_PS_ROOT_URI", "127.0.0.1")
+        monkeypatch.setenv("MXTPU_PS_ROOT_PORT",
+                           str(closed.getsockname()[1]))
+        monkeypatch.delenv("MXTPU_PS_REPLICATION", raising=False)
+        monkeypatch.setattr(_ps, "_CONNECT_TIMEOUT", 2.0)
+        t0 = time.monotonic()
+        with pytest.raises(PSConnectError, match="within 2.0s"):
+            tmx.kv.create("dist_sync", ctx=tmx.cpu())
+        assert time.monotonic() - t0 < 10

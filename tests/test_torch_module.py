@@ -260,7 +260,7 @@ def test_module_api():
              label_shapes=[("softmax_label", (8,))])
     mod.init_params(arg_params=args, aux_params=aux)
     with pytest.raises(MXNetError, match="not ported .ROADMAP A15"):
-        mod.init_optimizer(kvstore="dist_sync")
+        mod.init_optimizer(kvstore="tpu")
     mod.init_optimizer(optimizer="sgd")
     x, y = _mlp_data(8)
     mod.forward(_batch(tmx, x, y))
@@ -281,8 +281,8 @@ def test_module_api():
 
 def test_kvstore_device_on_one_device_trains_as_local():
     """On one device a kvstore name without "dist" other than "tpu"
-    means no kvstore and a local update, as in the reference; "dist_*"
-    and "tpu" still raise."""
+    means no kvstore and a local update, as in the reference; "tpu"
+    still raises (the "dist_*" stores: test_torch_dist_kvstore.py)."""
     args, aux = _params(jmx, _mlp(jsym))
     x, y = _mlp_data(8)
     got = {}
@@ -302,7 +302,7 @@ def test_kvstore_device_on_one_device_trains_as_local():
     for k in got["local"]:
         np.testing.assert_array_equal(got["device"][k], got["local"][k])
         assert not np.array_equal(got["device"][k], args[k])
-    for kv in ("dist_sync", "tpu"):
+    for kv in ("tpu",):
         mod = tmx.mod.Module(_mlp(tmx.sym), context=tmx.cpu())
         mod.bind(data_shapes=[("data", (8, 6))],
                  label_shapes=[("softmax_label", (8,))])
