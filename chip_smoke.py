@@ -256,6 +256,48 @@ Phases, each of which fails the run (non-zero exit) on any error:
    both workers see the same batches, so a round's summed gradient at
    half the rescale is the local step's.  No flash-attention kernel may
    launch in either phase (counted in the workers too).
+12. ops    -- every canonical op the port registers (207; the cases of
+   ``tests/test_torch_op_cases.py``: numpy inputs from fixed seeds, with
+   the ties of max/min/sort/argsort/topk, clip's bounds, rounding at .5
+   and mod with mixed signs) on the card against the same call on the
+   CPU, and the gradients of a random-weighted sum: float32 within
+   ``OPS_RTOL`` of the CPU's value plus ``OPS_ATOL`` of the output's
+   largest magnitude (gamma, gammaln, erfinv and the flash kernels
+   ``OPS_SPECIAL``, the products with TF32 off ``OPS_PRODUCT_RTOL`` and
+   ``OPS_PRODUCT_ATOL``), integer and
+   ordering results equal; the samplers and Dropout in training by
+   moments, BlockGrad by its gradient.  Prints the count of ops, the
+   largest error as a fraction of its bound and its op, and the largest
+   relative L2 of a floating result and its op.  (``c4_check``, in the
+   lm phase, holds the new products ``dot``, ``batch_dot``, ``einsum``
+   and ``_onnx_MatMul`` to float64 with TF32 set on.)
+13. zoo    -- BASELINE config #2 on MobileNet v2: the script
+   ``examples/gluon/image_classification.py`` itself (imports renamed,
+   ``mx.tpu()``/``num_tpus()`` made ``mx.gpu()``/``num_gpus()``:
+   ``zoo_example``) with ``--model mobilenet_v2_1_0 --classes 1000
+   --batch-size 32 --image-shape 3,224,224`` and its own settings
+   (hybridized, SoftmaxCrossEntropyLoss, Trainer SGD lr 0.05 momentum
+   0.9, fp32 with TF32 off; 10 batches of fresh random images); then
+   the row ``mobilenet_v2_gluon``, the same net and settings on one
+   fixed batch, 2 warm and 20 timed steps: ms a step, images/s, busy,
+   idle share and operations of a profiled step, time by kind
+   (``ZOO_KINDS``, depthwise convolutions apart), peak memory, the
+   host's split (forward, loss, ``backward``, ``Trainer.step``); the
+   loss must fall and no flash kernel launch.  One batch-2 Trainer step
+   on the card against the CPU from the same weights
+   (``zoo_step_check``): in float64 the updates within ``ZOO_F64_TOL``;
+   in float32 the loss and the moving stats within ``ZOO_CPU_TOL`` and
+   the updates as ``resnet_step_check`` holds ResNet's (the step is
+   ill-conditioned at batch 2): all together within 2x, each parameter
+   within 3x the CPU's own distance from float64, the largest over
+   three float32 runs on the CPU (``ZOO_CPU_RUNS``) and, per parameter,
+   at least the CPU's relative distance for all updates; the same step
+   with TF32 on must break that bound.
+   Then each other family (``ZOO_FAMILIES``: mobilenet1_0,
+   densenet121, inception_v3 at 299², squeezenet1_1, vgg16_bn,
+   alexnet) at full width, Xavier, hybridized: a batch-8 forward, finite
+   and (8, 1000), its ms, and batch 1 against the CPU within
+   ``ZOO_CPU_TOL``.  Every line of numbers names the card.
 
 The line before the last is the card's name and power limit, the line
 before that the kernels' JSON record; the last line is
@@ -361,6 +403,19 @@ SOURCE_OF = {"flash_fwd": "flash_fwd.cu", "flash_bwd_dq": "flash_bwd.cu",
 
 def log(*args):
     print(*args, flush=True)
+
+
+_CARD = []
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi reports them."""
+    if not _CARD:
+        _CARD.append(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0])
+    return _CARD[0]
 
 
 def fail(msg):
@@ -2901,11 +2956,13 @@ def rnn_op_check():
 
 
 def c4_check():
-    """ROADMAP C4: raw nd.Convolution at ResNet's first layer, and raw
-    nd.FullyConnected and nd.RNN at the word LM's shapes, called after
-    the process set both TF32 flags on, each against the same op in
-    float64 within C4_TOL; the same calls with the ops' TF32 rule
-    taken out must fail it."""
+    """ROADMAP C4: raw nd.Convolution at ResNet's first layer, raw
+    nd.FullyConnected and nd.RNN at the word LM's shapes, and the
+    products of the op corpus (``dot``, ``batch_dot``, ``einsum``,
+    ``_onnx_MatMul``) at attention-like shapes, called after the process
+    set both TF32 flags on, each against the same op in float64 within
+    C4_TOL; the same calls with the ops' TF32 rule taken out must fail
+    it."""
     gen = torch.Generator(device="cuda").manual_seed(5)
 
     def rand(*s):
@@ -2927,6 +2984,12 @@ def c4_check():
         "RNN": ([randn(t, n, w), 0.07 * (2 * rand(size) - 1),
                  0.5 * randn(2, n, w), 0.5 * randn(2, n, w)],
                 dict(state_size=w, num_layers=2, mode="lstm")),
+        "dot": ([randn(256, 512), randn(512, 256)], {}),
+        "batch_dot": ([randn(8, 128, 512), randn(8, 256, 512)],
+                      dict(transpose_b=True)),
+        "einsum": ([randn(8, 128, 512), randn(8, 512, 128)],
+                   dict(subscripts="bij,bjk->bik")),
+        "_onnx_MatMul": ([randn(8, 128, 512), randn(512, 128)], {}),
     }
     errs = {}
     for name, (args, attrs) in cases.items():
@@ -4786,6 +4849,553 @@ def phase_mnist():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# ops: the op corpus on the card against the CPU
+# ---------------------------------------------------------------------------
+
+# every canonical op the port registers, on the card against the same
+# call on the CPU (tests/test_torch_op_cases.py's inputs): float32 within
+# OPS_RTOL of the CPU's value plus OPS_ATOL of the output's largest
+# magnitude, gamma, gammaln, erfinv and flash attention within
+# OPS_SPECIAL, the products (fp32_library, TF32 off) within
+# OPS_PRODUCT_RTOL and OPS_PRODUCT_ATOL; integer and
+# ordering results equal; the gradients of a random-weighted sum to the
+# same bounds.  Random ops by shape, finiteness and moments.
+OPS_RTOL, OPS_ATOL = 1e-5, 1e-6
+# (rtol, atol) apart: flash attention runs the CUDA kernels on the card,
+# held to the kernel phase's float32 backward bound (BWD_TOL,
+# tests/test_pallas_attention.py's)
+OPS_SPECIAL = {"gamma": (1e-4, OPS_ATOL), "gammaln": (1e-4, OPS_ATOL),
+               "erfinv": (1e-4, OPS_ATOL),
+               "_contrib_flash_attention": (2e-3, 2e-4)}
+# a product's rounding scales with its terms, not its result: its atol
+# is 1e-5 of the output's largest magnitude (on an H100 80GB HBM3 at
+# 700 W the RNN op's input gradient read 1.4e-6 where 1e-6 of its
+# largest would allow 1.1e-6)
+OPS_PRODUCT_RTOL, OPS_PRODUCT_ATOL = 1e-4, 1e-5
+
+
+def op_cases():
+    """tests/test_torch_op_cases.py (the cases, ``run_call`` and
+    ``error_units``), which imports only numpy."""
+    sys.path.insert(0, str(REPO_ROOT / "tests"))
+    try:
+        import test_torch_op_cases
+    finally:
+        sys.path.pop(0)
+    return test_torch_op_cases
+
+
+def op_random_checks(cases):
+    """The samplers, BlockGrad's gradient and Dropout in training, on
+    the card."""
+    gpu = mx.gpu(0)
+    for name, (attrs, mean, std) in cases.MOMENTS.items():
+        mx.random.seed(3)
+        x = getattr(mx.nd, name)(shape=(200000,), ctx=gpu,
+                                 **attrs).asnumpy()
+        if not (x.shape == (200000,) and np.isfinite(x).all()
+                and abs(x.mean() - mean) < 4 * std / np.sqrt(x.size)
+                and abs(x.std() - std) < 0.01 * std):
+            fail("ops: %s on the card: mean %.4f std %.4f, wanted %.4f %.4f"
+                 % (name, x.mean(), x.std(), mean, std))
+    a = mx.nd.array(cases._a(3, 4, seed=3), ctx=gpu)
+    a.attach_grad()
+    with mx.autograd.record():
+        y = mx.nd.BlockGrad(a) * a
+    y.backward()
+    if not np.array_equal(a.grad.asnumpy(), a.asnumpy()):
+        fail("ops: BlockGrad(a) * a has not the gradient a on the card")
+    ones = mx.nd.ones((400, 500), ctx=gpu)
+    with mx.autograd.train_mode():
+        kept = mx.nd.Dropout(ones, p=0.25).asnumpy()
+    frac = float((kept != 0).mean())
+    if not (set(np.unique(kept)) <= {0.0, np.float32(1 / 0.75)}
+            and abs(frac - 0.75) < 4 * np.sqrt(0.75 * 0.25 / kept.size)):
+        fail("ops: Dropout(p=0.25) on the card kept %.4f" % frac)
+
+
+def op_rel_l2(got, want):
+    """The relative L2 of a floating result from the CPU's (NaNs where
+    the CPU's are); 0 for an integer one (held equal elsewhere)."""
+    g, w = np.asarray(got), np.asarray(want)
+    if not np.issubdtype(w.dtype, np.floating) or g.shape != w.shape:
+        return 0.0
+    ok = ~np.isnan(w)
+    g, w = g[ok].astype(np.float64), w[ok].astype(np.float64)
+    return float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-300))
+
+
+def phase_ops():
+    """Every registered op on the card against the CPU; returns the
+    count of ops and the worst error."""
+    t0 = time.monotonic()
+    cases = op_cases()
+    reg = mx.ops.registry
+    canonical = sorted(n for n in reg.list_ops()
+                       if reg.get_op(n).name == n)
+    missing = sorted(set(canonical) ^ set(cases.CASES))
+    if missing:
+        fail("ops: registered ops and cases differ: %s" % missing)
+    zero_launches()
+    worst, rel, calls, grads, bad = {}, {}, 0, 0, []
+    for name in canonical:
+        op = reg.get_op(name)
+        rtol, atol = (OPS_PRODUCT_RTOL, OPS_PRODUCT_ATOL) \
+            if op.fp32_library else OPS_SPECIAL.get(name,
+                                                    (OPS_RTOL, OPS_ATOL))
+        for c in cases.CASES[name]:
+            idx = cases.grad_inputs(op, c)
+            got = cases.run_call(mx, name, c, mx.gpu(0), idx)
+            want = cases.run_call(mx, name, c, mx.cpu(), idx)
+            errs = [cases.error_units(g, w, c.exact, rtol, atol)
+                    for g, w in zip(got[0] + got[1], want[0] + want[1])]
+            if len(got[0]) != len(want[0]) or max(errs) > 1.0:
+                bad.append((name, c.attrs, errs))
+            worst[name] = max(worst.get(name, 0.0), max(errs))
+            rel[name] = max([rel.get(name, 0.0)] + [
+                op_rel_l2(g, w) for g, w in zip(got[0] + got[1],
+                                                want[0] + want[1])
+                if not c.exact])
+            calls += 1
+            grads += len(idx)
+    for name, attrs, errs in bad:
+        log("[ops] %s %s on the card against the CPU: outputs, then "
+            "gradients, in units of the bound: %s" % (name, attrs, errs))
+    if bad:
+        fail("ops: %d calls disagree with the CPU" % len(bad))
+    op_random_checks(cases)
+    launches = read_launches()
+    top = max(worst, key=worst.get)
+    top_rel = max(rel, key=rel.get)
+    log("[ops] %s: %d ops (%d calls, %d input gradients) on the card "
+        "against the CPU, every one within its bound; the largest error "
+        "as a fraction of its bound %.3g in %s; the largest relative L2 "
+        "of a floating output or gradient %.3g in %s; samplers, "
+        "BlockGrad and Dropout in training by moments; flash-attention "
+        "launches in the comparisons %s; the phase took %.1f s"
+        % (card(), len(canonical), calls, grads, worst[top], top,
+           rel[top_rel], top_rel, launches, time.monotonic() - t0))
+    # the flash op's calls here compare the kernels with the CPU's plain
+    # path: they are not the main path's, and the kernels' record
+    # leaves them out
+    zero_launches()
+    return dict(ops=len(canonical), calls=calls, worst=worst[top],
+                worst_op=top, worst_rel=rel[top_rel], worst_rel_op=top_rel,
+                compare_launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# zoo: BASELINE config #2's script training MobileNet v2, and the other
+# model-zoo families on the card
+# ---------------------------------------------------------------------------
+
+ZOO_EXAMPLE = REPO_ROOT / "examples" / "gluon" / "image_classification.py"
+ZOO_ARGS = ["--model", "mobilenet_v2_1_0", "--classes", "1000",
+            "--batch-size", "32", "--image-shape", "3,224,224"]
+ZOO_BATCH, ZOO_CLASSES, ZOO_SIDE = 32, 1000, 224
+ZOO_WARM, ZOO_STEPS, ZOO_LR = 2, 20, 0.05
+# one batch-2 Trainer step on the card against the CPU from the same
+# weights (zoo_step_check, relative L2): float32's loss and moving stats
+# within ZOO_CPU_TOL, float64's updates within ZOO_F64_TOL; float32's
+# updates as resnet_step_check holds them (all together within 2x, each
+# parameter within 3x the CPU's own distance from float64, with its
+# floors), the CPU's distance the largest of ZOO_CPU_RUNS and, per
+# parameter, at least the CPU's relative distance for all updates; and a
+# batch-1 forward of each family within ZOO_CPU_TOL
+ZOO_CPU_TOL, ZOO_F64_TOL = 1e-4, 1e-6
+ZOO_CPU_RUNS = ("oneDNN convolutions", "native convolutions", "one thread")
+ZOO_FAMILIES = (("mobilenet1_0", 224), ("densenet121", 224),
+                ("inception_v3", 299), ("squeezenet1_1", 224),
+                ("vgg16_bn", 224), ("alexnet", 224))
+ZOO_FWD_BATCH, ZOO_FWD_TIMED = 8, 5
+ZOO_KINDS = (("depthwise convolution", ("depthwise", "dwconv")),) + KINDS
+
+
+def zoo_example():
+    """examples/gluon/image_classification.py as a module of the port:
+    its imports name mxtpu_torch, its ``mx.tpu()``/``mx.num_tpus()``
+    are ``mx.gpu()``/``mx.num_gpus()``."""
+    src, n = re.subn(r"^(import|from) mxtpu\b", r"\1 mxtpu_torch",
+                     ZOO_EXAMPLE.read_text(), flags=re.M)
+    src, m = re.subn(r"\bmx\.(tpu|num_tpus)\(",
+                     lambda g: "mx.%s(" % {"tpu": "gpu",
+                                           "num_tpus": "num_gpus"}[
+                                               g.group(1)], src)
+    if (n, m) != (3, 2):
+        fail("zoo: %s has %d imports of the JAX package and %d TPU calls, "
+             "not 3 and 2" % (ZOO_EXAMPLE, n, m))
+    mod = types.ModuleType("image_classification_port")
+    mod.__file__ = str(ZOO_EXAMPLE)
+    exec(compile(src, str(ZOO_EXAMPLE), "exec"), mod.__dict__)
+    return mod
+
+
+class _Lines(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def zoo_example_run():
+    """The script's ``main()`` with ZOO_ARGS (its own settings:
+    hybridized, SoftmaxCrossEntropyLoss, Trainer SGD lr 0.05 momentum
+    0.9, 10 batches of fresh random images); returns its epoch line and
+    the seconds it took."""
+    ex = zoo_example()
+    lines, root = _Lines(), logging.getLogger()
+    saved = sys.argv, root.level
+    root.addHandler(lines)
+    root.setLevel(logging.INFO)
+    sys.argv = [str(ZOO_EXAMPLE)] + ZOO_ARGS
+    t0 = time.monotonic()
+    try:
+        rc = ex.main()
+        torch.cuda.synchronize()
+    finally:
+        sys.argv = saved[0]
+        root.removeHandler(lines)
+        root.setLevel(saved[1])
+    epoch = [l for l in lines.lines if l.startswith("epoch")]
+    if rc != 0 or not epoch:
+        fail("zoo: the example returned %r and logged %s" % (rc, lines.lines))
+    return epoch[-1], time.monotonic() - t0
+
+
+def zoo_net(name, ctx, init=None, hybridize=True):
+    """A zoo model of 1000 classes in a fresh NameManager (so two builds
+    have the same names), initialized after ``random.seed(0)``."""
+    with mx.sym.NameManager():
+        net = getattr(mx.gluon.model_zoo.vision, name)(classes=ZOO_CLASSES)
+    mx.random.seed(0)
+    net.initialize(init, ctx=ctx)
+    if hybridize:
+        net.hybridize()
+    return net
+
+
+def zoo_batch(batch, side, ctx, seed=0):
+    rng = np.random.RandomState(seed)
+    return (mx.nd.array(rng.rand(batch, 3, side, side).astype(np.float32),
+                        ctx=ctx),
+            mx.nd.array(rng.randint(0, ZOO_CLASSES, batch).astype(
+                np.float32), ctx=ctx))
+
+
+def zoo_trainer(net):
+    return mx.gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": ZOO_LR, "momentum": 0.9})
+
+
+def zoo_row():
+    """MobileNet v2 1.0 as the script trains it, on a fixed batch of 32
+    at 224²: 2 warm and 20 timed steps synchronised by value, the
+    host's split and one profiled step."""
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    gpu = mx.gpu(0)
+    x, y = zoo_batch(ZOO_BATCH, ZOO_SIDE, gpu)
+    net = zoo_net("mobilenet_v2_1_0", gpu)
+    trainer = zoo_trainer(net)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    losses = []
+
+    def step():
+        losses.append(gluon_step(net, trainer, loss_fn, x, y)._data.detach())
+
+    zero_launches()
+    t0 = time.monotonic()
+    step()  # traces the net, draws the weights
+    float(losses[-1][0])
+    setup_s = time.monotonic() - t0
+    for _ in range(ZOO_WARM - 1):
+        step()
+    float(losses[-1][0])
+    t1 = time.monotonic()
+    for _ in range(ZOO_STEPS):
+        step()
+    float(losses[-1][0])
+    wall = time.monotonic() - t1
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    host = gluon_host_split(net, trainer, loss_fn, x, y)
+    spans = device_spans(step)
+    if not spans:
+        fail("zoo: the profiler saw no device time in a step")
+    busy, window, heads = profile_summary(spans)
+    idle, ops = 1 - busy / window, len(spans)
+    kinds = sorted(by_kind(spans, ZOO_KINDS).items(), key=lambda kv: -kv[1])
+    timed = torch.stack([l.float().mean() for l in
+                         losses[ZOO_WARM:ZOO_WARM + ZOO_STEPS]]).cpu()
+    ms = wall / ZOO_STEPS * 1e3
+    ips = ZOO_STEPS * ZOO_BATCH / wall
+    log("[zoo] %s: mobilenet_v2_gluon (mobilenet_v2_1_0, 1000 classes, "
+        "batch %d, %d², fp32 with TF32 off, hybridized, SGD lr %g "
+        "momentum 0.9, one fixed batch): %d timed steps after %d warm: "
+        "%.3f s (host clock, synchronised by value): %.3f ms a step, %.2f "
+        "images/s; set-up and first step %.1f s"
+        % (card(), ZOO_BATCH, ZOO_SIDE, ZOO_LR, ZOO_STEPS, ZOO_WARM, wall,
+           ms, ips, setup_s))
+    log("[zoo] %s: mobilenet_v2_gluon, one profiled step: device busy "
+        "%.3f ms, idle share at most %.3f, %d device operations; peak "
+        "device memory %.1f MB allocated; by kind: %s; most device time: %s"
+        % (card(), busy, idle, ops, peak / 1e6,
+           "; ".join("%s %.3f ms" % (k, t / 1e3) for k, t in kinds),
+           "; ".join("%s %.3f ms" % (n[:70], t / 1e3) for n, t in heads)))
+    log("[zoo] %s: mobilenet_v2_gluon, host ms a step by stage (median of "
+        "5 steps, no sync inside a step): %s; their sum %.3f ms"
+        % (card(), ", ".join("%s %.3f" % kv for kv in host.items()),
+           sum(host.values())))
+    log("[zoo] mobilenet_v2_gluon: the timed steps' mean losses: %s"
+        % " ".join("%.4f" % v for v in timed.tolist()))
+    if not bool(torch.isfinite(timed).all()) or not timed[-1] < timed[0]:
+        fail("zoo: mobilenet_v2_gluon's losses not finite or not falling: "
+             "%s" % timed.tolist())
+    if any(launches.values()):
+        fail("zoo: a flash-attention kernel launched: %s" % launches)
+    result = dict(ms=ms, imgs_per_sec=ips, busy_ms=busy, idle=idle, ops=ops,
+                  peak_mb=peak / 1e6, launches=launches, host_ms=host,
+                  kinds_ms={k: t / 1e3 for k, t in kinds})
+    del net, trainer, losses
+    free_card()
+    return result
+
+
+class cpu_float32:
+    """One of ZOO_CPU_RUNS: a float32 implementation of the same step on
+    the CPU, torch's default (oneDNN's convolutions), its native
+    convolutions, or one thread (another split of each reduction)."""
+
+    def __init__(self, how):
+        self.how = how
+
+    def __enter__(self):
+        self.threads = torch.get_num_threads()
+        self.flags = torch.backends.mkldnn.flags(
+            enabled=self.how != "native convolutions")
+        self.flags.__enter__()
+        if self.how == "one thread":
+            torch.set_num_threads(1)
+
+    def __exit__(self, *exc):
+        torch.set_num_threads(self.threads)
+        self.flags.__exit__(*exc)
+
+
+def zoo_step_check():
+    """One batch-2 Trainer step of mobilenet_v2_1_0 (SGD lr 0.05,
+    momentum 0.9) on the card against the same step on the CPU from the
+    same weights.  As in ``resnet_step_check``, the step is
+    ill-conditioned at batch 2: the global pool hands the last BatchNorm
+    a gradient constant over its 49 positions, which its backward mostly
+    cancels, so float32 rounding moves the weights' updates below it by
+    up to a few percent.  So the same function is held in float64, where
+    rounding is far below what the step amplifies: the card's float64
+    updates within ZOO_F64_TOL of the CPU's, all together and each
+    parameter (plus 1e-3 of the largest update, for the betas whose
+    exact update is zero).  In float32 the loss and the moving stats
+    (well conditioned) agree with the CPU's within ZOO_CPU_TOL, and the
+    updates are held as ``resnet_step_check`` holds ResNet's: all
+    together within 2x the CPU's own distance from float64 plus 1e-3 of
+    the exact update, each parameter within 3x its CPU distance plus
+    1e-3 of its exact update and 1e-6 of the largest.  One float32 run
+    is one draw of the rounding that the step amplifies, and per
+    parameter two draws differ by factors of several, so the CPU's
+    distance is the largest over ZOO_CPU_RUNS, three float32
+    implementations of the step, and a parameter's is at least the
+    CPU's relative distance for all updates together times its exact
+    update (one draw may fall far below the step's float32 noise).  On
+    an H100 80GB HBM3 at 700 W the card's float32 step is 1.9x as far
+    from float64 as the CPU's, alike with cuDNN's default, deterministic
+    or benchmarked algorithms and with cuDNN off; per parameter its
+    distance over the largest CPU run's has median 1.53, 90th
+    percentile 1.66 and maximum 3.29 (a depthwise weight of block 14).
+    The same step with TF32 on must break those bounds."""
+    free_card()
+    t0 = time.monotonic()
+    on_card = zoo_net("mobilenet_v2_1_0", mx.gpu(0))
+    x, _ = zoo_batch(2, ZOO_SIDE, mx.gpu(0), seed=1)
+    with mx.autograd.pause():
+        on_card(x)  # draws the weights
+    start = {n: p.data().asnumpy() for n, p in
+             on_card.collect_params().items()}
+    learned = sorted(n for n, p in on_card.collect_params().items()
+                     if p.grad_req != "null")
+    del on_card
+
+    def step(ctx, dtype="float32"):
+        net = zoo_net("mobilenet_v2_1_0", ctx)
+        mx.gluon.parameter.load_numpy(net.collect_params(), start)
+        x, y = zoo_batch(2, ZOO_SIDE, ctx, seed=1)
+        if dtype != "float32":
+            net.cast(dtype)
+            x, y = x.astype(dtype), y.astype(dtype)
+        loss = gluon_step(net, zoo_trainer(net),
+                          mx.gluon.loss.SoftmaxCrossEntropyLoss(), x, y)
+        new = {n: p.data().asnumpy().astype(np.float64) for n, p in
+               net.collect_params().items()}
+        return (loss.asnumpy().astype(np.float64),
+                {n: new[n] - start[n] for n in learned},
+                {n: new[n] for n in start if n not in learned})
+
+    def rel(a, b, keys):
+        return float(np.sqrt(sum(np.linalg.norm(a[k] - b[k]) ** 2
+                                 for k in keys)
+                             / sum(np.linalg.norm(b[k]) ** 2 for k in keys)))
+
+    def dist(upd, exact):
+        per = {k: np.linalg.norm(upd[k] - exact[k]) for k in learned}
+        return per, float(np.linalg.norm([per[k] for k in learned]))
+
+    card_loss, card_upd, card_stats = step(mx.gpu(0))
+    with tf32_on():
+        _, tf32_upd, _ = step(mx.gpu(0))
+    cpu = {}
+    for how in ZOO_CPU_RUNS:
+        with cpu_float32(how):
+            cpu[how] = step(mx.cpu())
+    cpu_loss, _, cpu_stats = cpu[ZOO_CPU_RUNS[0]]
+    _, ex_upd, _ = step(mx.cpu(), "float64")
+    _, card64_upd, _ = step(mx.gpu(0), "float64")
+    free_card()
+    norm = {k: np.linalg.norm(ex_upd[k]) for k in learned}
+    all_norm = float(np.linalg.norm([norm[k] for k in learned]))
+    largest = max(norm.values())
+    # float64: each parameter in units of ZOO_F64_TOL of its update plus
+    # 1e-3 of the largest (the floor for the betas whose exact update is
+    # zero: a BatchNorm follows their output)
+    per64 = {k: np.linalg.norm(card64_upd[k] - ex_upd[k]) / (
+        ZOO_F64_TOL * (norm[k] + 1e-3 * largest)) for k in learned}
+    worst64 = max(per64, key=per64.get)
+    all64 = rel(card64_upd, ex_upd, learned)
+    # float32: the CPU's distance from float64, the largest over its runs
+    cpu_dist = {how: dist(run[1], ex_upd) for how, run in cpu.items()}
+    cpu_all = max(d[1] for d in cpu_dist.values())
+    cpu_per = {k: max([d[0][k] for d in cpu_dist.values()]
+                      + [cpu_all / all_norm * norm[k]]) for k in learned}
+    allowed = {k: 3 * cpu_per[k] + 1e-3 * norm[k] + 1e-6 * largest
+               for k in learned}
+    all_allowed = 2 * cpu_all + 1e-3 * all_norm
+
+    def verdict(upd):
+        per, total = dist(upd, ex_upd)
+        ratio = {k: per[k] / allowed[k] for k in learned}
+        worst = max(ratio, key=ratio.get)
+        return ratio, worst, total / all_allowed
+
+    ratio, worst, total = verdict(card_upd)
+    tf32_ratio, tf32_worst, tf32_total = verdict(tf32_upd)
+    loss_err = float(np.linalg.norm(card_loss - cpu_loss)
+                     / np.linalg.norm(cpu_loss))
+    stats_err = rel(card_stats, cpu_stats, list(cpu_stats))
+    # the card's distance per parameter over the largest CPU run's (no
+    # floor): median, 90th percentile, maximum and its parameter
+    card_per, card_all = dist(card_upd, ex_upd)
+    over = {k: card_per[k] / max(max(d[0][k] for d in cpu_dist.values()),
+                                 1e-300) for k in learned}
+    spread = np.percentile(list(over.values()), [50, 90])
+    most = max(over, key=over.get)
+    top = sorted(ratio, key=ratio.get, reverse=True)[:5]
+    log("[zoo] %s: one batch-2 Trainer step of mobilenet_v2_1_0 from the "
+        "same weights: float64, the card's %d updates vs the CPU's %.3g "
+        "(relative L2, bound %g), the worst parameter %s at %.3g of its "
+        "bound; float32, card vs CPU: the loss %.3g, the moving stats %.3g "
+        "(bound %g); %.1f s"
+        % (card(), len(learned), all64, ZOO_F64_TOL, worst64,
+           per64[worst64], loss_err, stats_err, ZOO_CPU_TOL,
+           time.monotonic() - t0))
+    log("[zoo] %s: the float32 updates against float64 (relative L2): the "
+        "CPU's %s; the card's %.4g, %.3g of its bound (2x the largest CPU "
+        "distance); per parameter, the card's distance over the largest "
+        "CPU run's: median %.3g, 90th percentile %.3g, maximum %.3g (%s); "
+        "against the bound (3x the largest CPU distance, at least the "
+        "relative one of all updates) the worst %s; with TF32 on the "
+        "card's %.4g, %.3g of the bound for all, the worst parameter %s at "
+        "%.3g of its bound"
+        % (card(), ", ".join("%s %.4g" % (how, d[1] / all_norm)
+                             for how, d in cpu_dist.items()),
+           card_all / all_norm, total, spread[0], spread[1], over[most],
+           most, ", ".join("%s %.3g" % (k, ratio[k]) for k in top),
+           dist(tf32_upd, ex_upd)[1] / all_norm, tf32_total, tf32_worst,
+           tf32_ratio[tf32_worst]))
+    if not (all64 <= ZOO_F64_TOL and per64[worst64] <= 1
+            and loss_err <= ZOO_CPU_TOL and stats_err <= ZOO_CPU_TOL
+            and ratio[worst] <= 1 and total <= 1):
+        fail("zoo: the card's step disagrees with the CPU's")
+    if tf32_total <= 1 and tf32_ratio[tf32_worst] <= 1:
+        fail("zoo: the step check does not tell TF32's step from float32's")
+
+
+def zoo_families():
+    """A batch-8 forward of each other family at full width, finite and
+    (8, 1000), its ms; and a batch-1 forward against the CPU's from the
+    same weights within ZOO_CPU_TOL."""
+    rows = {}
+    for name, side in ZOO_FAMILIES:
+        free_card()
+        zero_launches()
+        net = zoo_net(name, mx.gpu(0), mx.init.Xavier())
+        x, _ = zoo_batch(ZOO_FWD_BATCH, side, mx.gpu(0), seed=2)
+        with mx.autograd.pause():
+            out = net(x)  # traces the net, draws the weights
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for _ in range(ZOO_FWD_TIMED):
+                out = net(x)
+            out = out.asnumpy()
+            ms = (time.monotonic() - t0) / ZOO_FWD_TIMED * 1e3
+            if out.shape != (ZOO_FWD_BATCH, ZOO_CLASSES) or \
+                    not np.isfinite(out).all():
+                fail("zoo: %s gave %s, finite %s" % (
+                    name, out.shape, np.isfinite(out).all()))
+            weights = {n: p.data().asnumpy() for n, p in
+                       net.collect_params().items()}
+            cpu = zoo_net(name, mx.cpu())
+            mx.gluon.parameter.load_numpy(cpu.collect_params(), weights)
+            one = x.asnumpy()[:1]
+            got = net(mx.nd.array(one, ctx=mx.gpu(0))).asnumpy()
+            want = cpu(mx.nd.array(one, ctx=mx.cpu())).asnumpy()
+        err = rel_l2(torch.from_numpy(got), torch.from_numpy(want))
+        rows["zoo_" + name] = dict(ms=ms, side=side, cpu_err=err,
+                                   launches=read_launches())
+        log("[zoo] %s: %s (%d², 1000 classes, Xavier, hybridized, "
+            "predict mode): a batch-%d forward %.3f ms (host clock, "
+            "synchronised by value, the mean of %d); batch 1 on the card "
+            "vs the CPU from the same weights: relative L2 %.3g (bound %g)"
+            % (card(), name, side, ZOO_FWD_BATCH, ms, ZOO_FWD_TIMED, err,
+               ZOO_CPU_TOL))
+        if not err <= ZOO_CPU_TOL:
+            fail("zoo: %s on the card is %.3g from the CPU" % (name, err))
+        del net, cpu
+    free_card()
+    return rows
+
+
+def phase_zoo():
+    """BASELINE config #2: the example script training MobileNet v2 on
+    the card, its own row and its step against the CPU, then the other
+    families; returns the rows (with their kernel launches)."""
+    t0 = time.monotonic()
+    zero_launches()
+    line, secs = zoo_example_run()
+    rows = {"zoo_example": dict(seconds=secs, launches=read_launches())}
+    log("[zoo] %s: examples/gluon/image_classification.py %s (10 batches of "
+        "fresh random images): %s; %.1f s with its trace" % (
+            card(), " ".join(ZOO_ARGS), line, secs))
+    rows["mobilenet_v2_gluon"] = zoo_row()
+    zoo_step_check()
+    rows.update(zoo_families())
+    for name, r in rows.items():
+        if any(r["launches"].values()):
+            fail("zoo: %s launched a flash-attention kernel: %s"
+                 % (name, r["launches"]))
+    log("[zoo] the phase took %.1f s" % (time.monotonic() - t0))
+    return rows
+
+
 # a process of the --parent comparison: the sparse and lm phases of the
 # checkout in its working directory, their rows printed as JSON
 PARENT_CODE = ("import json, sys; sys.argv = ['chip_smoke.py']; "
@@ -4861,10 +5471,7 @@ def main():
     if args.mnist_worker:
         mnist_worker(args.mnist_worker, args.out)
         return
-    name_limit = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    name_limit = card()
     log("[card] %s" % name_limit)
     if args.parent:
         phase_parent(args.parent)
@@ -4889,6 +5496,8 @@ def main():
     sparse = phase_sparse()
     dist = phase_dist()
     mnist = phase_mnist()
+    phase_ops()
+    zoo = phase_zoo()
     sources = {"flash_fwd": ("flash_fwd.cu", 149),
                "flash_bwd_dq": ("flash_bwd.cu", 277),
                "flash_bwd_dkv": ("flash_bwd.cu", 309)}
@@ -4909,6 +5518,8 @@ def main():
                         for row, r in dist.items()})
         by_path.update({row: r["launches"][name]
                         for row, r in mnist.items()})
+        by_path.update({row: r["launches"][name]
+                        for row, r in zoo.items()})
         kernels.append(dict(
             name=name, route="cuda",
             source="mxtpu_torch/ops/csrc/" + src,

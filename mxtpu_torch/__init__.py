@@ -40,7 +40,12 @@ Ported so far:
 * the distributed stores ``dist_sync`` and ``dist_async``: the
   parameter server (``_ps``, ``kvstore_server``) and its launcher
   (``python -m mxtpu_torch.tools.launch``), with ``mod.Module`` and
-  ``gluon.Trainer`` over a store, and ``io.MNISTIter``.
+  ``gluon.Trainer`` over a store, and ``io.MNISTIter``;
+* the dense op corpus (the elementwise, reduction, shape, product,
+  initialization, indexing and ordering ops), NDArray's and Symbol's
+  methods, ``autograd.grad`` and ``autograd.Function``, and the model
+  zoo's AlexNet, DenseNet, Inception v3, MobileNet v1/v2, SqueezeNet
+  and VGG.
 
 Importing the package starts no parameter-server role, whatever
 ``MXTPU_ROLE`` says: a launched server or scheduler runs
@@ -54,11 +59,16 @@ from . import ops
 from . import amp
 from . import autograd
 from . import random
+from .random import seed
 from . import ndarray
 from . import ndarray as nd
+from .ndarray import NDArray
 from . import symbol
 from . import symbol as sym
+from .symbol import Symbol, AttrScope
+from . import name
 from . import executor
+from .executor import Executor
 from . import initializer
 from . import initializer as init
 from . import optimizer
@@ -72,6 +82,7 @@ from . import callback
 from . import module
 from . import module as mod
 from . import cached_op
+from .cached_op import CachedOp
 from . import gluon
 from . import rnn
 from . import parallel
@@ -80,8 +91,10 @@ from .fused_train import FusedTrainLoop
 
 __all__ = ["base", "context", "cpu", "gpu", "num_gpus", "current_context",
            "ops",
-           "amp", "autograd", "random", "ndarray", "nd", "symbol", "sym",
-           "executor", "initializer", "init", "optimizer", "lr_scheduler",
+           "amp", "autograd", "random", "seed", "ndarray", "nd", "NDArray",
+           "symbol", "sym", "Symbol", "AttrScope", "name",
+           "executor", "Executor", "CachedOp", "initializer", "init",
+           "optimizer", "lr_scheduler",
            "model", "io", "kvstore", "kv", "metric", "callback",
            "module", "mod",
            "cached_op", "gluon", "rnn", "parallel", "serve",

@@ -18,7 +18,15 @@ coalesced (rows sorted and unique, duplicates summed), or, when a dense
 path reached the leaf too, the rows of the dense sum that hold a
 non-zero (``cast_storage``); ``grad_req="add"`` raises for it, as in
 the reference.  A dense ``.grad`` takes the densified gradient.
-``grad(create_graph=True)`` and the custom ``Function`` are not ported.
+
+``grad`` returns the gradients of heads with respect to variables
+(marked, or results recorded under ``record()``) without touching
+their ``.grad``; with ``create_graph`` the gradient is itself a
+recorded result (torch's graph of the derivative), which a later
+``backward`` or ``grad`` differentiates again.  ``Function`` is the
+custom differentiable function: ``forward`` and ``backward`` over
+NDArrays, run under ``pause()``, bridged to a
+``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -32,7 +40,7 @@ from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training",
-           "mark_variables", "backward"]
+           "mark_variables", "backward", "grad", "Function"]
 
 
 class _AGState(threading.local):
@@ -181,6 +189,119 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
                 var._grad._data.add_(g)
             elif var._grad_req == "write":
                 var._grad._data.copy_(g)
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """The gradients of ``heads`` with respect to ``variables``, as a
+    list of NDArrays (reference ``autograd.grad``); ``.grad`` is left
+    as it is.  A variable the heads do not reach gets zeros.  The graph
+    is kept when ``retain_graph`` (by default when ``create_graph``)."""
+    from .ndarray.ndarray import NDArray
+
+    if isinstance(heads, NDArray):
+        heads = [heads]
+    if isinstance(variables, NDArray):
+        variables = [variables]
+    if head_grads is None:
+        head_grads = [None] * len(heads)
+    elif isinstance(head_grads, NDArray):
+        head_grads = [head_grads]
+    if len(heads) != len(head_grads):
+        raise MXNetError("heads and head_grads length mismatch")
+    for v in variables:
+        if not v._data.requires_grad:
+            raise MXNetError("one of the variables was not used in the "
+                             "graph or not marked with attach_grad/"
+                             "mark_variables")
+    tensors = [h._data for h in heads]
+    seeds = [torch.ones_like(t) if g is None else g._data
+             for t, g in zip(tensors, head_grads)]
+    grads = torch.autograd.grad(
+        tensors, [v._data for v in variables], seeds,
+        retain_graph=create_graph if retain_graph is None else retain_graph,
+        create_graph=create_graph, allow_unused=True)
+    out = []
+    for v, g in zip(variables, grads):
+        if g is None:
+            g = torch.zeros_like(v._data)
+        elif g.is_sparse:
+            g = g.to_dense()
+        out.append(NDArray(g if create_graph else g.detach()))
+    return out
+
+
+class _FunctionBridge(torch.autograd.Function):
+    """Runs a :class:`Function`'s ``forward`` and ``backward`` on the
+    tensors torch's engine hands over."""
+
+    @staticmethod
+    def forward(ctx, func, *tensors):
+        from .ndarray.ndarray import NDArray
+
+        ctx.func, ctx.n_in = func, len(tensors)
+        with pause():
+            outs = func.forward(*[NDArray(t) for t in tensors])
+        func._single = not isinstance(outs, (list, tuple))
+        outs = [outs] if func._single else list(outs)
+        if not all(isinstance(o, NDArray) for o in outs):
+            raise MXNetError("Function.forward must return NDArrays")
+        return tuple(o._data for o in outs)
+
+    @staticmethod
+    def backward(ctx, *out_grads):
+        from .ndarray.ndarray import NDArray
+
+        with pause():
+            igrads = ctx.func.backward(*[NDArray(g) for g in out_grads])
+        if not isinstance(igrads, (list, tuple)):
+            igrads = [igrads]
+        if len(igrads) != ctx.n_in:
+            raise MXNetError("Function.backward returned %d grads for %d "
+                             "inputs" % (len(igrads), ctx.n_in))
+        return (None,) + tuple(g._data if isinstance(g, NDArray) else g
+                               for g in igrads)
+
+
+class Function(object):
+    """Custom differentiable function (reference ``autograd.Function``):
+    subclass with ``forward(*inputs)`` and ``backward(*output_grads)``,
+    both over NDArrays; called under ``record()``, its outputs are
+    recorded and their gradient runs ``backward``.
+
+        class Sigmoid(autograd.Function):
+            def forward(self, x):
+                y = 1 / (1 + (-x).exp())
+                self.save_for_backward(y)
+                return y
+            def backward(self, dy):
+                (y,) = self.saved_tensors
+                return dy * y * (1 - y)
+    """
+
+    def __init__(self):
+        self.saved_tensors = ()
+        self._single = True
+
+    def save_for_backward(self, *tensors):
+        self.saved_tensors = tensors
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+
+        if not is_recording():
+            with pause():
+                return self.forward(*inputs)
+        with torch.enable_grad():
+            outs = _FunctionBridge.apply(self, *[x._data for x in inputs])
+        outs = [NDArray(o) for o in outs]
+        return outs[0] if self._single else outs
 
 
 def _write_row_sparse(var, g):

@@ -1,14 +1,38 @@
 """``mxtpu_torch.gluon.model_zoo.vision`` (counterpart of
-``mxtpu/gluon/model_zoo/vision/``): the ResNets and ``get_model``.  The
-other families (AlexNet, DenseNet, Inception, MobileNet, SqueezeNet,
-VGG) wait (ROADMAP A13)."""
+``mxtpu/gluon/model_zoo/vision/``): AlexNet, DenseNet, Inception v3,
+MobileNet v1 and v2, ResNet v1 and v2, SqueezeNet and VGG, and
+``get_model`` by the reference's names (``mobilenetv2_1.0``,
+``squeezenet1.1``, ``inceptionv3``...)."""
+from .alexnet import *  # noqa: F401,F403
+from .densenet import *  # noqa: F401,F403
+from .inception import *  # noqa: F401,F403
+from .mobilenet import *  # noqa: F401,F403
 from .resnet import *  # noqa: F401,F403
-from . import resnet as _resnet
+from .squeezenet import *  # noqa: F401,F403
+from .vgg import *  # noqa: F401,F403
 
 from ....base import MXNetError
 
-_models = {name: getattr(_resnet, name) for name in _resnet.__all__
-           if name.startswith("resnet")}
+_models = {
+    "resnet18_v1": resnet18_v1, "resnet34_v1": resnet34_v1,
+    "resnet50_v1": resnet50_v1, "resnet101_v1": resnet101_v1,
+    "resnet152_v1": resnet152_v1,
+    "resnet18_v2": resnet18_v2, "resnet34_v2": resnet34_v2,
+    "resnet50_v2": resnet50_v2, "resnet101_v2": resnet101_v2,
+    "resnet152_v2": resnet152_v2,
+    "vgg11": vgg11, "vgg13": vgg13, "vgg16": vgg16, "vgg19": vgg19,
+    "vgg11_bn": vgg11_bn, "vgg13_bn": vgg13_bn, "vgg16_bn": vgg16_bn,
+    "vgg19_bn": vgg19_bn,
+    "alexnet": alexnet,
+    "densenet121": densenet121, "densenet161": densenet161,
+    "densenet169": densenet169, "densenet201": densenet201,
+    "squeezenet1.0": squeezenet1_0, "squeezenet1.1": squeezenet1_1,
+    "inceptionv3": inception_v3,
+    "mobilenet1.0": mobilenet1_0, "mobilenet0.75": mobilenet0_75,
+    "mobilenet0.5": mobilenet0_5, "mobilenet0.25": mobilenet0_25,
+    "mobilenetv2_1.0": mobilenet_v2_1_0, "mobilenetv2_0.75": mobilenet_v2_0_75,
+    "mobilenetv2_0.5": mobilenet_v2_0_5, "mobilenetv2_0.25": mobilenet_v2_0_25,
+}
 
 
 def get_model(name, **kwargs):

@@ -5,17 +5,21 @@ sparse arrays are ``nd.sparse``."""
 import sys as _sys
 
 from .ndarray import (NDArray, imperative_invoke, array, zeros, ones, full,
-                      waitall, save, load)
+                      empty, arange, eye, concat, stack, split, moveaxis,
+                      maximum, minimum, from_numpy, from_dlpack,
+                      to_dlpack_for_read, to_dlpack_for_write, waitall, save,
+                      load)
+from . import ndarray as _ndarray
 from . import register as _register_mod
 
 _this = _sys.modules[__name__]
 _register_mod._init_op_module(_this)
 contrib = _register_mod.prefix_namespace(_this, "_contrib_", "contrib")
 
-# creation helpers shadow same-named generated wrappers on purpose
-_this.zeros = zeros
-_this.ones = ones
-_this.full = full
+# the helpers shadow same-named generated wrappers on purpose (the
+# wrappers were set on this module, over the names imported above)
+for _name in ("zeros", "ones", "full", "concat", "stack", "split"):
+    setattr(_this, _name, getattr(_ndarray, _name))
 
 from .. import random as random  # noqa: E402
 

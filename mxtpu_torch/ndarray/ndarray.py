@@ -12,6 +12,13 @@ immutable: an op output or a subscript that torch returns as a view
 of its input (``Reshape``, ``transpose``, ``a[1]``, ``a[:, 2]``...) is
 copied, and ``detach`` copies.  Only ``a[:]`` is ``a`` itself.
 
+DLPack: ``to_dlpack_for_read`` hands out a capsule over the array's own
+tensor (``torch.utils.dlpack``); ``to_dlpack_for_write`` raises, as the
+JAX package's does: writes through a capsule would bypass autograd's
+record of the tensor's versions and share the array's memory with
+another framework.  ``from_dlpack`` takes a capsule or any object with
+``__dlpack__`` without a copy.
+
 ``save``/``load`` write and read the JAX package's container (an
 ``np.savez`` archive with a ``__keys__`` entry), so one ``.params`` file
 reads in both packages.  The sparse arrays (``stype`` ``csr`` and
@@ -34,7 +41,10 @@ from ..ops import registry as _reg
 from .. import autograd as _ag
 
 __all__ = ["NDArray", "imperative_invoke", "array", "zeros", "ones", "full",
-           "waitall", "save", "load"]
+           "empty", "arange", "eye", "concat", "stack", "split", "moveaxis",
+           "maximum", "minimum", "from_numpy", "from_dlpack",
+           "to_dlpack_for_read", "to_dlpack_for_write", "waitall", "save",
+           "load"]
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -49,10 +59,11 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 def _from_numpy(a: np.ndarray, device, dtype=None) -> torch.Tensor:
     """A copy of ``a`` on ``device`` (never a view of the numpy array)."""
     dt = torch_dtype(a.dtype if dtype is None else dtype)
+    # asarray(order="C") keeps a 0-d array 0-d (ascontiguousarray does not)
     if dt == torch.bfloat16:
-        t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+        t = torch.from_numpy(np.asarray(a, dtype=np.float32, order="C"))
     else:
-        t = torch.from_numpy(np.ascontiguousarray(a))
+        t = torch.from_numpy(np.asarray(a, order="C"))
     return t.to(device=device, dtype=dt, copy=True)
 
 
@@ -109,6 +120,12 @@ class NDArray(object):
     def grad(self) -> Optional["NDArray"]:
         return self._grad
 
+    @property
+    def T(self) -> "NDArray":
+        if self.ndim < 2:
+            return self
+        return imperative_invoke("transpose", self)[0]
+
     # -- sync / host transfer ----------------------------------------------
     def wait_to_read(self):
         if self._data.is_cuda:
@@ -123,8 +140,41 @@ class NDArray(object):
             raise MXNetError("The current array is not a scalar")
         return self.asnumpy().reshape(())[()]
 
+    def item(self):
+        return self.asscalar()
+
     def __float__(self):
         return float(self.asscalar())
+
+    def __int__(self):
+        return int(self.asscalar())
+
+    # -- DLPack -------------------------------------------------------------
+    def to_dlpack_for_read(self):
+        """A DLPack capsule over this array's tensor, after its pending
+        work is done."""
+        from torch.utils import dlpack
+
+        return dlpack.to_dlpack(self.wait_to_read()._data.detach())
+
+    def to_dlpack_for_write(self):
+        """Raises, as the JAX package's does (see the module's
+        docstring), naming the supported way."""
+        raise MXNetError(
+            "to_dlpack_for_write is not supported: writes through the "
+            "capsule would bypass autograd's record of this array. Export "
+            "with to_dlpack_for_read, write in the consumer framework, and "
+            "import the result with nd.from_dlpack")
+
+    @property
+    def dlpack(self):
+        return self.to_dlpack_for_read()
+
+    def __dlpack__(self, **kwargs):
+        return self.wait_to_read()._data.detach().__dlpack__(**kwargs)
+
+    def __dlpack_device__(self):
+        return self._data.__dlpack_device__()
 
     def __bool__(self):
         if self.size == 1:
@@ -136,6 +186,10 @@ class NDArray(object):
         if not self.shape:
             raise TypeError("len() of unsized object")
         return self.shape[0]
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
 
     def __repr__(self):
         return "%s\n<NDArray %s @%s>" % (self.asnumpy(),
@@ -262,25 +316,79 @@ class NDArray(object):
             flipped[key] = value.to(self._data.dtype)
             self._data.copy_(flipped.flip(axes))
 
-    # -- shape manipulation (through the registered ops) --------------------
+    # -- methods over the registered ops --------------------------------------
+    def _op(self, name, *args, **attrs) -> "NDArray":
+        return imperative_invoke(name, self, *args, **attrs)[0]
+
     def reshape(self, *shape, **kwargs) -> "NDArray":
         if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
             shape = tuple(shape[0])
         if not shape:
             shape = kwargs.get("shape", ())
-        return imperative_invoke("Reshape", self, shape=tuple(shape))[0]
+        return self._op("Reshape", shape=tuple(shape))
+
+    def reshape_like(self, other) -> "NDArray":
+        return self._op("reshape_like", other)
+
+    def expand_dims(self, axis) -> "NDArray":
+        return self._op("expand_dims", axis=axis)
+
+    def squeeze(self, axis=None) -> "NDArray":
+        return self._op("squeeze", axis=axis)
 
     def transpose(self, *axes) -> "NDArray":
         if len(axes) == 1 and isinstance(axes[0], (list, tuple)):
             axes = tuple(axes[0])
-        return imperative_invoke("transpose", self,
-                                 axes=axes if axes else None)[0]
+        return self._op("transpose", axes=axes if axes else None)
 
     def flatten(self) -> "NDArray":
-        return imperative_invoke("Flatten", self)[0]
+        return self._op("Flatten")
+
+    def swapaxes(self, dim1, dim2) -> "NDArray":
+        return self._op("SwapAxis", dim1=dim1, dim2=dim2)
+
+    def flip(self, axis) -> "NDArray":
+        return self._op("reverse", axis=axis)
+
+    def broadcast_to(self, shape) -> "NDArray":
+        return self._op("broadcast_to", shape=tuple(shape))
+
+    def broadcast_like(self, other) -> "NDArray":
+        return self._op("broadcast_like", other)
+
+    def slice(self, begin, end, step=None) -> "NDArray":
+        return self._op("slice", begin=tuple(begin), end=tuple(end),
+                        step=tuple(step) if step else None)
+
+    def slice_axis(self, axis, begin, end) -> "NDArray":
+        return self._op("slice_axis", axis=axis, begin=begin, end=end)
+
+    def take(self, indices, axis=0, mode="clip") -> "NDArray":
+        return self._op("take", indices, axis=axis, mode=mode)
+
+    def one_hot(self, depth, on_value=1.0, off_value=0.0,
+                dtype="float32") -> "NDArray":
+        return self._op("one_hot", depth=depth, on_value=on_value,
+                        off_value=off_value, dtype=dtype)
+
+    def pick(self, index, axis=-1, keepdims=False, mode="clip") -> "NDArray":
+        return self._op("pick", index, axis=axis, keepdims=keepdims,
+                        mode=mode)
+
+    def dot(self, other, **kw) -> "NDArray":
+        return self._op("dot", other, **kw)
+
+    def clip(self, a_min, a_max) -> "NDArray":
+        return self._op("clip", a_min=a_min, a_max=a_max)
+
+    def softmax(self, axis=-1) -> "NDArray":
+        return self._op("softmax", axis=axis)
+
+    def log_softmax(self, axis=-1) -> "NDArray":
+        return self._op("log_softmax", axis=axis)
 
     def _reduce(self, op: str, axis=None, keepdims=False) -> "NDArray":
-        return imperative_invoke(op, self, axis=axis, keepdims=keepdims)[0]
+        return self._op(op, axis=axis, keepdims=keepdims)
 
     def sum(self, axis=None, keepdims=False) -> "NDArray":
         return self._reduce("sum", axis, keepdims)
@@ -288,10 +396,36 @@ class NDArray(object):
     def mean(self, axis=None, keepdims=False) -> "NDArray":
         return self._reduce("mean", axis, keepdims)
 
+    def prod(self, axis=None, keepdims=False) -> "NDArray":
+        return self._reduce("prod", axis, keepdims)
+
+    def max(self, axis=None, keepdims=False) -> "NDArray":
+        return self._reduce("max", axis, keepdims)
+
+    def min(self, axis=None, keepdims=False) -> "NDArray":
+        return self._reduce("min", axis, keepdims)
+
     def argmax(self, axis=None, keepdims=False) -> "NDArray":
         return self._reduce("argmax", axis, keepdims)
 
-    # -- arithmetic ----------------------------------------------------------
+    def argmin(self, axis=None, keepdims=False) -> "NDArray":
+        return self._reduce("argmin", axis, keepdims)
+
+    def norm(self, ord=2, axis=None, keepdims=False) -> "NDArray":
+        return self._op("norm", ord=ord, axis=axis, keepdims=keepdims)
+
+    def topk(self, axis=-1, k=1, ret_typ="indices",
+             is_ascend=False) -> "NDArray":
+        return self._op("topk", axis=axis, k=k, ret_typ=ret_typ,
+                        is_ascend=is_ascend)
+
+    def argsort(self, axis=-1, is_ascend=True) -> "NDArray":
+        return self._op("argsort", axis=axis, is_ascend=is_ascend)
+
+    def sort(self, axis=-1, is_ascend=True) -> "NDArray":
+        return self._op("sort", axis=axis, is_ascend=is_ascend)
+
+    # -- arithmetic -----------------------------------------------------------
     _BROADCAST_NAME = {"elemwise_add": "broadcast_add",
                        "elemwise_sub": "broadcast_sub",
                        "elemwise_mul": "broadcast_mul",
@@ -303,7 +437,8 @@ class NDArray(object):
             a, b = (other, self) if swap else (self, other)
             if a.shape == b.shape:
                 return imperative_invoke(op_ew, a, b)[0]
-            return imperative_invoke(self._BROADCAST_NAME[op_ew], a, b)[0]
+            return imperative_invoke(self._BROADCAST_NAME.get(
+                op_ew, "broadcast" + op_ew), a, b)[0]
         if isinstance(other, (int, float, np.generic)):
             name = reverse_sc if (swap and reverse_sc) else op_sc
             return imperative_invoke(name, self, scalar=float(other))[0]
@@ -333,17 +468,52 @@ class NDArray(object):
         return self._binary(other, "elemwise_div", "_div_scalar",
                             "_rdiv_scalar", swap=True)
 
+    def __mod__(self, other):
+        return self._binary(other, "_mod", "_mod_scalar")
+
+    def __rmod__(self, other):
+        return self._binary(other, "_mod", "_mod_scalar", "_rmod_scalar",
+                            swap=True)
+
     def __pow__(self, other):
-        if not isinstance(other, (int, float, np.generic)):
-            return NotImplemented
-        return imperative_invoke("_power_scalar", self,
-                                 scalar=float(other))[0]
+        return self._binary(other, "_power", "_power_scalar")
+
+    def __rpow__(self, other):
+        return self._binary(other, "_power", "_power_scalar",
+                            "_rpower_scalar", swap=True)
+
+    def __matmul__(self, other):
+        return self._op("dot", other)
 
     def __neg__(self):
-        return imperative_invoke("negative", self)[0]
+        return self._op("negative")
+
+    def __abs__(self):
+        return self._op("abs")
+
+    # comparisons give 1 or 0 in the left operand's dtype
+    def __eq__(self, other):
+        if other is None:
+            return False
+        return self._binary(other, "_equal", "_equal_scalar")
+
+    def __ne__(self, other):
+        if other is None:
+            return True
+        return self._binary(other, "_not_equal", "_not_equal_scalar")
 
     def __gt__(self, other):
         return self._binary(other, "_greater", "_greater_scalar")
+
+    def __ge__(self, other):
+        return self._binary(other, "_greater_equal",
+                            "_greater_equal_scalar")
+
+    def __lt__(self, other):
+        return self._binary(other, "_lesser", "_lesser_scalar")
+
+    def __le__(self, other):
+        return self._binary(other, "_lesser_equal", "_lesser_equal_scalar")
 
     def _inplace_result(self, res):
         if not _ag.is_recording() and _ag._owner(self._data) is self \
@@ -369,6 +539,20 @@ class NDArray(object):
         return self._inplace_result(self.__truediv__(other))
 
     __hash__ = object.__hash__
+
+
+def _unary_method(op):
+    def method(self) -> "NDArray":
+        return imperative_invoke(op, self)[0]
+
+    method.__name__ = op
+    method.__doc__ = "``nd.%s`` of this array." % op
+    return method
+
+
+for _op_name in ("abs", "sign", "sqrt", "square", "exp", "log", "relu",
+                 "sigmoid", "tanh", "zeros_like", "ones_like"):
+    setattr(NDArray, _op_name, _unary_method(_op_name))
 
 
 # ---------------------------------------------------------------------------
@@ -493,6 +677,92 @@ def full(shape, val, ctx=None, dtype=None, **kwargs) -> NDArray:
     return imperative_invoke("_full", shape=shape2tuple(shape),
                              value=float(val), dtype=str(np_dtype(dtype)),
                              ctx=ctx)[0]
+
+
+def empty(shape, ctx=None, dtype=None) -> NDArray:
+    return zeros(shape, ctx=ctx, dtype=dtype)
+
+
+def from_numpy(a: np.ndarray, ctx=None) -> NDArray:
+    return array(a, ctx=ctx)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None,
+           dtype=None) -> NDArray:
+    return imperative_invoke("_arange", start=float(start),
+                             stop=float(stop) if stop is not None else None,
+                             step=float(step), repeat=int(repeat),
+                             dtype=str(np_dtype(dtype)), ctx=ctx)[0]
+
+
+def eye(N, M=0, k=0, ctx=None, dtype=None) -> NDArray:
+    return imperative_invoke("_eye", N=int(N), M=int(M), k=int(k),
+                             dtype=str(np_dtype(dtype)), ctx=ctx)[0]
+
+
+def _arrays(arrays):
+    if len(arrays) == 1 and isinstance(arrays[0], (list, tuple)):
+        return tuple(arrays[0])
+    return arrays
+
+
+def concat(*arrays, dim: int = 1) -> NDArray:
+    return imperative_invoke("Concat", *_arrays(arrays), dim=dim)[0]
+
+
+def stack(*arrays, axis: int = 0) -> NDArray:
+    return imperative_invoke("stack", *_arrays(arrays), axis=axis)[0]
+
+
+def split(data, num_outputs, axis=1, squeeze_axis=False):
+    outs = imperative_invoke("SliceChannel", data, num_outputs=num_outputs,
+                             axis=axis, squeeze_axis=squeeze_axis)
+    return list(outs) if len(outs) > 1 else outs[0]
+
+
+def moveaxis(data, source, destination) -> NDArray:
+    return imperative_invoke("moveaxis", data, source=source,
+                             destination=destination)[0]
+
+
+def _commutative_binary(name, op_ew, op_sc, host_fn, host_ew):
+    def fn(lhs, rhs):
+        if not isinstance(lhs, NDArray) and not isinstance(rhs, NDArray):
+            if isinstance(lhs, (int, float, np.generic)) and \
+                    isinstance(rhs, (int, float, np.generic)):
+                return host_fn(lhs, rhs)
+            return host_ew(lhs, rhs)
+        if isinstance(rhs, NDArray) and not isinstance(lhs, NDArray):
+            lhs, rhs = rhs, lhs  # commutative
+        if not isinstance(rhs, (NDArray, int, float, np.generic)):
+            rhs = array(rhs, ctx=lhs.ctx)
+        return lhs._binary(rhs, op_ew, op_sc)
+
+    fn.__name__ = fn.__qualname__ = name
+    fn.__doc__ = "Elementwise %s of arrays or scalars, broadcasting." % name
+    return fn
+
+
+maximum = _commutative_binary("maximum", "_maximum", "_maximum_scalar",
+                              max, np.maximum)
+minimum = _commutative_binary("minimum", "_minimum", "_minimum_scalar",
+                              min, np.minimum)
+
+
+def from_dlpack(ext_tensor) -> NDArray:
+    """An array over a DLPack capsule or an object with ``__dlpack__``
+    (a torch, numpy or cupy tensor), sharing its memory."""
+    from torch.utils import dlpack
+
+    return NDArray(dlpack.from_dlpack(ext_tensor))
+
+
+def to_dlpack_for_read(data: NDArray):
+    return data.to_dlpack_for_read()
+
+
+def to_dlpack_for_write(data: NDArray):
+    return data.to_dlpack_for_write()
 
 
 def waitall():

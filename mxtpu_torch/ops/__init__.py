@@ -3,10 +3,11 @@
 Flash attention, forward and backward, is hand-written CUDA
 (``mxtpu/ops/pallas_attention.py`` -> :mod:`.flash_attention`).  The
 registry (:mod:`.registry`) holds the ops the symbolic and imperative
-layers call: the ResNet set (:mod:`.nn`), the recurrent ``RNN`` op
-(:mod:`.rnn_op`, cuDNN on the card) and ``Embedding``
-(:mod:`.indexing`), the elementwise, shape, reduction, initialization,
-random and optimizer-update ops they need.
+layers call: the dense corpus of :mod:`.elemwise`, :mod:`.reduce`,
+:mod:`.matrix`, :mod:`.init_ops` and :mod:`.indexing`, the ResNet set
+and the activations (:mod:`.nn`), the recurrent ``RNN`` op
+(:mod:`.rnn_op`, cuDNN on the card), and the random and
+optimizer-update ops the trainers need.
 """
 from . import registry
 from . import elemwise

@@ -2,7 +2,9 @@
 
 Counterpart of part of ``mxtpu/ops/nn.py``: ``FullyConnected``,
 ``Convolution``, ``Pooling``, ``BatchNorm``, ``Activation``, ``relu``,
-``softmax``, ``log_softmax``, ``Dropout`` and ``SoftmaxOutput``, with
+``sigmoid``, ``hard_sigmoid``, ``softsign``, ``softmax``, ``softmin``,
+``log_softmax``, ``softmax_cross_entropy``, ``Dropout`` and
+``SoftmaxOutput``, with
 the reference's names, attrs and NCHW/OIHW layouts.  Convolution and
 the products are torch's calls (cuDNN and cuBLAS on the card, float32
 with TF32 off: ``registry.float32_numerics``), as the JAX package
@@ -45,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError, torch_dtype
+from .matrix import clip_tensor
 from .registry import register
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -235,6 +238,21 @@ def _relu(x):
     return torch.relu(x)
 
 
+@register("sigmoid")
+def _sigmoid(x):
+    return torch.sigmoid(x)
+
+
+@register("hard_sigmoid")
+def _hard_sigmoid(x, alpha=0.2, beta=0.5):
+    return clip_tensor(alpha * x + beta, 0.0, 1.0)
+
+
+@register("softsign")
+def _softsign(x):
+    return x / (1 + torch.abs(x))
+
+
 # ---------------------------------------------------------------------------
 # Softmax family
 # ---------------------------------------------------------------------------
@@ -246,10 +264,27 @@ def _softmax(data, axis=-1, temperature=None, dtype=None, length=None):
     return out.to(torch_dtype(dtype)) if dtype else out
 
 
+@register("softmin")
+def _softmin(data, axis=-1, temperature=None, dtype=None):
+    x = -data / temperature if temperature else -data
+    return torch.softmax(x, dim=axis)
+
+
 @register("log_softmax")
 def _log_softmax(data, axis=-1, temperature=None, dtype=None):
     x = data / temperature if temperature else data
     return torch.log_softmax(x, dim=axis)
+
+
+@register("softmax_cross_entropy")
+def _softmax_cross_entropy(data, label):
+    """The summed cross-entropy of the rows of ``data`` against the
+    class ids ``label`` (a scalar), as the reference's; an id outside
+    the classes adds nothing."""
+    logp = torch.log_softmax(data, dim=-1)
+    classes = torch.arange(data.shape[-1], device=data.device)
+    hot = (label.long().unsqueeze(-1) == classes).to(data.dtype)
+    return -(logp * hot).sum()
 
 
 # ---------------------------------------------------------------------------

@@ -24,8 +24,9 @@ _generators: Dict[torch.device, torch.Generator] = {}
 _seed_value: Optional[int] = getenv_int("MXNET_TEST_SEED", 0) or None
 
 
-def seed(seed_state: int):
-    """Seed every device's generator (reference ``mx.random.seed``)."""
+def seed(seed_state: int, ctx=None):
+    """Seed every device's generator (reference ``mx.random.seed``;
+    ``ctx`` is taken for its signature: every device is reseeded)."""
     global _seed_value
     with _lock:
         _seed_value = int(seed_state)

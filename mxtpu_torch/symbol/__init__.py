@@ -1,7 +1,8 @@
 """``mxtpu_torch.sym``: the symbolic API (counterpart of
 ``mxtpu/symbol/``).  Every registered op is attached as a composer; the
 ``_contrib_*`` ops also as ``sym.contrib.*`` without the prefix, and
-``_zeros`` also as ``zeros`` (the recurrent cells' begin states).
+``_zeros`` and ``_ones`` also as ``zeros`` and ``ones`` (the recurrent
+cells' begin states).
 
 ``ZOO["resnet50_v1"]()`` is ResNet-50 v1 (1000 classes) as ``bench.py``
 builds it: ``vision.resnet50_v1`` traced by the port's gluon
@@ -13,7 +14,7 @@ holds it, node for node, to the JAX package's trace.
 import sys as _sys
 
 from .symbol import (Symbol, Variable, var, Group, load, load_json,
-                     NameManager)
+                     NameManager, AttrScope)
 from . import op_meta  # noqa: F401
 from . import register as _register_mod
 from ..ndarray.register import prefix_namespace as _prefix_namespace
@@ -22,6 +23,7 @@ _this = _sys.modules[__name__]
 _register_mod._init_symbol_module(_this)
 contrib = _prefix_namespace(_this, "_contrib_", "contrib")
 zeros = _this._zeros
+ones = _this._ones
 
 
 def _resnet50_v1():

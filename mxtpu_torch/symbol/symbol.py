@@ -11,8 +11,12 @@ arithmetic (``+ - * /``, unary minus, ``>``), ``infer_shape`` and
 
 Shape inference solves parameter shapes backward from the data shape
 (``op_meta``) and forward shapes by running each op on ``meta``
-tensors, where the JAX package runs ``jax.eval_shape``.  The graph
-passes, subgraph backends and ``group2ctx`` placement are not ported.
+tensors, where the JAX package runs ``jax.eval_shape``; ``infer_type``
+rides on the same walk.  ``AttrScope`` sets attributes on the nodes
+made inside it (``attr``, ``list_attr``, ``attr_dict`` read them).
+The graph passes and subgraph backends (``optimize``,
+``optimize_for``) and ``group2ctx`` placement are not ported: they
+raise and name ROADMAP's A17.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from ..ops.registry import OpDef, get_op
 from . import op_meta as _meta_mod
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
-           "NameManager"]
+           "NameManager", "AttrScope"]
 
 
 class NameManager(object):
@@ -64,6 +68,32 @@ class NameManager(object):
         NameManager._current.value = self._old
 
 
+class AttrScope(object):
+    """Attributes given to every node made inside the scope (MXNet's
+    ``mx.AttrScope``, e.g. ``ctx_group``); scopes nest, the inner
+    winning."""
+
+    _current = threading.local()
+
+    def __init__(self, **attrs):
+        self._attrs = attrs
+
+    @classmethod
+    def current_attrs(cls) -> Dict[str, Any]:
+        scope = getattr(cls._current, "value", None)
+        return dict(scope._attrs) if scope else {}
+
+    def __enter__(self):
+        self._old = getattr(AttrScope._current, "value", None)
+        merged = AttrScope(**(dict(self._old._attrs) if self._old else {}))
+        merged._attrs.update(self._attrs)
+        AttrScope._current.value = merged
+        return self
+
+    def __exit__(self, *args):
+        AttrScope._current.value = self._old
+
+
 class SymbolNode(object):
     __slots__ = ("op", "name", "attrs", "inputs", "is_aux", "ext_attrs",
                  "__weakref__")
@@ -75,7 +105,7 @@ class SymbolNode(object):
         self.attrs = attrs
         self.inputs = inputs
         self.is_aux = is_aux
-        self.ext_attrs: Dict[str, str] = {}
+        self.ext_attrs: Dict[str, str] = AttrScope.current_attrs()
 
     @property
     def is_variable(self) -> bool:
@@ -176,7 +206,27 @@ class Symbol(object):
         return Symbol([(node, i) for node in self._topo()
                        for i in range(node.num_outputs())])
 
+    def get_children(self) -> Optional["Symbol"]:
+        """The inputs of this single output's node, or None."""
+        if len(self._outputs) != 1 or not self._outputs[0][0].inputs:
+            return None
+        return Symbol(list(self._outputs[0][0].inputs))
+
     # -- attrs ------------------------------------------------------------
+    def attr(self, key: str) -> Optional[str]:
+        """The head node's attribute ``key`` as a string, or None."""
+        node = self._outputs[0][0]
+        v = node.ext_attrs.get(key)
+        if v is None and key in node.attrs:
+            v = str(node.attrs[key])
+        return v
+
+    def list_attr(self, recursive: bool = False) -> Dict[str, str]:
+        """The head node's attributes (``attr_dict`` has every node's)."""
+        if recursive:
+            raise MXNetError("list_attr(recursive=True) is removed; use "
+                             "attr_dict()")
+        return _node_attrs(self._outputs[0][0])
     def attr_dict(self) -> Dict[str, Dict[str, str]]:
         out = {}
         for node in self._topo():
@@ -213,6 +263,28 @@ class Symbol(object):
             raise MXNetError("infer_shape incomplete; unknown args: %s"
                              % missing)
         return arg_shapes, out_shapes, aux_shapes
+
+    def infer_type(self, *args, **kwargs):
+        """(argument, output, aux) dtypes from the given argument dtypes,
+        by name or in ``list_arguments`` order; a variable's declared
+        dtype otherwise, float32 by default.  Output dtypes come from
+        the graph where its shapes are declared, float32 elsewhere."""
+        arg_names = self.list_arguments()
+        known = {n: np_dtype(dt) for n, dt in zip(arg_names, args)
+                 if dt is not None}
+        known.update({k: np_dtype(v) for k, v in kwargs.items()
+                      if v is not None})
+        decl = {n.name: np.dtype(n.ext_attrs["__dtype__"])
+                for n in self._topo()
+                if n.is_variable and "__dtype__" in n.ext_attrs}
+        f32 = np.dtype(np.float32)
+        arg_types = [known.get(n, decl.get(n, f32)) for n in arg_names]
+        _, dtypes = _infer_graph(self, {}, partial=True, known_dtypes=known)
+        out_types = [dtypes.get(node.name if node.is_variable
+                                else ("out", id(node), idx)) or f32
+                     for node, idx in self._outputs]
+        return arg_types, out_types, [f32] * len(
+            self.list_auxiliary_states())
 
     # -- composition ------------------------------------------------------
     def __call__(self, *args, **kwargs) -> "Symbol":
@@ -281,13 +353,74 @@ class Symbol(object):
         return self._binary(other, "elemwise_div", "_div_scalar",
                             "_rdiv_scalar", swap=True)
 
-    def __neg__(self):
-        from .register import invoke_symbol
+    def __pow__(self, other):
+        return self._binary(other, "_power", "_power_scalar")
 
-        return invoke_symbol("negative", [self], {})
+    def __neg__(self):
+        return self._invoke("negative")
+
+    def __eq__(self, other):
+        if isinstance(other, (Symbol, int, float, np.generic)):
+            return self._binary(other, "_equal", "_equal_scalar")
+        return NotImplemented
+
+    def __ne__(self, other):
+        if isinstance(other, (Symbol, int, float, np.generic)):
+            return self._binary(other, "_not_equal", "_not_equal_scalar")
+        return NotImplemented
 
     def __gt__(self, other):
         return self._binary(other, "_greater", "_greater_scalar")
+
+    def __ge__(self, other):
+        return self._binary(other, "_greater_equal",
+                            "_greater_equal_scalar")
+
+    def __lt__(self, other):
+        return self._binary(other, "_lesser", "_lesser_scalar")
+
+    def __le__(self, other):
+        return self._binary(other, "_lesser_equal", "_lesser_equal_scalar")
+
+    __hash__ = object.__hash__
+
+    # -- method forms of the ops -----------------------------------------
+    def _invoke(self, op, attrs=None):
+        from .register import invoke_symbol
+
+        return invoke_symbol(op, [self], attrs or {})
+
+    def reshape(self, shape, **kw):
+        return self._invoke("Reshape", {"shape": tuple(shape)})
+
+    def transpose(self, axes=None):
+        return self._invoke("transpose",
+                            {"axes": tuple(axes) if axes else None})
+
+    def sum(self, axis=None, keepdims=False):
+        return self._invoke("sum", {"axis": axis, "keepdims": keepdims})
+
+    def mean(self, axis=None, keepdims=False):
+        return self._invoke("mean", {"axis": axis, "keepdims": keepdims})
+
+    def softmax(self, axis=-1):
+        return self._invoke("softmax", {"axis": axis})
+
+    def flatten(self):
+        return self._invoke("Flatten")
+
+    def slice_axis(self, axis, begin, end):
+        return self._invoke("slice_axis",
+                            {"axis": axis, "begin": begin, "end": end})
+
+    def expand_dims(self, axis):
+        return self._invoke("expand_dims", {"axis": axis})
+
+    def squeeze(self, axis=None):
+        return self._invoke("squeeze", {"axis": axis})
+
+    def astype(self, dtype):
+        return self._invoke("Cast", {"dtype": np_dtype(dtype).name})
 
     # -- serialization ----------------------------------------------------
     def tojson(self) -> str:
@@ -334,6 +467,19 @@ class Symbol(object):
 
         return Executor._bind(self, ctx, args, args_grad, grad_req,
                               aux_states)
+
+    def eval(self, ctx=None, **kwargs):
+        """The outputs of one forward with the arrays ``kwargs`` bound
+        by argument name."""
+        return self.bind(ctx=ctx, args=kwargs).forward()
+
+    def optimize(self, passes=None, return_report: bool = False):
+        raise MXNetError("Symbol.optimize: the graph passes are not "
+                         "ported yet (ROADMAP A17)")
+
+    def optimize_for(self, backend, args=None, aux=None, **kwargs):
+        raise MXNetError("Symbol.optimize_for: the subgraph backends are "
+                         "not ported yet (ROADMAP A17)")
 
 def _jsonable(v):
     if isinstance(v, np.dtype):
@@ -404,7 +550,8 @@ def load(fname: str) -> Symbol:
 # shapes from running each op on meta tensors
 # ---------------------------------------------------------------------------
 
-def _infer_graph(symbol: Symbol, known_shapes, partial=False):
+def _infer_graph(symbol: Symbol, known_shapes, partial=False,
+                 known_dtypes=None):
     shapes: Dict[Any, Optional[Tuple[int, ...]]] = {}
     dtypes: Dict[Any, Any] = {}
 
@@ -416,6 +563,8 @@ def _infer_graph(symbol: Symbol, known_shapes, partial=False):
         return None
 
     def var_dtype(node):
+        if known_dtypes and node.name in known_dtypes:
+            return np.dtype(known_dtypes[node.name])
         if "__dtype__" in node.ext_attrs:
             return np.dtype(node.ext_attrs["__dtype__"])
         return np.dtype(np.float32)

@@ -4,7 +4,10 @@ write; both held against `mxtpu` on the CPU.
 
 * An op output that torch returns as a view of its input (`transpose`,
   `Flatten`, `SwapAxis`, `SliceChannel`, `Reshape`, `reshape_like`,
-  `Cast` to the same dtype, inference-mode `Dropout`), `reshape`,
+  `Cast` to the same dtype, inference-mode `Dropout`, `expand_dims`,
+  `squeeze`, `moveaxis`, the `slice` family, the `broadcast_*`
+  expansions, `diag`, `BlockGrad`, `make_loss`,
+  `_identity_with_attr_like_rhs`, `Crop`, `T`), `reshape`,
   `detach` and the integer, axis-0, column and ellipsis subscripts are
   copies: a write through the result leaves the source as `mxtpu`
   leaves it.  `a[:]` is `a` itself in both packages.
@@ -35,6 +38,25 @@ VIEWS = {
         a, M.nd.zeros((3, 8), ctx=a.ctx)),
     "Cast": lambda M, a: M.nd.Cast(a, dtype="float32"),
     "Dropout": lambda M, a: M.nd.Dropout(a, p=0.3),
+    "expand_dims": lambda M, a: M.nd.expand_dims(a, axis=0),
+    "squeeze": lambda M, a: M.nd.squeeze(a),
+    "moveaxis": lambda M, a: M.nd.moveaxis(a, source=0, destination=1),
+    "reverse": lambda M, a: M.nd.reverse(a, axis=1),
+    "slice": lambda M, a: M.nd.slice(a, begin=(1, 0), end=(3, 4)),
+    "slice_axis": lambda M, a: M.nd.slice_axis(a, axis=1, begin=1, end=4),
+    "slice_like": lambda M, a: M.nd.slice_like(
+        a, M.nd.zeros((2, 3), ctx=a.ctx)),
+    "broadcast_to": lambda M, a: M.nd.broadcast_to(a, shape=(4, 6)),
+    "broadcast_axis": lambda M, a: M.nd.broadcast_axis(a, axis=0, size=4),
+    "broadcast_like": lambda M, a: M.nd.broadcast_like(a, a),
+    "diag": lambda M, a: M.nd.diag(a, k=1),
+    "BlockGrad": lambda M, a: M.nd.BlockGrad(a),
+    "make_loss": lambda M, a: M.nd.make_loss(a),
+    "identity_like_rhs": lambda M, a: M.nd._identity_with_attr_like_rhs(
+        a, a),
+    "Crop": lambda M, a: M.nd.Crop(M.nd.reshape(a, shape=(1, 1, 4, 6)),
+                                   h_w=(2, 3), offset=(1, 1)),
+    "T": lambda M, a: a.T,
     "reshape": lambda M, a: a.reshape((2, 12)),
     "detach": lambda M, a: a.detach(),
     "int": lambda M, a: a[1],

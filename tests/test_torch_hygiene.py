@@ -130,6 +130,40 @@ def test_entry_points_without_a_device_need_a_card(monkeypatch, tmp_path):
         context.resolve("meta")
 
 
+def test_the_import_check_covers_the_op_corpus_and_the_zoo():
+    names = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for mod in ("ops/elemwise", "ops/reduce", "ops/matrix", "ops/init_ops",
+                "ops/indexing", "ops/nn", "ndarray/ndarray", "symbol/symbol",
+                "autograd", "name", "gluon/model_zoo/vision/__init__",
+                "gluon/model_zoo/vision/alexnet",
+                "gluon/model_zoo/vision/densenet",
+                "gluon/model_zoo/vision/inception",
+                "gluon/model_zoo/vision/mobilenet",
+                "gluon/model_zoo/vision/squeezenet",
+                "gluon/model_zoo/vision/vgg"):
+        assert os.path.join("mxtpu_torch", mod + ".py") in names, mod
+
+
+def _first_forward(net):
+    """``initialize()`` with no device, then a forward: the deferred
+    Parameters take their device when the forward gives their shapes."""
+    net.initialize()
+    net(tmx.nd.zeros((1, 3, 32, 32), ctx=tmx.cpu()))
+
+
+def test_the_zoo_and_the_creation_functions_need_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    vision = tmx.gluon.model_zoo.vision
+    for call in (lambda: _first_forward(vision.get_model("mobilenetv2_1.0")),
+                 lambda: vision.densenet121().initialize(),
+                 lambda: tmx.nd.arange(3),
+                 lambda: tmx.nd.eye(2),
+                 lambda: tmx.nd.empty((2,)),
+                 lambda: tmx.nd.from_numpy(np.zeros(2))):
+        with pytest.raises(MXNetError, match="no CUDA device"):
+            call()
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_fails_without_a_card(alone, tmp_path):
     """Run with no arguments, from the repo root and from a

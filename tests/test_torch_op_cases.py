@@ -1,0 +1,466 @@
+"""The cases of the PyTorch port's op sweep: for every canonical op the
+port registers, the calls to make (numpy inputs from fixed seeds, the
+attrs, the inputs whose gradients count, whether the outputs must be
+equal), with the ties and bounds where torch's defaults differ from the
+reference's; and how a call is run (`run_call`) and judged
+(`error_units`).  `tests/test_torch_ops.py` runs them against the JAX
+package on the CPU; `chip_smoke.py`'s ops phase runs them on the card
+against the CPU.  This file imports neither JAX nor the JAX package,
+and holds no test of its own.
+"""
+import numpy as np
+
+
+def grad_inputs(opdef, c):
+    """The inputs of the call ``c`` whose gradients count: those it
+    names, else every float input of a differentiable op."""
+    if c.grad is not None:
+        return tuple(c.grad)
+    if not opdef.differentiable:
+        return ()
+    return tuple(i for i, x in enumerate(c.inputs)
+                 if np.issubdtype(x.dtype, np.floating))
+
+
+def run_call(mx, name, c, ctx, grad_idx):
+    """(outputs, gradients of the inputs ``grad_idx``) of ``mx.nd.<name>``
+    on ``ctx``, as numpy; the gradients are of the outputs' sum weighted
+    by normal draws from seeds 7, 8..."""
+    xs = [mx.nd.array(x, ctx=ctx, dtype=x.dtype) for x in c.inputs]
+    attrs = dict(c.attrs)
+    if not xs:
+        attrs["ctx"] = ctx
+    fn = getattr(mx.nd, name)
+    if not grad_idx:
+        out = fn(*xs, **attrs)
+        outs = out if isinstance(out, list) else [out]
+        return [o.asnumpy() for o in outs], []
+    for i in grad_idx:
+        xs[i].attach_grad()
+    with mx.autograd.record():
+        out = fn(*xs, **attrs)
+    outs = out if isinstance(out, list) else [out]
+    heads = [mx.nd.array(np.random.RandomState(7 + k).normal(
+        0, 1, o.shape).astype(np.float32), ctx=ctx)
+        for k, o in enumerate(outs)]
+    mx.autograd.backward(outs, heads)
+    return [o.asnumpy() for o in outs], [xs[i].grad.asnumpy()
+                                         for i in grad_idx]
+
+
+def error_units(got, want, exact, rtol, atol):
+    """The error of ``got`` against ``want`` in units of the bound (at
+    most 1 passes): |got - want| over rtol |want| plus atol times the
+    output's largest magnitude; for integer results and ``exact``, 0 when
+    equal, else inf."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        return float("inf")
+    if exact or not np.issubdtype(want.dtype, np.floating):
+        return 0.0 if np.array_equal(got, want) else float("inf")
+    if not np.issubdtype(got.dtype, np.floating):
+        return float("inf")
+    g, w = got.astype(np.float64), want.astype(np.float64)
+    if not np.array_equal(np.isnan(g), np.isnan(w)):
+        return float("inf")
+    ok = ~np.isnan(w)
+    if not ok.any():
+        return 0.0
+    scale = max(1.0, float(np.abs(w[ok]).max()))
+    return float((np.abs(g - w)[ok] /
+                  (rtol * np.abs(w[ok]) + atol * scale)).max())
+
+
+def _a(*shape, lo=-1.0, hi=1.0, seed=0, dtype=np.float32):
+    return np.random.RandomState(seed).uniform(lo, hi, shape).astype(dtype)
+
+
+def _away(*shape, lo=0.2, hi=2.0, seed=0):
+    """Values of both signs with magnitudes in [lo, hi]."""
+    rng = np.random.RandomState(seed)
+    mag = rng.uniform(lo, hi, shape)
+    return (mag * rng.choice([-1.0, 1.0], shape)).astype(np.float32)
+
+
+def _f(values):
+    return np.asarray(values, np.float32)
+
+
+class Call(object):
+    """One call of an op: its inputs (numpy), its attrs, the inputs whose
+    gradients are compared (None: every float input of a differentiable
+    op), and whether the outputs must be equal."""
+
+    def __init__(self, *inputs, grad=None, exact=False, **attrs):
+        self.inputs, self.attrs = inputs, attrs
+        self.grad, self.exact = grad, exact
+
+
+CASES = {}
+
+
+def case(name, *calls):
+    assert name not in CASES, name
+    CASES[name] = calls
+
+
+# ---------------------------------------------------------------------------
+# elementwise: unary
+# ---------------------------------------------------------------------------
+
+HALVES = _f([[-2.5, -1.5, -0.5, 0.5], [1.5, 2.5, 0.3, -0.7], [0.0, 3.5,
+                                                             -3.5, 1.49]])
+
+for _n in ("sin", "cos", "tanh", "arctan", "arcsinh", "exp", "expm1",
+           "square", "negative", "sinh", "cosh", "erf", "degrees",
+           "radians", "sigmoid", "softsign"):
+    case(_n, Call(_a(3, 4, lo=-2, hi=2)))
+for _n in ("log", "log10", "log2", "sqrt", "rsqrt"):
+    case(_n, Call(_a(3, 4, lo=0.2, hi=3)))
+case("log1p", Call(_a(3, 4, lo=-0.5, hi=2)))
+case("tan", Call(_a(3, 4, lo=-1.2, hi=1.2)))
+for _n in ("arcsin", "arccos", "arctanh"):
+    case(_n, Call(_a(3, 4, lo=-0.9, hi=0.9)))
+case("erfinv", Call(_a(3, 4, lo=-0.9, hi=0.9)))
+case("arccosh", Call(_a(3, 4, lo=1.1, hi=3)))
+for _n in ("cbrt", "rcbrt", "reciprocal"):
+    case(_n, Call(_away(3, 4)))
+case("abs", Call(np.concatenate([_away(2, 4), np.zeros((1, 4),
+                                                        np.float32)])))
+case("gamma", Call(_a(3, 4, lo=0.3, hi=4)),
+     Call(_f([-0.5, -1.5, -2.3, -3.7, 0.7, 5.5])))
+case("gammaln", Call(_a(3, 4, lo=0.3, hi=4)))
+for _n in ("ceil", "floor", "trunc", "fix", "rint", "round", "sign"):
+    case(_n, Call(HALVES, exact=True))
+case("logical_not", Call(_f([[0, 1.5, -2], [0, 0, 3]]), exact=True))
+case("relu", Call(_away(3, 4)))
+case("hard_sigmoid", Call(_away(3, 4, lo=0.1, hi=4)),
+     # at alpha 0.25 and beta 0.5, -2 and 2 land on the bounds exactly
+     Call(_f([-3, -2, -1, 0, 1, 2, 3]), alpha=0.25, beta=0.5))
+case("Activation", *[Call(_away(3, 4), act_type=t) for t in
+                     ("relu", "sigmoid", "tanh", "softrelu", "softsign")])
+case("_copy", Call(_a(3, 4)))
+# values only: the reference's backward takes no float32 head for a
+# float16 output, and an int32 output has no gradient
+case("Cast", Call(_a(3, 4, lo=-3, hi=3), dtype="float16", grad=()),
+     Call(_a(3, 4, lo=-3, hi=3), dtype="int32", grad=()))
+case("zeros_like", Call(_a(3, 4), grad=()))  # the gradient is zero
+case("ones_like", Call(_a(3, 4), grad=()))
+case("shape_array", Call(_a(2, 3, 4)))
+case("size_array", Call(_a(2, 3, 4)))
+case("make_loss", Call(_a(3, 4)))
+# values here; the gradient (zero) in test_torch_ops.py
+case("BlockGrad", Call(_a(3, 4, seed=3), grad=()))
+
+
+
+# ---------------------------------------------------------------------------
+# elementwise: binary, broadcast, scalar
+# ---------------------------------------------------------------------------
+
+A, B = _a(3, 4, seed=1), _a(3, 4, seed=2)
+TIED = B.copy()
+TIED[:, ::2] = A[:, ::2]  # half the positions tie
+MOD_A = _f([[-3, 3, -3.5, 4.25], [7, -7, 0.5, -0.5]])
+MOD_B = _f([[2, -2, 2, -1.5], [-3, 3, -0.7, 0.7]])
+
+case("elemwise_add", Call(A, B))
+case("elemwise_sub", Call(A, B))
+case("elemwise_mul", Call(A, B))
+case("elemwise_div", Call(A, _away(3, 4, seed=2)))
+case("_grad_add", Call(A, B))
+case("_hypot", Call(A, B))
+case("_power", Call(_a(3, 4, lo=0.3, hi=2), B))
+case("_maximum", Call(A, TIED))
+case("_minimum", Call(A, TIED))
+case("_mod", Call(MOD_A, MOD_B))
+for _n in ("_equal", "_not_equal", "_greater", "_greater_equal", "_lesser",
+           "_lesser_equal"):
+    case(_n, Call(A, TIED, exact=True))
+LOGIC_A = _f([[0, 1, 0, -2], [3, 0, 0.5, 0]])
+LOGIC_B = _f([[0, 0, 2, -1], [0, 1, 0.5, 0]])
+for _n in ("_logical_and", "_logical_or", "_logical_xor"):
+    case(_n, Call(LOGIC_A, LOGIC_B, exact=True))
+
+BA, BB = _a(3, 1, 4, seed=4), _a(1, 5, 4, seed=5)
+BB_TIED = np.broadcast_to(BA, (3, 5, 4)).copy()
+BB_TIED[:, 1::2] = _a(3, 2, 4, seed=6)
+for _n in ("broadcast_add", "broadcast_sub", "broadcast_mul",
+           "broadcast_hypot"):
+    case(_n, Call(BA, BB))
+case("broadcast_div", Call(BA, _away(1, 5, 4, seed=5)))
+case("broadcast_power", Call(_a(3, 1, 4, lo=0.3, hi=2), BB))
+case("broadcast_maximum", Call(BA, BB_TIED))
+case("broadcast_minimum", Call(BA, BB_TIED))
+case("broadcast_mod", Call(_f([[-3], [3]]), _f([[2, -2]])),
+     Call(MOD_A.reshape(2, 1, 4), MOD_B.reshape(1, 2, 4)))
+for _n in ("broadcast_equal", "broadcast_not_equal", "broadcast_greater",
+           "broadcast_greater_equal", "broadcast_lesser",
+           "broadcast_lesser_equal"):
+    case(_n, Call(BA, BB_TIED, exact=True))
+for _n in ("broadcast_logical_and", "broadcast_logical_or",
+           "broadcast_logical_xor"):
+    case(_n, Call(LOGIC_A[:, None, :], LOGIC_B[None], exact=True))
+case("broadcast_axis", Call(_a(3, 1, 4), axis=1, size=5),
+     Call(_a(1, 1, 4), axis=(0, 1), size=(2, 3)))
+case("broadcast_to", Call(_a(3, 1, 4), shape=(3, 5, 4)),
+     Call(_a(1, 2, 1), shape=(4, 0, 3)))  # 0 keeps the dimension
+case("broadcast_like", Call(_a(3, 1, 4), _a(3, 5, 4), grad=(0,)))
+
+INTS = np.array([[-7, -3, 0, 4], [5, 9, -1, 2]], np.int32)
+case("_plus_scalar", Call(A, scalar=0.75), Call(INTS, scalar=2.5))
+case("_minus_scalar", Call(A, scalar=0.75), Call(INTS, scalar=-2.5))
+case("_rminus_scalar", Call(A, scalar=0.75))
+case("_mul_scalar", Call(A, scalar=-1.5), Call(INTS, scalar=2.5))
+case("_div_scalar", Call(A, scalar=-1.5), Call(INTS, scalar=2.5))
+case("_rdiv_scalar", Call(_away(3, 4), scalar=2.0))
+case("_mod_scalar", Call(MOD_A, scalar=2.0), Call(MOD_A, scalar=-1.5),
+     Call(INTS, scalar=3))
+case("_rmod_scalar", Call(MOD_B, scalar=-3.0), Call(MOD_B, scalar=4.5))
+case("_power_scalar", Call(_a(3, 4, lo=0.3, hi=2), scalar=2.5),
+     Call(INTS, scalar=2))
+case("_rpower_scalar", Call(A, scalar=1.7))
+case("_hypot_scalar", Call(A, scalar=0.5))
+SC = _f([[-1, -0.5, 0, 0.5], [1, 0.5, 0.25, 0.5]])
+case("_maximum_scalar", Call(SC, scalar=0.5))
+case("_minimum_scalar", Call(SC, scalar=0.5))
+case("_scatter_plus_scalar", Call(A, scalar=0.75))
+case("_scatter_minus_scalar", Call(A, scalar=0.75))
+for _n in ("_equal_scalar", "_not_equal_scalar", "_greater_scalar",
+           "_greater_equal_scalar", "_lesser_scalar",
+           "_lesser_equal_scalar", "_logical_and_scalar",
+           "_logical_or_scalar", "_logical_xor_scalar"):
+    case(_n, Call(SC, scalar=0.5, exact=True), Call(SC, scalar=0.0,
+                                                     exact=True))
+case("smooth_l1", Call(_a(3, 4, lo=-3, hi=3), scalar=1.0),
+     Call(_a(3, 4, lo=-3, hi=3), scalar=2.0))
+case("add_n", Call(A, B, _a(3, 4, seed=9)))
+
+# ---------------------------------------------------------------------------
+# reductions
+# ---------------------------------------------------------------------------
+
+X3 = _a(2, 3, 4, seed=11)
+MAXTIE = _f([[1, 3, 3, 0], [2, 2, 2, -1], [-1, 5, 0, 5]])
+WITH_ZERO = _a(3, 4, lo=0.5, hi=1.5, seed=12)
+WITH_ZERO[1, 2] = 0.0
+WITH_NAN = _a(3, 4, seed=13)
+WITH_NAN[0, 1] = WITH_NAN[2, 3] = np.nan
+
+case("sum", Call(X3), Call(X3, axis=(0, 2), keepdims=True),
+     Call(X3, axis=1, exclude=True), Call(X3, axis=()))
+case("mean", Call(X3, axis=1), Call(X3, axis=(0, 2), keepdims=True),
+     # a 1-D array with its only axis excluded reduces nothing
+     Call(_a(5), axis=0, exclude=True))
+case("prod", Call(_a(2, 3, 4, lo=0.5, hi=1.5)), Call(WITH_ZERO, axis=1),
+     Call(_a(2, 3, 4, lo=0.5, hi=1.5), axis=(0, 2), keepdims=True))
+case("nansum", Call(WITH_NAN, axis=1), Call(WITH_NAN))
+case("nanprod", Call(WITH_NAN, axis=1), Call(WITH_NAN))
+case("max", Call(MAXTIE, axis=1), Call(MAXTIE), Call(X3, axis=(0, 2),
+                                                      keepdims=True))
+case("min", Call(-MAXTIE, axis=1), Call(-MAXTIE), Call(X3, axis=0,
+                                                        exclude=True))
+case("norm", Call(_away(3, 4)), Call(_away(3, 4), ord=1, axis=1),
+     Call(_away(2, 3, 4), axis=(1, 2), keepdims=True))
+case("_square_sum", Call(X3, axis=1), Call(X3, axis=(0, 2), keepdims=True))
+case("argmax", Call(MAXTIE, axis=1, exact=True), Call(MAXTIE, exact=True),
+     Call(X3, axis=0, keepdims=True, exact=True))
+case("argmin", Call(-MAXTIE, axis=1, exact=True), Call(-MAXTIE, exact=True))
+case("argmax_channel", Call(MAXTIE, exact=True))
+case("pick", Call(_a(3, 4), _f([0, 3, 7]), grad=(0,)),
+     Call(_a(3, 4), _f([-1, 5, 2]), mode="wrap", grad=(0,)),
+     Call(_a(3, 4, 2), _f([[0, 1], [2, 3], [1, 9]]), axis=1, keepdims=True,
+          grad=(0,)))
+
+# ---------------------------------------------------------------------------
+# shapes, slices, products
+# ---------------------------------------------------------------------------
+
+case("Reshape", Call(X3, shape=(0, -1)), Call(X3, shape=(-3, 0)),
+     Call(X3, shape=(-4, 1, 2, -2)), Call(X3, shape=(4, -1), reverse=True))
+case("reshape_like", Call(X3, _a(4, 6), grad=(0,)))
+case("Flatten", Call(X3))
+case("transpose", Call(X3), Call(X3, axes=(1, 0, 2)))
+case("where", Call(_f([[1, 0, 2, 0], [0, 0, 1, 1], [1, 1, 0, 0]]), A, B,
+                   grad=(1, 2)))
+case("SwapAxis", Call(X3, dim1=0, dim2=2))
+case("stack", Call(A, B, axis=1))
+case("Concat", Call(X3, _a(2, 1, 4), dim=1))
+case("_rnn_param_concat", Call(A, _a(5)))
+case("SliceChannel", Call(_a(2, 4, 3), num_outputs=2),
+     Call(_a(2, 4, 3), num_outputs=4, axis=1, squeeze_axis=True))
+case("one_hot", Call(_f([0, 2, 5, -1, 3]), depth=4),
+     Call(_f([[1, 0], [3, 2]]), depth=4, on_value=2.0, off_value=-1.0))
+case("dot", Call(_a(3, 4), _a(4, 5, seed=1)),
+     Call(_a(4, 3), _a(5, 4, seed=1), transpose_a=True, transpose_b=True),
+     Call(_a(2, 3, 4), _a(4, 5, seed=1)), Call(_a(4), _a(4, seed=1)))
+case("batch_dot", Call(_a(2, 3, 4), _a(2, 4, 5, seed=1)),
+     Call(_a(2, 4, 3), _a(2, 5, 4, seed=1), transpose_a=True,
+          transpose_b=True))
+case("einsum", Call(_a(2, 3, 4), _a(2, 4, 5, seed=1),
+                    subscripts="bij,bjk->bik"),
+     Call(_a(3, 4), subscripts="ij->j"))
+case("_onnx_MatMul", Call(_a(2, 3, 4), _a(4, 5, seed=1)),
+     Call(_a(2, 1, 3, 4), _a(3, 4, 2, seed=1)))
+case("khatri_rao", Call(_a(3, 2), _a(4, 2, seed=1)),
+     Call(_a(2, 3), _a(2, 3, seed=1), _a(3, 3, seed=2)))
+case("expand_dims", Call(X3, axis=1), Call(X3, axis=-1))
+case("squeeze", Call(_a(2, 1, 3, 1)), Call(_a(2, 1, 3, 1), axis=1),
+     Call(_a(2, 1, 3, 1), axis=(1, 3)))
+case("moveaxis", Call(X3, source=0, destination=2),
+     Call(X3, source=-1, destination=0))
+case("reverse", Call(X3, axis=1), Call(X3, axis=(0, 2)))
+case("repeat", Call(X3, repeats=2, axis=1), Call(A, repeats=3))
+case("tile", Call(X3, reps=(2, 1, 3)), Call(X3, reps=(2,)),
+     Call(A, reps=(2, 1, 2)))
+case("depth_to_space", Call(_a(2, 8, 3, 2), block_size=2))
+case("space_to_depth", Call(_a(2, 2, 6, 4), block_size=2))
+case("diag", Call(_a(4)), Call(_a(4), k=-1), Call(_a(3, 4), k=1),
+     Call(_a(2, 3, 4), axis1=1, axis2=2))
+case("slice", Call(X3, begin=(0, 1), end=(2, 3)),
+     Call(X3, begin=(None, 0, 1), end=(None, 3, 4), step=(1, 2, 2)),
+     Call(X3, begin=(1, 2), end=(None, 0), step=(-1, -1)),
+     Call(X3, begin=(None, None, 3), end=(None, None, None),
+          step=(None, None, -2)))
+case("slice_axis", Call(X3, axis=2, begin=1, end=3),
+     Call(X3, axis=-2, begin=-2, end=None))
+case("slice_like", Call(X3, _a(1, 2, 3), grad=(0,)),
+     Call(X3, _a(2, 2, 2), axes=(1, 2), grad=(0,)))
+case("_slice_assign", Call(X3, _a(2, 2, 2, seed=3), begin=(0, 1, 1),
+                           end=(2, 3, 3)),
+     Call(X3, _a(2, 2, 2, seed=3), begin=(None, 2, 3),
+          end=(None, 0, None), step=(1, -1, -2)))
+case("_slice_assign_scalar", Call(X3, scalar=0.5, begin=(0, 1), end=(1, 3)),
+     Call(X3, scalar=-2.0, begin=(None, None, 3), end=(None, None, 0),
+          step=(1, 1, -2)))
+CLIP = _f([[-1.0, -0.5, 0.0, 0.5], [1.0, 0.25, -0.25, 0.5]])
+case("clip", Call(CLIP, a_min=-0.5, a_max=0.5),
+     Call(_a(3, 4, lo=-8, hi=8), a_min=0.0, a_max=6.0))
+case("Pad", Call(_a(2, 3, 4, 5), mode="constant",
+                 pad_width=(0, 0, 0, 0, 1, 2, 2, 1), constant_value=0.5),
+     Call(_a(2, 3, 4, 5), mode="edge", pad_width=(0, 0, 0, 0, 2, 1, 1, 3)),
+     Call(_a(2, 3, 4, 5), mode="reflect",
+          pad_width=(0, 0, 0, 0, 1, 2, 3, 1)))
+case("Crop", Call(_a(2, 3, 6, 7), h_w=(3, 4), offset=(1, 2)),
+     Call(_a(2, 3, 6, 7), h_w=(3, 4), center_crop=True),
+     Call(_a(2, 3, 6, 7), _a(1, 1, 4, 5), num_args=2, grad=(0,)))
+
+# ---------------------------------------------------------------------------
+# initialization
+# ---------------------------------------------------------------------------
+
+case("_zeros", Call(shape=(2, 3)), Call(shape=(4,), dtype="int32"))
+case("_ones", Call(shape=(2, 3)), Call(shape=(4,), dtype="int32"))
+case("_full", Call(shape=(2, 3), value=2.5))
+case("_arange", Call(start=2.0, stop=9.0, step=2.0),
+     Call(start=5.0), Call(start=0.0, stop=3.0, repeat=2),
+     Call(start=1.0, stop=-2.0, step=-0.5, dtype="float32"))
+case("_eye", Call(N=3), Call(N=3, M=5, k=1), Call(N=4, M=3, k=-2))
+case("_identity_with_attr_like_rhs", Call(A, B, grad=(0,)))
+
+# ---------------------------------------------------------------------------
+# indexing and ordering
+# ---------------------------------------------------------------------------
+
+SORTTIE = _f([[3, 1, 2, 1, 3, 0], [2, 2, 2, 5, 5, -1], [0, 4, 4, 4, 1, 1]])
+case("take", Call(_a(5, 3), _f([[0, 4], [2, 9]]), grad=(0,)),
+     Call(_a(3, 5), _f([-1, 6, 2]), axis=1, mode="wrap", grad=(0,)))
+case("batch_take", Call(_a(3, 4), _f([0, 3, 2]), grad=(0,)))
+case("gather_nd", Call(_a(3, 4, 2), _f([[0, 2, 1], [1, 3, 0]]), grad=(0,)))
+# distinct indices: with repeated ones, scatter_nd sums and
+# _scatter_set_nd keeps one value, which the reference leaves open
+case("scatter_nd", Call(_a(3, 2), _f([[0, 2, 1], [1, 3, 0]]),
+                        shape=(3, 4, 2), grad=(0,)))
+case("_scatter_set_nd", Call(_a(3, 4), _a(3, seed=1),
+                             _f([[0, 2, 1], [1, 3, 0]]), shape=(3, 4),
+                             grad=(0, 1)))
+case("sort", Call(SORTTIE), Call(SORTTIE, is_ascend=False),
+     Call(SORTTIE, axis=0, is_ascend=False), Call(SORTTIE, axis=None))
+case("argsort", Call(SORTTIE, exact=True),
+     Call(SORTTIE, is_ascend=False, exact=True),
+     Call(SORTTIE, axis=0, exact=True), Call(SORTTIE, dtype="int32",
+                                             exact=True))
+case("topk", *[Call(SORTTIE, k=3, ret_typ=r, is_ascend=asc, exact=True)
+               for r in ("indices", "value", "both", "mask")
+               for asc in (False, True)],
+     Call(SORTTIE, axis=0, k=2, ret_typ="both", exact=True))
+case("_ravel_multi_index", Call(_f([[0, 1, 2], [3, 0, 4]]), shape=(3, 5)))
+case("_unravel_index", Call(_f([0, 7, 14, 9]), shape=(3, 5)))
+case("_histogram", Call(_a(50, lo=-2, hi=2), bin_cnt=6, range=(-1.5, 1.5)))
+case("_contrib_boolean_mask", Call(_a(4, 3), _f([1, 0, 1, 0]), grad=(0,)))
+case("_contrib_index_copy", Call(_a(5, 3), _f([3, 0]), _a(2, 3, seed=1),
+                                 grad=(0, 2)))
+case("_contrib_getnnz", Call(_f([[0, 1, 0], [2, 0, 0]])),
+     Call(_f([[0, 1, 0], [2, 0, 0]]), axis=0))
+case("_contrib_count_sketch", Call(_a(3, 6), _f([0, 2, 1, 2, 3, 0]),
+                                   _f([1, -1, 1, 1, -1, 1]), out_dim=4,
+                                   grad=(0,)))
+case("Embedding", Call(_f([[0, 2.7], [4, -1]]), _a(5, 3), input_dim=5,
+                       output_dim=3, grad=(1,)))
+case("cast_storage", Call(A, stype="default"))
+case("_sparse_retain", Call(_a(4, 3), _f([0, 2]), grad=(0,)))
+
+# ---------------------------------------------------------------------------
+# nn
+# ---------------------------------------------------------------------------
+
+case("FullyConnected", Call(_a(3, 2, 2), _a(5, 4, seed=1), _a(5, seed=2),
+                            num_hidden=5),
+     Call(_a(3, 2, 4), _a(5, 4, seed=1), num_hidden=5, no_bias=True,
+          flatten=False))
+case("Convolution", Call(_a(2, 4, 6, 5), _a(6, 2, 3, 3, seed=1),
+                         _a(6, seed=2), kernel=(3, 3), num_filter=6,
+                         num_group=2, stride=(2, 1), pad=(1, 1)),
+     Call(_a(2, 3, 7), _a(4, 3, 3, seed=1), kernel=(3,), num_filter=4,
+          no_bias=True, dilate=(2,)))
+case("Pooling", Call(_a(2, 3, 6, 5), kernel=(2, 2), stride=(2, 2),
+                     pool_type="max"),
+     Call(_a(2, 3, 6, 5), kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+          pool_type="avg"),
+     Call(_a(2, 3, 6, 5), kernel=(1, 1), global_pool=True, pool_type="avg"))
+case("BatchNorm", Call(_a(4, 3, 2, 2, lo=-2, hi=3), _a(3, lo=0.5, hi=1.5),
+                       _a(3, seed=1), np.zeros(3, np.float32),
+                       np.ones(3, np.float32), fix_gamma=False,
+                       grad=(0, 1, 2)))
+case("softmax", Call(_a(3, 4, lo=-3, hi=3)),
+     Call(_a(3, 4, lo=-3, hi=3), axis=0, temperature=2.0))
+case("log_softmax", Call(_a(3, 4, lo=-3, hi=3)),
+     Call(_a(3, 4, lo=-3, hi=3), axis=0))
+case("softmin", Call(_a(3, 4, lo=-3, hi=3)),
+     Call(_a(3, 4, lo=-3, hi=3), axis=0, temperature=0.5))
+case("softmax_cross_entropy", Call(_a(3, 4, lo=-3, hi=3), _f([0, 3, 1]),
+                                   grad=(0,)))
+case("SoftmaxOutput", Call(_a(3, 4, lo=-3, hi=3), _f([0, 3, 1]), grad=(0,)),
+     Call(_a(3, 4, lo=-3, hi=3), _f([0, 3, 1]), grad_scale=2.0,
+          normalization="batch", grad=(0,)))
+# head dim 16, the smallest the card's kernels take
+case("_contrib_flash_attention",
+     Call(_a(1, 2, 8, 16), _a(1, 2, 8, 16, seed=1), _a(1, 2, 8, 16, seed=2)),
+     Call(_a(1, 2, 8, 16), _a(1, 2, 8, 16, seed=1), _a(1, 2, 8, 16, seed=2),
+          causal=True, sm_scale=0.3))
+RNN_PARAMS = 4 * 3 * (2 + 3) + 2 * 4 * 3   # lstm, input 2, hidden 3
+case("RNN", Call(_a(4, 2, 2), _a(RNN_PARAMS, seed=1), _a(1, 2, 3, seed=2),
+                 _a(1, 2, 3, seed=3), state_size=3, num_layers=1,
+                 mode="lstm", state_outputs=True))
+
+# optimizer updates: the new values they return
+W, G = _a(3, 4), _a(3, 4, seed=1)
+case("sgd_update", Call(W, G, lr=0.1, wd=0.01, rescale_grad=0.5))
+case("sgd_mom_update", Call(W, G, _a(3, 4, seed=2), lr=0.1, momentum=0.9,
+                            wd=0.01, clip_gradient=0.3))
+case("adam_update", Call(W, G, _a(3, 4, seed=2), _a(3, 4, lo=0, hi=1,
+                                                     seed=3), lr=0.01,
+                         wd=0.001))
+case("_sparse_adagrad_update", Call(W, G, _a(3, 4, lo=0, hi=1, seed=2),
+                                    lr=0.1, wd=0.01))
+
+
+# random draws: shape, finiteness and moments (name -> attrs, mean, std)
+MOMENTS = {"_random_uniform": (dict(low=-1.0, high=3.0), 1.0,
+                               4 / np.sqrt(12)),
+           "_random_normal": (dict(loc=2.0, scale=0.5), 2.0, 0.5)}
+for _n in MOMENTS:
+    case(_n)
+# outside training Dropout is the identity; its draws are held by
+# moments where it trains
+case("Dropout", Call(_a(3, 4), p=0.5, grad=()))
