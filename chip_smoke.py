@@ -256,7 +256,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    both workers see the same batches, so a round's summed gradient at
    half the rescale is the local step's.  No flash-attention kernel may
    launch in either phase (counted in the workers too).
-12. ops    -- every canonical op the port registers (207; the cases of
+12. ops    -- every canonical op the port registers (241; the cases of
    ``tests/test_torch_op_cases.py``: numpy inputs from fixed seeds, with
    the ties of max/min/sort/argsort/topk, clip's bounds, rounding at .5
    and mod with mixed signs) on the card against the same call on the
@@ -298,6 +298,44 @@ Phases, each of which fails the run (non-zero exit) on any error:
    alexnet) at full width, Xavier, hybridized: a batch-8 forward, finite
    and (8, 1000), its ms, and batch 1 against the CPU within
    ``ZOO_CPU_TOL``.  Every line of numbers names the card.
+14. imagenet -- BASELINE config #4's one-device half: the script
+   ``examples/image-classification/train_imagenet.py`` itself, loaded
+   into the port by ``tests/test_torch_example_port.py`` (its ``common``
+   and ``symbols`` helpers' imports renamed, indented ones too), with
+   ``IMAGENET_ARGS``: ResNet-50 v1, 1000 classes, 224², batch 128, a
+   ``device`` store, NAG lr 0.1 momentum 0.9 wd 1e-4, MSRA, top-5,
+   2 epochs of 20 batches of its synthetic data, fp32 with TF32 off.
+   The row ``imagenet_resnet50_nag``: ms a step and images/s over the
+   last epoch (each batch's end read after the metrics fetched its
+   outputs), the host's split (forward, backward, update), the
+   per-parameter updates a step, peak memory, busy, idle share and
+   operations of one profiled step of the trained Module; the
+   Speedometer's lines with top-5 must print, both epochs' checkpoints
+   exist, the loss is finite and no flash kernel launches.  Then one
+   NAG step of the net at batch 2 against the CPU, as
+   ``resnet_step_check`` holds the SGD step (``STEP_RULES``).
+15. optim  -- every registered optimizer (16) on ResNet-50 v1's tree
+   (161 parameters, the gradients of one batch-8 backward on the card):
+   three ``update_multi`` steps on the card and on the CPU from the
+   same state with ``OPTIM_COMMON`` (wd, clip_gradient, rescale_grad),
+   every weight and state within ``OPTIM_TOL``; SGD, NAG and Adam with
+   ``multi_precision`` on bf16 weights (masters within ``OPTIM_TOL``,
+   bf16 weights within one bf16 ulp); SGLD's noise within 5 standard
+   errors of N(0, 3 lr); each prints its device busy ms (one profiled
+   call) and its host ms an
+   ``update_multi``.  A NAG Module restored by ``Module.load(...,
+   load_optimizer_states=True)`` takes the next step bit for bit
+   (cuDNN deterministic).
+16. random -- every sampler (``MOMENTS``) draws 2^20 values on the card:
+   mean and variance within 5 standard errors, a KS test (continuous)
+   or a chi-squared test (discrete) against ``scipy.stats`` (p above
+   1e-6); the multinomial's frequencies; ``_sample_unique_zipfian`` at
+   (512, 256) of 10,000 classes unique in each row, its inclusion
+   frequencies within 5 binomial standard errors of the CPU's;
+   ``_shuffle`` a permutation; ``set_state(get_state())`` replaying
+   each sampler bit for bit.  Then ``examples/rnn/large_word_lm/
+   train.py`` at its defaults on the card (its context made the card's):
+   the perplexity falls and ends under the JAX package's gate of 5000.
 
 The line before the last is the card's name and power limit, the line
 before that the kernels' JSON record; the last line is
@@ -1530,8 +1568,21 @@ def cross_entropy(mod, batch):
     return ce.get()[1]
 
 
-def resnet_step_check(params, aux):
-    """One SGD step at batch 2 on the card (TF32 off) against the same
+# the first step of each optimizer the step check holds, from zero
+# momentum: (optimizer parameters, the exact update of a parameter from
+# its gradient summed over the batch, its weight decay and its weight)
+STEP_RULES = {
+    "sgd": (dict(learning_rate=0.01, momentum=0.9),
+            lambda grad, wd, w: -0.01 / 2 * grad),
+    # NAG: g = grad / 2 + wd w, mom = g, w -= lr (g + momentum mom)
+    "nag": (dict(learning_rate=0.1, momentum=0.9, wd=1e-4),
+            lambda grad, wd, w: -0.1 * 1.9 * (grad / 2 + wd * w)),
+}
+
+
+def resnet_step_check(params, aux, optimizer="sgd", tag="resnet"):
+    """One SGD (or NAG: ``optimizer``, ``STEP_RULES``) step at batch 2 on
+    the card (TF32 off) against the same
     step on the CPU, from the same weights; both against the exact step
     (the CPU in float64).  At batch 2 the step is ill-conditioned: the
     global pool hands each last-stage BatchNorm a gradient nearly
@@ -1549,12 +1600,17 @@ def resnet_step_check(params, aux):
     products move the output by about 1e-2 and every update by far
     more: the same step with TF32 on is printed beside it."""
     names = sorted(params)
+    opt_params, exact_update = STEP_RULES[optimizer]
+    # the Module's weight decay: none on what is not a weight or a gamma
+    decay = {k: opt_params.get("wd", 0.0) if k.endswith(("_weight",
+                                                         "_gamma"))
+             else 0.0 for k in names}
 
     def step(ctx):
         mod = resnet_module(2, ctx)
         mod.init_params(arg_params=params, aux_params=aux)
-        mod.init_optimizer(optimizer="sgd", optimizer_params={
-            "learning_rate": 0.01, "momentum": 0.9})
+        mod.init_optimizer(optimizer=optimizer,
+                           optimizer_params=dict(opt_params))
         batch = resnet_batch(2, ctx, seed=1)
         mod.forward(batch, is_train=True)
         mod.backward()
@@ -1565,8 +1621,8 @@ def resnet_step_check(params, aux):
                  for k in names})
 
     def exact_step():
-        """The first SGD step in float64 on the CPU: the update is
-        -lr * rescale * grad (the momentum starts at zero, wd 0)."""
+        """The first step in float64 on the CPU: the update from the
+        gradient (the momentum starts at zero)."""
         symbol = mx.sym.ZOO["resnet50_v1"]()
         batch = resnet_batch(2, mx.cpu(), seed=1)
         ex = symbol.simple_bind(
@@ -1580,7 +1636,9 @@ def resnet_step_check(params, aux):
         ex.forward(is_train=True)
         ex.backward()
         return (ex.outputs[0].asnumpy(),
-                {k: -0.01 / 2 * ex.grad_dict[k].asnumpy() for k in names})
+                {k: exact_update(ex.grad_dict[k].asnumpy(), decay[k],
+                                 params[k].astype(np.float64))
+                 for k in names})
 
     def err(upd, exact):
         per = {k: np.linalg.norm(upd[k] - exact[k]) for k in names}
@@ -1598,10 +1656,10 @@ def resnet_step_check(params, aux):
     cpu_per, cpu_all = err(cpu_upd, ex_upd)
     floor = 1e-6 * max(norm.values())
     allowed = {k: 3 * cpu_per[k] + 1e-3 * norm[k] + floor for k in names}
-    log("[resnet] one step at batch 2, CPU float32 vs float64: output "
+    log("[%s] one %s step at batch 2, CPU float32 vs float64: output "
         "%.3g, all updates %.3g (relative L2)"
-        % (np.linalg.norm(cpu_out - ex_out) / np.linalg.norm(ex_out),
-           cpu_all / all_norm))
+        % (tag, optimizer, np.linalg.norm(cpu_out - ex_out)
+           / np.linalg.norm(ex_out), cpu_all / all_norm))
     verdict = {}
     for name, (out, upd) in runs.items():
         per, total = err(upd, ex_upd)
@@ -1611,18 +1669,20 @@ def resnet_step_check(params, aux):
                         / np.linalg.norm(cpu_out))
         verdict[name] = (out_rel, ratio[worst],
                          total / (2 * cpu_all + 1e-3 * all_norm))
-        log("[resnet] one step at batch 2, card (%s): output vs CPU %.3g "
+        log("[%s] one %s step at batch 2, card (%s): output vs CPU %.3g "
             "(relative L2, bound %g); vs float64 all updates %.3g "
             "(relative L2), %.3g of its bound; worst parameter %s at %.3g "
             "of its bound (its update %.3g off, the CPU's %.3g)"
-            % (name, out_rel, RESNET_OUT_TOL, total / all_norm,
+            % (tag, optimizer, name, out_rel, RESNET_OUT_TOL,
+               total / all_norm,
                verdict[name][2], worst, ratio[worst],
                per[worst] / max(norm[worst], 1e-300),
                cpu_per[worst] / max(norm[worst], 1e-300)))
-    log("[resnet] the step checks took %.1f s" % (time.monotonic() - t0))
+    log("[%s] the step checks took %.1f s" % (tag, time.monotonic() - t0))
     out_rel, worst, total = verdict["TF32 off"]
     if not (out_rel <= RESNET_OUT_TOL and worst <= 1 and total <= 1):
-        fail("resnet: the card's step disagrees with the CPU step")
+        fail("%s: the card's %s step disagrees with the CPU step"
+             % (tag, optimizer))
 
 
 class tf32_on:
@@ -4860,7 +4920,9 @@ def phase_mnist():
 # OPS_SPECIAL, the products (fp32_library, TF32 off) within
 # OPS_PRODUCT_RTOL and OPS_PRODUCT_ATOL; integer and
 # ordering results equal; the gradients of a random-weighted sum to the
-# same bounds.  Random ops by shape, finiteness and moments.
+# same bounds.  Random ops by shape, dtype, finiteness and moments (the
+# mean and the variance within 4 standard errors), the multinomial,
+# unique-zipfian and shuffle samplers by their contracts.
 OPS_RTOL, OPS_ATOL = 1e-5, 1e-6
 # (rtol, atol) apart: flash attention runs the CUDA kernels on the card,
 # held to the kernel phase's float32 backward bound (BWD_TOL,
@@ -4875,30 +4937,39 @@ OPS_SPECIAL = {"gamma": (1e-4, OPS_ATOL), "gammaln": (1e-4, OPS_ATOL),
 OPS_PRODUCT_RTOL, OPS_PRODUCT_ATOL = 1e-4, 1e-5
 
 
+def tests_module(name):
+    """A helper module of tests/ that imports no JAX: the op cases, or
+    the loader of train_imagenet.py."""
+    sys.path.insert(0, str(REPO_ROOT / "tests"))
+    try:
+        return __import__(name)
+    finally:
+        sys.path.pop(0)
+
+
 def op_cases():
     """tests/test_torch_op_cases.py (the cases, ``run_call`` and
     ``error_units``), which imports only numpy."""
-    sys.path.insert(0, str(REPO_ROOT / "tests"))
-    try:
-        import test_torch_op_cases
-    finally:
-        sys.path.pop(0)
-    return test_torch_op_cases
+    return tests_module("test_torch_op_cases")
 
 
 def op_random_checks(cases):
     """The samplers, BlockGrad's gradient and Dropout in training, on
     the card."""
     gpu = mx.gpu(0)
-    for name, (attrs, mean, std) in cases.MOMENTS.items():
+    for name, (_, mean, std, _) in cases.MOMENTS.items():
         mx.random.seed(3)
-        x = getattr(mx.nd, name)(shape=(200000,), ctx=gpu,
-                                 **attrs).asnumpy()
-        if not (x.shape == (200000,) and np.isfinite(x).all()
-                and abs(x.mean() - mean) < 4 * std / np.sqrt(x.size)
-                and abs(x.std() - std) < 0.01 * std):
-            fail("ops: %s on the card: mean %.4f std %.4f, wanted %.4f %.4f"
-                 % (name, x.mean(), x.std(), mean, std))
+        x, dtype = cases.draw(mx, name, 200000, gpu)
+        err_mean, err_var = cases.moment_errors(x, mean, std) \
+            if np.isfinite(x).all() else (np.inf, np.inf)
+        if not (x.shape == (200000,) and x.dtype == dtype
+                and err_mean < 4 and err_var < 4):
+            fail("ops: %s on the card: mean %.4f std %.4f, wanted %.4f %.4f "
+                 "(%.2f and %.2f standard errors)" % (
+                     name, x.mean(), x.std(), mean, std, err_mean, err_var))
+    for name, bad in cases.random_contracts(mx, gpu):
+        if bad is not None:
+            fail("ops: %s on the card: %s" % (name, bad))
     a = mx.nd.array(cases._a(3, 4, seed=3), ctx=gpu)
     a.attach_grad()
     with mx.autograd.record():
@@ -5396,6 +5467,665 @@ def phase_zoo():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# imagenet: BASELINE config #4's script training ResNet-50 v1 under NAG
+# ---------------------------------------------------------------------------
+
+IMAGENET_BATCH, IMAGENET_EPOCHS, IMAGENET_BATCHES = 128, 2, 20
+IMAGENET_SIDE, IMAGENET_CLASSES = 224, 1000
+IMAGENET_ARGS = ["--benchmark", "1", "--network", "resnet", "--num-layers",
+                 "50", "--num-classes", str(IMAGENET_CLASSES),
+                 "--image-shape", "3,%d,%d" % (IMAGENET_SIDE, IMAGENET_SIDE),
+                 "--batch-size", str(IMAGENET_BATCH),
+                 "--kv-store", "device", "--optimizer", "nag", "--mom",
+                 "0.9", "--wd", "1e-4", "--lr", "0.1", "--initializer",
+                 "msra", "--top-k", "5", "--num-epochs",
+                 str(IMAGENET_EPOCHS), "--max-batches",
+                 str(IMAGENET_BATCHES), "--disp-batches", "10"]
+
+
+class host_split:
+    """The host's seconds in Module.forward, backward and update, and
+    the optimizer's per-parameter updates, for each step of the run."""
+
+    def __init__(self):
+        self.steps, self.updates = [], 0
+        self._cur = {}
+
+    def __enter__(self):
+        cls = mx.mod.Module
+        self.saved = {n: getattr(cls, n)
+                      for n in ("forward", "backward", "update")}
+        self.saved_call = mx.optimizer.Updater.__call__
+
+        def timed(name, fn):
+            def wrapper(mod, *args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(mod, *args, **kwargs)
+                self._cur[name] = self._cur.get(name, 0.0) + \
+                    time.perf_counter() - t0
+                if name == "update":
+                    self.steps.append(dict(self._cur))
+                    self._cur = {}
+                return out
+            return wrapper
+
+        for name, fn in self.saved.items():
+            setattr(cls, name, timed(name, fn))
+
+        def counted(updater, *args, **kwargs):
+            self.updates += 1
+            return self.saved_call(updater, *args, **kwargs)
+
+        mx.optimizer.Updater.__call__ = counted
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(mx.mod.Module, name, fn)
+        mx.optimizer.Updater.__call__ = self.saved_call
+
+
+def imagenet_run(prefix):
+    """train_imagenet.py with IMAGENET_ARGS on the card: the Module it
+    trained, the batch-end times of each epoch (Speedometer's calls,
+    each after the metrics read the batch's outputs), the host split,
+    the per-parameter updates and the script's log lines."""
+    ep = tests_module("test_torch_example_port")
+    ends = []
+    speedometer = mx.callback.Speedometer.__call__
+
+    def stamp(cb, param):
+        ends.append((param.epoch, param.nbatch, time.monotonic()))
+        return speedometer(cb, param)
+
+    lines, root = _Lines(), logging.getLogger()
+    saved_level = root.level
+    root.addHandler(lines)
+    root.setLevel(logging.INFO)
+    mx.callback.Speedometer.__call__ = stamp
+    try:
+        with host_split() as split:
+            mod = ep.run_train_imagenet(IMAGENET_ARGS
+                                        + ["--model-prefix", prefix])
+        torch.cuda.synchronize()
+    finally:
+        mx.callback.Speedometer.__call__ = speedometer
+        root.removeHandler(lines)
+        root.setLevel(saved_level)
+    return mod, ends, split, lines.lines
+
+
+def imagenet_row():
+    """The script's run and its row: ms a step and images/s over the
+    last epoch's batches (each batch's end read after the metrics
+    fetched its outputs by value), the host's split, the per-parameter
+    updates a step, peak memory, one profiled step of the trained
+    Module (busy, idle, operations), the checks."""
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="imagenet_")
+    prefix = os.path.join(tmp, "resnet50")
+    mx.random.seed(0)
+    zero_launches()
+    t0 = time.monotonic()
+    mod, ends, split, lines = imagenet_run(prefix)
+    secs = time.monotonic() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    last = [t for e, _, t in ends if e == IMAGENET_EPOCHS - 1]
+    if len(last) != IMAGENET_BATCHES:
+        fail("imagenet: %d batch ends in the last epoch, not %d"
+             % (len(last), IMAGENET_BATCHES))
+    ms = (last[-1] - last[0]) / (len(last) - 1) * 1e3
+    steps = IMAGENET_EPOCHS * IMAGENET_BATCHES
+    host = {k: float(np.median([s.get(k, 0.0) for s in
+                                split.steps[-IMAGENET_BATCHES:]])) * 1e3
+            for k in ("forward", "backward", "update")}
+    speed = [l for l in lines if "Speed:" in l]
+    top5 = [l for l in speed if "top_k_accuracy_5=" in l]
+    files = ["%s-symbol.json" % prefix] + ["%s-%04d.params" % (prefix, e + 1)
+                                           for e in range(IMAGENET_EPOCHS)]
+    missing = [f for f in files if not os.path.exists(f)]
+    rng = np.random.RandomState(1)
+    batch = mx.io.DataBatch(
+        [mx.nd.array(rng.uniform(-1, 1, (IMAGENET_BATCH, 3, IMAGENET_SIDE,
+                                         IMAGENET_SIDE))
+                     .astype(np.float32), ctx=mx.gpu(0))],
+        [mx.nd.array(rng.randint(0, IMAGENET_CLASSES, IMAGENET_BATCH)
+                     .astype(np.float32), ctx=mx.gpu(0))])
+
+    def step():
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+
+    step()
+    spans = device_spans(step)
+    if not spans:
+        fail("imagenet: the profiler saw no device time in a step")
+    busy, window, heads = profile_summary(spans)
+    loss = cross_entropy(mod, batch)
+    log("[imagenet] %s: examples/image-classification/train_imagenet.py %s "
+        "(ResNet-50 v1, fp32 with TF32 off, its synthetic batch): %d steps "
+        "in %.1f s with the trace and checkpoints; the last epoch's %d "
+        "batches (host clock, synchronised by value): %.3f ms a step, "
+        "%.2f images/s" % (card(), " ".join(IMAGENET_ARGS), steps, secs,
+                           IMAGENET_BATCHES, ms, IMAGENET_BATCH / ms * 1e3))
+    log("[imagenet] %s: imagenet_resnet50_nag, host ms a step by stage "
+        "(median of the last epoch, no sync inside a step): %s; "
+        "per-parameter updates a step %.1f (%d in %d steps); peak device "
+        "memory %.1f MB allocated" % (
+            card(), ", ".join("%s %.3f" % kv for kv in host.items()),
+            split.updates / max(1, len(split.steps)), split.updates,
+            len(split.steps), peak / 1e6))
+    log("[imagenet] %s: imagenet_resnet50_nag, one profiled step of the "
+        "trained Module: device busy %.3f ms, idle share at most %.3f, %d "
+        "device operations; most device time: %s" % (
+            card(), busy, 1 - busy / window, len(spans), "; ".join(
+                "%s %.3f ms" % (n[:70], t / 1e3) for n, t in heads)))
+    for l in speed:
+        log("[imagenet] the script: %s" % l)
+    log("[imagenet] cross-entropy of a fresh batch after the run %.4f; "
+        "flash-attention launches %s" % (loss, launches))
+    shutil.rmtree(tmp, ignore_errors=True)
+    if not np.isfinite(loss):
+        fail("imagenet: the loss is not finite (%r)" % loss)
+    if len(speed) != IMAGENET_EPOCHS or len(top5) != IMAGENET_EPOCHS:
+        fail("imagenet: the Speedometer printed %d lines, %d with top-5"
+             % (len(speed), len(top5)))
+    if missing:
+        fail("imagenet: no checkpoint files %s" % missing)
+    if split.updates != len(split.steps) * len(mod._exec_group.param_names):
+        fail("imagenet: %d per-parameter updates in %d steps"
+             % (split.updates, len(split.steps)))
+    if any(launches.values()):
+        fail("imagenet: a flash-attention kernel launched: %s" % launches)
+    row = dict(ms=ms, imgs_per_sec=IMAGENET_BATCH / ms * 1e3, busy_ms=busy,
+               idle=1 - busy / window, ops=len(spans), peak_mb=peak / 1e6,
+               host_ms=host, updates_per_step=split.updates
+               / max(1, len(split.steps)), launches=launches, seconds=secs)
+    del mod, batch
+    free_card()
+    return row
+
+
+def phase_imagenet():
+    """BASELINE config #4's one-device half: the script on the card, its
+    row, then one NAG step of the net against the CPU."""
+    t0 = time.monotonic()
+    rows = {"imagenet_resnet50_nag": imagenet_row()}
+    mod = resnet_module(2, mx.cpu())
+    mx.random.seed(0)
+    mod.init_params(initializer=mx.initializer.MSRAPrelu())
+    params, aux = mod.get_params()
+    resnet_step_check({k: v.asnumpy() for k, v in params.items()},
+                      {k: v.asnumpy() for k, v in aux.items()},
+                      optimizer="nag", tag="imagenet")
+    log("[imagenet] the phase took %.1f s" % (time.monotonic() - t0))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# optim: every optimizer on ResNet-50's parameter tree, card against CPU
+# ---------------------------------------------------------------------------
+
+OPTIM_BATCH, OPTIM_STEPS = 8, 3
+OPTIM_COMMON = dict(learning_rate=0.01, wd=1e-4, clip_gradient=0.05,
+                    rescale_grad=0.5)
+OPTIM_EXTRA = {"sgd": dict(momentum=0.9), "nag": dict(momentum=0.9),
+               "signum": dict(momentum=0.9, wd_lh=0.01),
+               "rmsprop": dict(centered=True, clip_weights=2.0),
+               "dcasgd": dict(momentum=0.9), "lbsgd": dict(momentum=0.9),
+               "ftrl": dict(lamda1=1e-4)}
+# each step's gradient is the batch's times this factor
+OPTIM_GRAD_SCALE = (1.0, 0.5, -1.0)
+# the card against the CPU after three steps from the same state, as
+# relative L2: every parameter's weight and state (float32 elementwise
+# arithmetic: fused multiply-adds on the card, the sign and threshold
+# optimizers' ties at zero; LBSGD's norms reduced in another order)
+OPTIM_TOL = 1e-5
+OPTIM_MP = ("sgd", "nag", "adam")
+
+
+def optim_tree():
+    """ResNet-50 v1's parameters (Xavier after ``random.seed(0)``) and
+    their gradients from one batch-8 backward on the card, on the host;
+    and the parameter names by index."""
+    mod = resnet_module(OPTIM_BATCH, mx.gpu(0))
+    mx.random.seed(0)
+    mod.init_params(initializer=mx.initializer.Xavier())
+    mod.forward(resnet_batch(OPTIM_BATCH, mx.gpu(0), seed=2), is_train=True)
+    mod.backward()
+    g = mod._exec_group
+    names = list(g.param_names)
+    weights = [a[0].asnumpy() for a in g.param_arrays]
+    grads = [a[0].asnumpy() for a in g.grad_arrays]
+    del mod
+    free_card()
+    return names, weights, grads
+
+
+def optim_run(name, ctx, names, weights, grads, dtype="float32",
+              timed=False, **kw):
+    """OPTIM_STEPS ``update_multi`` steps of optimizer ``name`` on
+    ``ctx``: (weights, flat states, and with ``timed`` the card's busy
+    ms of the last call (torch.profiler) and the host's ms of the
+    second, after the card caught up: the first also makes the
+    states)."""
+    opt = mx.optimizer.create(
+        name, param_idx2name=dict(enumerate(names)),
+        **dict(OPTIM_COMMON, **dict(OPTIM_EXTRA.get(name, {}), **kw)))
+    upd = mx.optimizer.get_updater(opt)
+    ws = [mx.nd.array(w, ctx=ctx, dtype=dtype) for w in weights]
+    gs = [mx.nd.array(g, ctx=ctx, dtype=dtype) for g in grads]
+    busy_ms, host_ms = None, []
+    for k, c in enumerate(OPTIM_GRAD_SCALE):
+        step_g = [g * c for g in gs]
+        triples = [(i, step_g[i], ws[i]) for i in range(len(ws))]
+        if timed and k == len(OPTIM_GRAD_SCALE) - 1:
+            spans = device_spans(lambda: upd.update_multi(triples), tries=1)
+            busy_ms = busy_us([(a, b) for a, b, _ in spans]) / 1e3
+            continue
+        if timed:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        upd.update_multi(triples)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    flat = []
+    for i in range(len(ws)):
+        st = upd.states.get(i)
+        stack = [st] if not isinstance(st, (tuple, list)) else list(st)
+        while stack:
+            s = stack.pop(0)
+            if isinstance(s, (tuple, list)):
+                stack = list(s) + stack
+            elif s is not None:
+                flat.append(s.asnumpy().astype(np.float32))
+    return ([w.asnumpy().astype(np.float32) for w in ws], flat, busy_ms,
+            host_ms[-1])
+
+
+def optim_rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def optim_sgld(names, weights, grads):
+    """SGLD on the card: the weights less the deterministic step are
+    normal noise of variance lr (5 standard errors)."""
+    cases = op_cases()
+    lr = OPTIM_COMMON["learning_rate"]
+    mx.random.seed(5)
+    got, _, dev, host = optim_run("sgld", mx.gpu(0), names, weights, grads,
+                                  timed=True)
+    w = [x.astype(np.float64) for x in weights]
+    wd = {i: OPTIM_COMMON["wd"] if n.endswith(("_weight", "_gamma")) else 0.0
+          for i, n in enumerate(names)}
+    noise_var = 0.0
+    for c in OPTIM_GRAD_SCALE:
+        for i in range(len(w)):
+            gc = np.clip(OPTIM_COMMON["rescale_grad"] * c * grads[i],
+                         -OPTIM_COMMON["clip_gradient"],
+                         OPTIM_COMMON["clip_gradient"])
+            w[i] = w[i] - lr / 2 * (gc + wd[i] * w[i])
+        noise_var += lr
+    # the noise of three steps sums to one normal of variance 3 lr, the
+    # decay of the earlier noise (wd lr / 2 a step) aside
+    noise = np.concatenate([(a - b).reshape(-1) for a, b in zip(got, w)])
+    err_mean, err_var = cases.moment_errors(noise, 0.0, np.sqrt(noise_var))
+    return err_mean, err_var, dev, host
+
+
+def phase_optim():
+    """Every registered optimizer on ResNet-50 v1's tree, three
+    ``update_multi`` steps on the card and on the CPU from the same
+    state; multi-precision on a bf16 copy; SGLD by its noise; a NAG
+    Module restored from its optimizer states."""
+    t0 = time.monotonic()
+    names, weights, grads = optim_tree()
+    log("[optim] ResNet-50 v1's tree: %d parameters, %d values; the "
+        "gradients of one batch-%d backward on the card, times %s over the "
+        "three steps; %s" % (len(names), sum(w.size for w in weights),
+                             OPTIM_BATCH, OPTIM_GRAD_SCALE, OPTIM_COMMON))
+    zero_launches()
+    rows, bad = {}, []
+    for name in sorted(mx.optimizer.Optimizer.opt_registry):
+        if name == "sgld":
+            continue
+        cw, cs, dev, host = optim_run(name, mx.gpu(0), names, weights, grads,
+                                      timed=True)
+        pw, ps, _, _ = optim_run(name, mx.cpu(), names, weights, grads)
+        err_w = max(optim_rel(a, b) for a, b in zip(cw, pw))
+        err_s = max([optim_rel(a, b) for a, b in zip(cs, ps)] or [0.0])
+        moved = sum(not np.array_equal(a, b) for a, b in zip(cw, weights))
+        rows[name] = dict(device_ms=dev, host_ms=host, err_w=err_w,
+                          err_s=err_s)
+        log("[optim] %s: %-7s device busy %.3f ms, host %.3f ms an "
+            "update_multi (%d parameters); card vs CPU after %d steps: worst weight "
+            "%.3g, worst state %.3g (relative L2, bound %g); %d of %d "
+            "weights moved" % (card(), name, dev, host, len(cw), OPTIM_STEPS,
+                               err_w, err_s, OPTIM_TOL, moved, len(cw)))
+        if len(cs) != len(ps) or max(err_w, err_s) > OPTIM_TOL or \
+                moved < len(cw) // 2:
+            bad.append(name)
+        del cw, cs, pw, ps
+    err_mean, err_var, dev, host = optim_sgld(names, weights, grads)
+    rows["sgld"] = dict(device_ms=dev, host_ms=host)
+    log("[optim] %s: sgld    device busy %.3f ms, host %.3f ms an "
+        "update_multi; "
+        "its noise after %d steps: mean %.2f and variance %.2f standard "
+        "errors from N(0, %d lr)" % (card(), dev, host, OPTIM_STEPS,
+                                     err_mean, err_var, OPTIM_STEPS))
+    if max(err_mean, err_var) > 5:
+        bad.append("sgld")
+    bf16 = [w.astype(np.float32) for w in weights]
+    for name in OPTIM_MP:
+        cw, cs, dev, host = optim_run(name, mx.gpu(0), names, bf16, grads,
+                                      dtype="bfloat16", timed=True,
+                                      multi_precision=True)
+        pw, ps, _, _ = optim_run(name, mx.cpu(), names, bf16, grads,
+                                 dtype="bfloat16", multi_precision=True)
+        err_s = max(optim_rel(a, b) for a, b in zip(cs, ps))
+        ulps = max(float(np.max(np.abs(a - b) / np.maximum(
+            np.abs(b) * 2.0 ** -7, 1e-30))) for a, b in zip(cw, pw))
+        log("[optim] %s: %s multi_precision on bf16 weights: device busy "
+            "%.3f ms, host %.3f ms an update_multi; float32 masters and states vs "
+            "CPU %.3g (bound %g); bf16 weights at most %.3g of a bf16 ulp "
+            "apart" % (card(), name, dev, host, err_s, OPTIM_TOL, ulps))
+        rows[name + "_mp_bf16"] = dict(device_ms=dev, host_ms=host,
+                                       err_s=err_s, ulps=ulps)
+        if err_s > OPTIM_TOL or ulps > 1.0 or len(cs) != len(ps):
+            bad.append(name + " mp")
+    launches = read_launches()
+    optim_restore_check()
+    log("[optim] flash-attention launches %s; the phase took %.1f s"
+        % (launches, time.monotonic() - t0))
+    if bad:
+        fail("optim: the card disagrees with the CPU for %s" % bad)
+    if any(launches.values()):
+        fail("optim: a flash-attention kernel launched: %s" % launches)
+    return {"optim_resnet50_tree": dict(rows=rows, launches=launches)}
+
+
+def optim_restore_check():
+    """NAG through Module at batch 8 on the card (cuDNN deterministic):
+    two steps, ``save_checkpoint(save_optimizer_states=True)``, a third
+    step; ``Module.load(load_optimizer_states=True)`` then one step must
+    give the third step's parameters bit for bit."""
+    gpu = mx.gpu(0)
+    tmp = tempfile.mkdtemp(prefix="optim_")
+    prefix = os.path.join(tmp, "nag")
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    params = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
+    try:
+        batch = resnet_batch(OPTIM_BATCH, gpu, seed=3)
+        mod = resnet_module(OPTIM_BATCH, gpu)
+        mx.random.seed(0)
+        mod.init_params(initializer=mx.initializer.MSRAPrelu())
+        mod.init_optimizer(optimizer="nag", optimizer_params=dict(params))
+        for _ in range(2):
+            mod.forward(batch, is_train=True)
+            mod.backward()
+            mod.update()
+        mod.save_checkpoint(prefix, 2, save_optimizer_states=True)
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+        want = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        del mod
+        back = mx.mod.Module.load(prefix, 2, load_optimizer_states=True,
+                                  data_names=("data0",),
+                                  label_names=("softmax_label",),
+                                  context=gpu)
+        back.bind(data_shapes=[("data0", (OPTIM_BATCH, 3, 224, 224))],
+                  label_shapes=[("softmax_label", (OPTIM_BATCH,))])
+        back.init_optimizer(optimizer="nag", optimizer_params=dict(params))
+        back.forward(batch, is_train=True)
+        back.backward()
+        back.update()
+        got = {k: v.asnumpy() for k, v in back.get_params()[0].items()}
+        del back
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    differ = [k for k in want if not np.array_equal(want[k], got[k])]
+    log("[optim] %s: a NAG Module restored from its optimizer states takes "
+        "the next step bit for bit: %d of %d parameters differ"
+        % (card(), len(differ), len(want)))
+    if differ:
+        fail("optim: the restored NAG step differs in %s" % differ[:3])
+    free_card()
+
+
+# ---------------------------------------------------------------------------
+# random: the samplers on the card, and large_word_lm
+# ---------------------------------------------------------------------------
+
+RANDOM_N = 2 ** 20
+RANDOM_SIGMA = 5      # the mean's and the variance's bound, standard errors
+RANDOM_P = 1e-6       # the least p-value of a KS or chi-squared test
+# each MOMENTS row's distribution in scipy.stats (the family's name:
+# the rows ``_random_x``, ``_random_x_like`` and ``_sample_x`` share it)
+RANDOM_DISTS = {
+    "uniform": ("continuous", lambda st: st.uniform(loc=-1.0, scale=4.0)),
+    "normal": ("continuous", lambda st: st.norm(loc=2.0, scale=0.5)),
+    "gamma": ("continuous", lambda st: st.gamma(2.0, scale=1.5)),
+    "exponential": ("continuous", lambda st: st.expon(scale=0.5)),
+    "poisson": ("discrete", lambda st: st.poisson(3.0)),
+    "negative_binomial": ("discrete", lambda st: st.nbinom(3, 0.4)),
+    # mu 2, alpha 0.5: r = 1 / alpha = 2, p = r / (r + mu) = 0.5
+    "generalized_negative_binomial": ("discrete",
+                                      lambda st: st.nbinom(2, 0.5)),
+    "randint": ("discrete", lambda st: st.randint(-3, 5)),
+}
+LWLM = REPO_ROOT / "examples" / "rnn" / "large_word_lm" / "train.py"
+LWLM_GATE = 5000.0    # tests/test_examples.py's gate (uniform is 10,000)
+
+
+def random_family(name):
+    base = name.replace("_like", "").replace("_random_", "").replace(
+        "_sample_", "")
+    return RANDOM_DISTS[base]
+
+
+def chi2_pvalue(x, dist):
+    """The chi-squared test of integer draws against ``dist``'s pmf,
+    the tails pooled until each cell expects at least 20."""
+    from scipy import stats
+
+    lo, hi = int(x.min()), int(x.max())
+    ks = np.arange(lo, hi + 1)
+    obs = np.bincount((x - lo).astype(np.int64), minlength=len(ks))
+    exp = dist.pmf(ks) * x.size
+    exp[0] += dist.cdf(lo - 1) * x.size
+    exp[-1] += dist.sf(hi) * x.size
+    cells_o, cells_e, acc_o, acc_e = [], [], 0.0, 0.0
+    for o, e in zip(obs, exp):
+        acc_o, acc_e = acc_o + o, acc_e + e
+        if acc_e >= 20:
+            cells_o.append(acc_o)
+            cells_e.append(acc_e)
+            acc_o = acc_e = 0.0
+    if acc_e and cells_e:
+        cells_o[-1] += acc_o
+        cells_e[-1] += acc_e
+    cells_e = np.array(cells_e) * (x.size / np.sum(cells_e))
+    return float(stats.chisquare(cells_o, cells_e).pvalue)
+
+
+def random_samplers():
+    """Each MOMENTS row: 2^20 draws on the card, the mean and variance
+    within RANDOM_SIGMA standard errors, KS (continuous) or chi-squared
+    (discrete) against scipy.stats; returns the failures."""
+    from scipy import stats
+
+    cases = op_cases()
+    gpu, bad = mx.gpu(0), []
+    for name in sorted(cases.MOMENTS):
+        _, mean, std, _ = cases.MOMENTS[name]
+        mx.random.seed(13)
+        x, dtype = cases.draw(mx, name, RANDOM_N, gpu)
+        kind, make = random_family(name)
+        dist = make(stats)
+        ok = x.dtype == dtype and np.isfinite(x).all()
+        err_mean, err_var = cases.moment_errors(x, mean, std) if ok \
+            else (np.inf, np.inf)
+        if kind == "continuous":
+            p = float(stats.kstest(x.astype(np.float64), dist.cdf).pvalue)
+        else:
+            p = chi2_pvalue(x, dist) if np.array_equal(x, np.round(x)) \
+                else 0.0
+        log("[random] %s: %-44s mean %.5f (%.2f se), var %.5f (%.2f se), "
+            "%s p %.3g" % (card(), name, x.mean(), err_mean, x.var(),
+                           err_var, "KS" if kind == "continuous" else
+                           "chi2", p))
+        if not ok or max(err_mean, err_var) > RANDOM_SIGMA or p < RANDOM_P:
+            bad.append(name)
+    # the multinomial's frequencies against its probabilities
+    probs = np.array([0.1, 0.2, 0.3, 0.4], np.float32)
+    mx.random.seed(13)
+    d = mx.nd._sample_multinomial(mx.nd.array(probs, ctx=gpu),
+                                  shape=RANDOM_N).asnumpy()
+    p = float(stats.chisquare(np.bincount(d, minlength=4),
+                              probs.astype(np.float64)
+                              / probs.astype(np.float64).sum()
+                              * d.size).pvalue)
+    log("[random] %s: _sample_multinomial %d draws from %s: chi2 p %.3g"
+        % (card(), RANDOM_N, probs.tolist(), p))
+    if d.dtype != np.int32 or p < RANDOM_P:
+        bad.append("_sample_multinomial")
+    return bad
+
+
+def random_zipfian():
+    """_sample_unique_zipfian at large_word_lm's range_max 10,000 and
+    256 draws a row: unique in every row, and each class's inclusion
+    frequency over 512 rows on the card within 5 binomial standard
+    errors (plus a row) of the CPU's."""
+    inc = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        mx.random.seed(17)
+        z = mx.nd._sample_unique_zipfian(range_max=10000, shape=(512, 256),
+                                         ctx=ctx).asnumpy()
+        if z.shape != (512, 256) or z.dtype != np.int32 or \
+                any(len(np.unique(r)) != 256 for r in z) or \
+                z.min() < 0 or z.max() >= 10000:
+            return "draws not unique in a row, out of range or misshapen"
+        inc[str(ctx)] = np.bincount(z.reshape(-1), minlength=10000) / 512.0
+    a, b = inc[str(mx.gpu(0))], inc[str(mx.cpu())]
+    pbar = (a + b) / 2
+    worst = float(np.max(np.abs(a - b) / (np.sqrt(2 * pbar * (1 - pbar)
+                                                  / 512) + 1.0 / 512)))
+    log("[random] %s: _sample_unique_zipfian (512, 256) of 10,000 classes: "
+        "unique in every row; inclusion frequencies card vs CPU at most "
+        "%.2f binomial standard errors (plus a row) apart" % (card(), worst))
+    return None if worst <= 5 else "inclusion frequencies %.2f se apart" \
+        % worst
+
+
+def random_replays():
+    """``_shuffle`` of 2^20 rows is a permutation; every sampler's draws
+    after ``set_state(get_state())`` are the same bits."""
+    gpu, bad = mx.gpu(0), []
+    mx.random.seed(19)
+    rows = mx.nd.arange(RANDOM_N, ctx=gpu).reshape((RANDOM_N, 1))
+    s = mx.nd._shuffle(rows).asnumpy().reshape(-1)
+    if not (np.array_equal(np.sort(s), np.arange(RANDOM_N))
+            and not np.array_equal(s, np.arange(RANDOM_N))):
+        bad.append("_shuffle")
+    cases = op_cases()
+    for name in sorted(cases.MOMENTS) + ["_shuffle"]:
+        def draw():
+            if name == "_shuffle":
+                return mx.nd._shuffle(rows).asnumpy()
+            return cases.draw(mx, name, 4096, gpu)[0]
+        draw()
+        state = mx.random.get_state()
+        first = draw()
+        mx.random.set_state(state)
+        if not np.array_equal(first, draw()):
+            bad.append(name + " replay")
+    log("[random] %s: _shuffle of %d rows a permutation; set_state("
+        "get_state()) replays every sampler bit for bit: %s"
+        % (card(), RANDOM_N, "yes" if not bad else bad))
+    return bad
+
+
+def large_word_lm_run():
+    """examples/rnn/large_word_lm/train.py at its defaults on the card:
+    its imports renamed to the port, its ``mx.cpu()`` context the
+    card's; returns the validation perplexities and the seconds."""
+    src, n = re.subn(r"^(import|from) mxtpu\b", r"\1 mxtpu_torch",
+                     LWLM.read_text(), flags=re.M)
+    src, m = re.subn(r"\bctx = mx\.cpu\(\)", "ctx = mx.gpu(0)", src)
+    if (n, m) != (2, 1):
+        fail("random: %s has %d imports of the JAX package and %d CPU "
+             "contexts, not 2 and 1" % (LWLM, n, m))
+    mod = types.ModuleType("large_word_lm_port")
+    mod.__file__ = str(LWLM)
+    exec(compile(src, str(LWLM), "exec"), mod.__dict__)
+    out, lines, root = io.StringIO(), _Lines(), logging.getLogger()
+    saved = sys.argv, root.level
+    root.addHandler(lines)
+    root.setLevel(logging.INFO)
+    sys.argv = [str(LWLM)]
+    t0 = time.monotonic()
+    try:
+        with contextlib.redirect_stdout(out):
+            mod.main()
+        torch.cuda.synchronize()
+    finally:
+        sys.argv = saved[0]
+        root.removeHandler(lines)
+        root.setLevel(saved[1])
+    secs = time.monotonic() - t0
+    ppl = [float(x) for l in lines.lines
+           for x in re.findall(r"full valid ppl ([0-9.]+)", l)]
+    final = re.findall(r"^FINAL_VALID_PPL ([0-9.]+)", out.getvalue(), re.M)
+    for l in lines.lines:
+        log("[random] large_word_lm: %s" % l)
+    return ppl, float(final[-1]) if final else float("nan"), secs
+
+
+def phase_random():
+    """The samplers on the card by distribution, the unique-zipfian
+    draw against the CPU's, shuffles and replays; then large_word_lm."""
+    t0 = time.monotonic()
+    zero_launches()
+    bad = random_samplers()
+    z = random_zipfian()
+    if z is not None:
+        bad.append("_sample_unique_zipfian: " + z)
+    bad += random_replays()
+    rows = {"random_samplers": dict(launches=read_launches())}
+    zero_launches()
+    ppl, final, secs = large_word_lm_run()
+    rows["large_word_lm"] = dict(launches=read_launches(), seconds=secs,
+                                 ppl=ppl, final=final)
+    log("[random] %s: examples/rnn/large_word_lm/train.py on the card at "
+        "its defaults (3 epochs, 256 sampled negatives of 10,000 words): "
+        "%.1f s; validation perplexity by epoch %s, FINAL_VALID_PPL %.2f "
+        "(the JAX package's gate %g)" % (card(), secs, ppl, final,
+                                        LWLM_GATE))
+    log("[random] flash-attention launches %s; the phase took %.1f s"
+        % ({k: r["launches"] for k, r in rows.items()},
+           time.monotonic() - t0))
+    if bad:
+        fail("random: failed %s" % bad)
+    if not (len(ppl) == 3 and ppl[0] > ppl[2] and final < LWLM_GATE):
+        fail("random: large_word_lm's perplexities %s, final %s"
+             % (ppl, final))
+    for name, r in rows.items():
+        if any(r["launches"].values()):
+            fail("random: %s launched a flash-attention kernel: %s"
+                 % (name, r["launches"]))
+    return rows
+
+
 # a process of the --parent comparison: the sparse and lm phases of the
 # checkout in its working directory, their rows printed as JSON
 PARENT_CODE = ("import json, sys; sys.argv = ['chip_smoke.py']; "
@@ -5498,6 +6228,9 @@ def main():
     mnist = phase_mnist()
     phase_ops()
     zoo = phase_zoo()
+    imagenet = phase_imagenet()
+    optim = phase_optim()
+    rand = phase_random()
     sources = {"flash_fwd": ("flash_fwd.cu", 149),
                "flash_bwd_dq": ("flash_bwd.cu", 277),
                "flash_bwd_dkv": ("flash_bwd.cu", 309)}
@@ -5519,7 +6252,8 @@ def main():
         by_path.update({row: r["launches"][name]
                         for row, r in mnist.items()})
         by_path.update({row: r["launches"][name]
-                        for row, r in zoo.items()})
+                        for rows in (zoo, imagenet, optim, rand)
+                        for row, r in rows.items()})
         kernels.append(dict(
             name=name, route="cuda",
             source="mxtpu_torch/ops/csrc/" + src,

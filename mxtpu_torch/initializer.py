@@ -3,17 +3,18 @@
 Counterpart of ``mxtpu/initializer.py``: ``InitDesc``, the dispatch by
 parameter name (weight, bias, gamma, beta, moving_mean, moving_var, or
 an ``__init__`` attr), ``Uniform``, ``Normal``, ``Xavier``, ``Zero``,
-``One``, ``Constant``, ``LSTMBias``, ``register`` and ``create``.
-Random draws come from ``mxtpu_torch.random`` on the array's own
-device, so the values differ from the JAX package's for the same seed;
-the distributions are the same.  ``Load``, ``Mixed``, ``Orthogonal``,
-``MSRAPrelu`` and ``Bilinear`` are not ported.
+``One``, ``Constant``, ``Orthogonal``, ``MSRAPrelu``, ``Bilinear``,
+``LSTMBias``, ``Load``, ``Mixed``, the ``init`` namespace, ``register``
+and ``create``.  Random draws come from ``mxtpu_torch.random`` on the
+array's own device, so the values differ from the JAX package's for the
+same seed; the distributions are the same.
 """
 from __future__ import annotations
 
 import json
 import math
-from typing import Dict
+import re
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -21,7 +22,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Zero", "One",
-           "Constant", "Xavier", "LSTMBias", "register", "create"]
+           "Constant", "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear",
+           "LSTMBias", "Mixed", "Load", "register", "create"]
 
 _INIT_REGISTRY: Dict[str, type] = {}
 
@@ -222,6 +224,57 @@ class Xavier(Initializer):
 
 
 @register
+class MSRAPrelu(Xavier):
+    """He initialization for a PReLU of slope ``slope``: normal draws of
+    variance ``2 / (1 + slope^2) / factor``."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Orthogonal(Initializer):
+    """``scale`` times an orthonormal factor (of the SVD, on the host)
+    of a (out, in) uniform or normal draw, reshaped to the weight."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, desc, arr):
+        from . import random as _rnd
+
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = _rnd.uniform(-1.0, 1.0, shape=(nout, nin), ctx=arr.ctx)
+        else:
+            tmp = _rnd.normal(0.0, 1.0, shape=(nout, nin), ctx=arr.ctx)
+        tmp = tmp.asnumpy()
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        self._set(arr, (self.scale * q).reshape(arr.shape))
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel (for a Deconvolution that
+    upsamples), over the last two axes."""
+
+    def _init_weight(self, desc, arr):
+        shape = arr.shape
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = np.arange(int(np.prod(shape)))
+        x = i % shape[3]
+        y = (i // shape[3]) % shape[2]
+        weight = (1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c))
+        self._set(arr, weight.astype(np.float32).reshape(shape))
+
+
+@register
 class LSTMBias(Initializer):
     """Zeros, and ``forget_bias`` in the forget gate's quarter (gates i,
     f, g, o): the i2h bias of ``rnn.LSTMCell``."""
@@ -238,3 +291,69 @@ class LSTMBias(Initializer):
 
     _init_default = _init_weight
     _init_bias = _init_weight
+
+
+class Load(object):
+    """Initialize from saved arrays (a dict, or a file that ``nd.save``
+    wrote; ``arg:``/``aux:`` prefixes dropped) by name, else by
+    ``default_init``."""
+
+    def __init__(self, param, default_init: Optional[Initializer] = None,
+                 verbose=False):
+        if isinstance(param, str):
+            from .context import cpu
+            from .ndarray import load as nd_load
+
+            param = nd_load(param, ctx=cpu())
+        self.param = {k.replace("arg:", "").replace("aux:", ""): v
+                      for k, v in param.items()}
+        self.default_init = default_init
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            src = self.param[name]
+            if tuple(src.shape) != tuple(arr.shape):
+                raise MXNetError("shape mismatch loading %r" % name)
+            Initializer._set(arr, src.asnumpy() if hasattr(src, "asnumpy")
+                             else np.asarray(src))
+        else:
+            if self.default_init is None:
+                raise MXNetError("no init for %r" % name)
+            self.default_init(name, arr)
+
+
+class Mixed(object):
+    """The first initializer whose pattern (a regular expression)
+    matches the parameter's name."""
+
+    def __init__(self, patterns: List[str], initializers: List[Initializer]):
+        if len(patterns) != len(initializers):
+            raise MXNetError("patterns/initializers length mismatch")
+        self.map = [(re.compile(p), init)
+                    for p, init in zip(patterns, initializers)]
+
+    def __call__(self, name, arr):
+        for pat, init in self.map:
+            if pat.search(str(name)):
+                init(name, arr)
+                return
+        raise MXNetError("no initializer matched %r; add a '.*' pattern"
+                         % str(name))
+
+
+class init(object):
+    """The namespace ``mx.initializer.init`` (the JAX package's)."""
+    InitDesc = InitDesc
+    Initializer = Initializer
+    Uniform = Uniform
+    Normal = Normal
+    Zero = Zero
+    One = One
+    Constant = Constant
+    Orthogonal = Orthogonal
+    Xavier = Xavier
+    MSRAPrelu = MSRAPrelu
+    Bilinear = Bilinear
+    LSTMBias = LSTMBias
+    Mixed = Mixed
+    Load = Load

@@ -1,12 +1,18 @@
-"""Data iteration of the PyTorch port (counterpart of ``DataDesc``,
-``DataBatch``, ``DataIter``, ``NDArrayIter``, ``LibSVMIter`` and
-``MNISTIter`` in ``mxtpu/io/io.py``).  Batches are made on the host
-and become NDArrays (CSR arrays for ``LibSVMIter``) on ``ctx``
-(default: the card) as they are taken."""
+"""Data iteration of the PyTorch port (counterpart of
+``mxtpu/io/io.py``: ``DataDesc``, ``DataBatch``, ``DataIter``,
+``NDArrayIter``, ``SimpleIter``, ``ResizeIter``, ``PrefetchingIter``,
+``CSVIter``, ``LibSVMIter``, ``MNISTIter`` and ``create``).  Batches
+are made on the host and become NDArrays (CSR arrays for
+``LibSVMIter``) on ``ctx`` (default: the card) as they are taken.
+``PrefetchingIter`` runs its producer on a thread of its own (the JAX
+package's runs on its dependency engine), joined at ``reset`` and
+``close``."""
 from __future__ import annotations
 
 import gzip
+import queue
 import struct
+import threading
 from collections import namedtuple
 
 import numpy as np
@@ -14,8 +20,9 @@ import numpy as np
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray, array as nd_array
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
-           "LibSVMIter", "MNISTIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
+           "PrefetchingIter", "CSVIter", "LibSVMIter", "MNISTIter",
+           "SimpleIter", "create"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -98,9 +105,10 @@ def _as_named_list(data, default_name):
 
 
 class NDArrayIter(DataIter):
-    """Batches of in-memory arrays, in order or shuffled; the last batch
-    is ``pad``ded (wrapping around, ``getpad`` says how far) or
-    ``discard``ed.  ``roll_over`` is not ported."""
+    """Batches of in-memory arrays, in order or shuffled.  The last
+    short batch is ``pad``ded (wrapping around, ``getpad`` says how
+    far), ``discard``ed, or, with ``roll_over``, carried: its examples
+    lead the next epoch's first batch (whose ``getpad`` counts them)."""
 
     def __init__(self, data, label=None, batch_size=1, shuffle=False,
                  last_batch_handle="pad", data_name="data",
@@ -112,13 +120,19 @@ class NDArrayIter(DataIter):
         for k, v in self.data + self.label:
             if v.shape[0] != self.num_data:
                 raise MXNetError("inconsistent first dims: %s" % k)
-        if last_batch_handle not in ("pad", "discard"):
-            raise MXNetError("last_batch_handle %r is not ported"
-                             % last_batch_handle)
+        if last_batch_handle not in ("pad", "discard", "roll_over"):
+            raise MXNetError("bad last_batch_handle %r" % last_batch_handle)
+        if last_batch_handle == "roll_over" and \
+                0 < self.num_data < batch_size:
+            raise MXNetError("roll_over requires num_data >= batch_size"
+                             " (%d < %d)" % (self.num_data, batch_size))
         self.shuffle = shuffle
         self.last_batch_handle = last_batch_handle
         self.ctx = ctx
         self.idx = np.arange(self.num_data)
+        self.cursor = -batch_size
+        self._cache = None
+        self._exhausted = False
         self.reset()
 
     @property
@@ -132,20 +146,44 @@ class NDArrayIter(DataIter):
                 for k, v in self.label]
 
     def reset(self):
-        self.cursor = -self.batch_size
+        # under roll_over an unfinished tail is carried (by its indices
+        # before the next shuffle) into the next epoch's first batch
+        if self.last_batch_handle == "roll_over" and \
+                self.num_data - self.batch_size < self.cursor \
+                < self.num_data:
+            self._cache = self.idx[self.cursor:].copy()
+            self.cursor = self.cursor - self.num_data - self.batch_size
+        else:
+            self._cache = None
+            self.cursor = -self.batch_size
+        self._exhausted = False
         if self.shuffle:
             np.random.shuffle(self.idx)
 
     def iter_next(self):
+        if self._exhausted:
+            return False
         self.cursor += self.batch_size
         if self.last_batch_handle == "discard":
-            return self.cursor + self.batch_size <= self.num_data
-        return self.cursor < self.num_data
+            ok = self.cursor + self.batch_size <= self.num_data
+        elif self.last_batch_handle == "roll_over":
+            ok = self.cursor < 0 or \
+                self.cursor + self.batch_size <= self.num_data
+        else:
+            ok = self.cursor < self.num_data
+        self._exhausted = not ok
+        return ok
+
+    def _selection(self):
+        lo, hi = self.cursor, self.cursor + self.batch_size
+        if lo < 0:
+            return np.concatenate([self._cache, self.idx[:hi]])
+        if hi <= self.num_data:
+            return self.idx[lo:hi]
+        return np.concatenate([self.idx[lo:], self.idx[:hi - self.num_data]])
 
     def _take(self, arrays):
-        lo, hi = self.cursor, self.cursor + self.batch_size
-        sel = self.idx[lo:hi] if hi <= self.num_data else np.concatenate(
-            [self.idx[lo:], self.idx[:hi - self.num_data]])
+        sel = self._selection()
         return [nd_array(v[sel], ctx=self.ctx) for _, v in arrays]
 
     def getdata(self):
@@ -158,7 +196,249 @@ class NDArrayIter(DataIter):
         hi = self.cursor + self.batch_size
         if self.last_batch_handle == "pad" and hi > self.num_data:
             return hi - self.num_data
+        if self.last_batch_handle == "roll_over" and self.cursor < 0:
+            return -self.cursor
         return 0
+
+    def getindex(self):
+        return self._selection()
+
+    def __next__(self):
+        if self.iter_next():
+            return DataBatch(data=self.getdata(), label=self.getlabel(),
+                             pad=self.getpad(), index=self.getindex())
+        raise StopIteration
+
+    next = __next__
+
+
+class SimpleIter(DataIter):
+    """``num_batches`` batches a epoch from ``gen_fn(i)``, which returns
+    (data arrays, label arrays) of batch ``i``."""
+
+    def __init__(self, provide_data, provide_label, gen_fn, num_batches,
+                 ctx=None):
+        super().__init__(provide_data[0].shape[0])
+        self.provide_data = provide_data
+        self.provide_label = provide_label
+        self._gen_fn = gen_fn
+        self._num = num_batches
+        self._i = 0
+        self.ctx = ctx
+
+    def reset(self):
+        self._i = 0
+
+    def __next__(self):
+        if self._i >= self._num:
+            raise StopIteration
+        self._i += 1
+        data, label = self._gen_fn(self._i - 1)
+        return DataBatch(data=[nd_array(d, ctx=self.ctx) for d in data],
+                         label=[nd_array(x, ctx=self.ctx) for x in label],
+                         pad=0, index=None, provide_data=self.provide_data,
+                         provide_label=self.provide_label)
+
+    next = __next__
+
+
+class ResizeIter(DataIter):
+    """``size`` batches a epoch of ``data_iter``, which is reset when it
+    ends early (and at each ``reset`` with ``reset_internal``)."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__(data_iter.batch_size)
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+        self.current_batch = None
+        self.provide_data = data_iter.provide_data
+        self.provide_label = data_iter.provide_label
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def iter_next(self):
+        if self.cur == self.size:
+            return False
+        try:
+            self.current_batch = self.data_iter.next()
+        except StopIteration:
+            self.data_iter.reset()
+            self.current_batch = self.data_iter.next()
+        self.cur += 1
+        return True
+
+    def __next__(self):
+        if self.iter_next():
+            return self.current_batch
+        raise StopIteration
+
+    next = __next__
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+
+class PrefetchingIter(DataIter):
+    """The batches of one or more iterators (merged into one batch a
+    step), taken ahead of the consumer by a producer thread, at most
+    ``prefetch_depth`` of them waiting.  ``reset`` stops and joins the
+    producer before it resets the iterators; ``close`` stops it for
+    good.  An error in the producer is raised by ``next``."""
+
+    def __init__(self, iters, rename_data=None, rename_label=None,
+                 prefetch_depth=2):
+        if not isinstance(iters, (list, tuple)):
+            iters = [iters]
+        super().__init__(iters[0].batch_size)
+        self.iters = iters
+        self.rename_data = rename_data
+        self.rename_label = rename_label
+        self._depth = max(1, int(prefetch_depth))
+        self._thread = None
+        self._start()
+
+    @property
+    def provide_data(self):
+        if self.rename_data is None:
+            return sum([i.provide_data for i in self.iters], [])
+        return sum([[DataDesc(r.get(d.name, d.name), d.shape, d.dtype)
+                     for d in i.provide_data]
+                    for r, i in zip(self.rename_data, self.iters)], [])
+
+    @property
+    def provide_label(self):
+        if self.rename_label is None:
+            return sum([i.provide_label for i in self.iters], [])
+        return sum([[DataDesc(r.get(d.name, d.name), d.shape, d.dtype)
+                     for d in i.provide_label]
+                    for r, i in zip(self.rename_label, self.iters)], [])
+
+    def _produce(self, q, stop):
+        """One epoch: a list of batches (one of each iterator) at a time,
+        then None (the end) or the error raised."""
+        def put(item):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        while not stop.is_set():
+            try:
+                batches = [i.next() for i in self.iters]
+            except StopIteration:
+                put(None)
+                return
+            except Exception as e:  # raised again by next()
+                put(e)
+                return
+            if not put(batches):
+                return
+
+    def _start(self):
+        self._queue = queue.Queue(maxsize=self._depth)
+        self._stop = threading.Event()
+        self._seen_end = False
+        self._thread = threading.Thread(
+            target=self._produce, args=(self._queue, self._stop),
+            name="PrefetchingIter", daemon=True)
+        self._thread.start()
+
+    def close(self):
+        """Stop the producer and join it."""
+        if self._thread is not None:
+            self._stop.set()
+            self._thread.join()
+            self._thread = None
+
+    def reset(self):
+        self.close()
+        for i in self.iters:
+            i.reset()
+        self._start()
+
+    def __next__(self):
+        if self._seen_end:
+            raise StopIteration
+        got = self._queue.get()
+        if got is None or isinstance(got, Exception):
+            self._seen_end = True
+            if got is None:
+                raise StopIteration
+            raise got
+        if len(got) == 1:
+            return got[0]
+        return DataBatch(
+            data=sum([b.data for b in got], []),
+            label=sum([(b.label or []) for b in got], []),
+            pad=max(b.pad or 0 for b in got),
+            provide_data=self.provide_data,
+            provide_label=self.provide_label)
+
+    next = __next__
+
+
+def _shape_arg(shape):
+    if isinstance(shape, (tuple, list)):
+        return tuple(int(s) for s in shape)
+    return tuple(int(s) for s in str(shape).strip("()[] ").split(",")
+                 if s.strip())
+
+
+class CSVIter(DataIter):
+    """Rows of a CSV file reshaped to ``data_shape`` (labels from
+    ``label_csv``, else zeros), batched as ``NDArrayIter`` batches them:
+    ``round_batch`` pads the last batch, else it is dropped."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None, label_shape=(1,),
+                 batch_size=1, round_batch=True, dtype="float32", ctx=None,
+                 **_):
+        super().__init__(batch_size)
+        self.data_shape = _shape_arg(data_shape)
+        self.label_shape = _shape_arg(label_shape)
+        data = np.loadtxt(data_csv, delimiter=",", dtype=np.dtype(dtype),
+                          ndmin=2).reshape((-1,) + self.data_shape)
+        if label_csv is not None:
+            label = np.loadtxt(label_csv, delimiter=",", dtype=np.float32,
+                               ndmin=2).reshape((-1,) + self.label_shape)
+        else:
+            label = np.zeros((data.shape[0],) + self.label_shape,
+                             dtype=np.float32)
+        self._inner = NDArrayIter(
+            {"data": data}, {"label": label}, batch_size=batch_size,
+            last_batch_handle="pad" if round_batch else "discard", ctx=ctx)
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def __next__(self):
+        return self._inner.next()
+
+    next = __next__
 
 
 class LibSVMIter(DataIter):
@@ -321,3 +601,20 @@ class MNISTIter(DataIter):
         return self._inner.next()
 
     next = __next__
+
+
+_ITER_REGISTRY = {
+    "MNISTIter": MNISTIter,
+    "CSVIter": CSVIter,
+    "LibSVMIter": LibSVMIter,
+    "NDArrayIter": NDArrayIter,
+}
+
+
+def create(name, **kwargs):
+    """A registered iterator by name (``MNISTIter``, ``CSVIter``,
+    ``LibSVMIter``, ``NDArrayIter``)."""
+    if name not in _ITER_REGISTRY:
+        raise MXNetError("unknown data iter %r (have %s)"
+                         % (name, sorted(_ITER_REGISTRY)))
+    return _ITER_REGISTRY[name](**kwargs)

@@ -4,7 +4,8 @@ store (``_create_kvstore``, ``_initialize_kvstore``,
 ``_update_params_on_kvstore``, ``_update_params``), ``BatchEndParam``
 and ``save_checkpoint``/``load_checkpoint`` in the JAX package's format
 (``prefix-symbol.json`` and ``prefix-%04d.params`` with
-``arg:``/``aux:`` keys).
+``arg:``/``aux:`` keys, and the optimizer's pickled states as
+``prefix-%04d.states``).
 
 The kvstore rule is the JAX package's: none for no name, and on one
 device for a name without ``dist`` other than ``tpu`` (``local``,
@@ -99,13 +100,17 @@ def _update_params(param_arrays, grad_arrays, updater, num_device,
 
 
 def save_checkpoint(prefix: str, epoch: int, symbol, arg_params,
-                    aux_params):
-    """Write ``prefix-symbol.json`` and ``prefix-%04d.params``."""
+                    aux_params, states=None):
+    """Write ``prefix-symbol.json``, ``prefix-%04d.params`` and, given
+    ``states`` (bytes), ``prefix-%04d.states``."""
     if symbol is not None:
         symbol.save("%s-symbol.json" % prefix)
     save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
     save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
     nd_mod.save("%s-%04d.params" % (prefix, epoch), save_dict)
+    if states is not None:
+        with open("%s-%04d.states" % (prefix, epoch), "wb") as f:
+            f.write(states)
 
 
 def load_checkpoint(prefix: str, epoch: int, ctx=None):

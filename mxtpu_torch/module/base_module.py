@@ -90,13 +90,17 @@ class BaseModule(object):
             optimizer_params=(("learning_rate", 0.01),),
             initializer=None, arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
-            begin_epoch=0, num_epoch=None, validation_metric=None):
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None):
         """The training loop: bind, init_params, init_optimizer, then
-        forward/backward/update over ``train_data`` each epoch."""
+        forward/backward/update over ``train_data`` each epoch.
+        ``monitor`` must be None (monitors are not ported)."""
         from ..initializer import Uniform
 
         if num_epoch is None:
             raise MXNetError("num_epoch required for fit")
+        if monitor is not None:
+            raise MXNetError("monitors are not ported (ROADMAP A10c)")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)

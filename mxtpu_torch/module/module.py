@@ -5,7 +5,9 @@ group, ``init_params`` fills the parameters (from given arrays or an
 initializer, by name), ``init_optimizer`` makes the optimizer with
 ``rescale_grad = 1/batch`` and its updater (no kvstore on one device),
 ``forward``/``backward``/``update`` run a step, ``get_params``/
-``set_params``, ``get_outputs``, ``save_checkpoint`` and ``load``;
+``set_params``, ``get_outputs``, ``save_checkpoint`` and ``load`` (with
+the optimizer's states, ``prefix-%04d.states``, as the JAX package
+writes them), ``save_optimizer_states``/``load_optimizer_states``;
 ``bind(shared_module=...)`` and ``borrow_optimizer`` let
 ``BucketingModule``'s buckets share one set of parameters and one
 optimizer.  ``context=None`` is the card.  ``init_optimizer(kvstore=)``
@@ -13,12 +15,14 @@ takes a store object or name (``model._create_kvstore``); over a
 ``dist_*`` store the optimizer runs on the servers, ``update`` pushes
 the gradients and pulls the weights back, and a ``_sync`` store scales
 ``rescale_grad`` by the number of workers.  Several devices,
-optimizer-state files and the tune/sharding/health/telemetry hooks are
-not ported.
+``load_latest`` (the JAX package's checkpoints carry a CRC manifest
+that the port does not write: A17), monitors and the
+tune/sharding/health/telemetry hooks are not ported.
 """
 from __future__ import annotations
 
 import logging
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -70,9 +74,10 @@ class Module(BaseModule):
         self._updater = None
 
     @staticmethod
-    def load(prefix, epoch, **kwargs):
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
         """A Module from a checkpoint, its arrays on the module's
-        device."""
+        device; with ``load_optimizer_states`` its optimizer states
+        (``prefix-%04d.states``) are restored by ``init_optimizer``."""
         ctx = kwargs.get("context")
         ctx = ctx[0] if isinstance(ctx, (list, tuple)) else ctx
         sym, args, auxs = load_checkpoint(prefix, epoch, ctx=ctx)
@@ -80,15 +85,49 @@ class Module(BaseModule):
         mod._arg_params = args
         mod._aux_params = auxs
         mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
         return mod
 
+    @staticmethod
+    def load_latest(prefix, load_optimizer_states=False, **kwargs):
+        raise MXNetError("load_latest needs the CRC manifest of the JAX "
+                         "package's atomic checkpoints, which the port does "
+                         "not write (ROADMAP A17)")
+
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
-        if save_optimizer_states:
-            raise MXNetError("optimizer-state files are not ported "
-                             "(ROADMAP A10c)")
+        """``prefix-symbol.json``, ``prefix-%04d.params`` and, with
+        ``save_optimizer_states``, ``prefix-%04d.states``."""
         self._sync_params_from_devices()
+        states = self._optimizer_state_bytes() if save_optimizer_states \
+            else None
         save_checkpoint(prefix, epoch, self.symbol, self._arg_params,
-                        self._aux_params)
+                        self._aux_params, states=states)
+
+    def _optimizer_state_bytes(self):
+        if not self.optimizer_initialized:
+            raise MXNetError("init_optimizer() first")
+        if self._update_on_kvstore:
+            self._kvstore._need_updater()
+            return self._kvstore._updater.get_states(dump_optimizer=False)
+        return self._updater.get_states()
+
+    def save_optimizer_states(self, fname):
+        """The updater's states (the store's, when it updates) to
+        ``fname``."""
+        with open(fname, "wb") as f:
+            f.write(self._optimizer_state_bytes())
+
+    def load_optimizer_states(self, fname):
+        """Restore what ``save_optimizer_states`` wrote, onto the
+        module's device."""
+        if not self.optimizer_initialized:
+            raise MXNetError("init_optimizer() first")
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+        else:
+            with open(fname, "rb") as f:
+                self._updater.set_states(f.read(), ctx=self._context[0])
 
     # -- properties ---------------------------------------------------------
     @property
@@ -251,6 +290,11 @@ class Module(BaseModule):
         else:
             self._updater = opt_mod.get_updater(optimizer)
         self.optimizer_initialized = True
+        preload = self.__dict__.pop("_preload_opt_states", None)
+        if preload is not None:
+            if not os.path.exists(preload):
+                raise MXNetError("no optimizer states at %s" % preload)
+            self.load_optimizer_states(preload)
 
     def borrow_optimizer(self, shared_module):
         """Use ``shared_module``'s optimizer and updater (its states

@@ -1,16 +1,28 @@
 """Optimizers of the PyTorch port.
 
-Counterpart of part of ``mxtpu/optimizer/optimizer.py``: the
-``Optimizer`` base (``lr``/``wd`` and their per-parameter multipliers,
-an ``lr_scheduler``, ``rescale_grad``, ``clip_gradient``, the update
-counts), ``SGD``, ``Adam`` and ``AdaGrad``, the ``Updater`` and ``get_updater``,
+Counterpart of ``mxtpu/optimizer/optimizer.py``: the ``Optimizer`` base
+(``lr``/``wd`` and their per-parameter multipliers, an
+``lr_scheduler``, ``rescale_grad``, ``clip_gradient``, the update
+counts, multi-precision), the sixteen registered optimizers (``sgd``,
+``signum``, ``signsgd``, ``ftml``, ``nag``, ``sgld``, ``dcasgd``,
+``adam``, ``adagrad``, ``rmsprop``, ``adadelta``, ``ftrl``, ``adamax``,
+``nadam``, ``lbsgd``, ``test``), the ``Updater`` and ``get_updater``,
 ``create`` and ``register``, ``param_dict`` (gluon's Parameters, whose
 ``lr_mult``/``wd_mult`` win) and the Updater's ``get_states``/
-``set_states``.  Each optimizer's per-parameter ``update``
-runs its update op (``sgd_update``, ``sgd_mom_update``,
-``adam_update``); its ``fused_update_multi`` does the same arithmetic
-over every parameter at once with ``torch._foreach_*`` (the JAX
-package's one jitted call).
+``set_states`` (the update counts and Nadam's ``m_schedule`` with
+``dump_optimizer``).  Each optimizer's per-parameter ``update`` runs
+its update op (``mxtpu_torch/ops/optimizer_ops.py``) or, where the JAX
+package computes outside an op (SGLD, DCASGD, Adamax, Nadam, LBSGD's
+norms), the same arithmetic on the tensors; SGD's and Adam's
+``fused_update_multi`` do it over every parameter at once with
+``torch._foreach_*`` (the JAX package's one jitted call).
+
+``multi_precision=True`` keeps a float32 master copy of each bfloat16
+or float16 weight: the update runs on the master (the gradient cast to
+float32) and the weight is the master cast back.  SGD updates a tree
+of low-precision weights in one ``torch._foreach_*`` sequence on the
+masters (the JAX package's ``sgd_mp``) and declines a tree that mixes
+precisions, which is then updated one parameter at a time.
 
 A row-sparse gradient (``RowSparseNDArray``, rows sorted and unique)
 takes the lazy update: SGD (``lazy_update=True``, with or without
@@ -20,19 +32,19 @@ every other row stays as it was, bit for bit, weight decay included,
 as the reference's ``sgd_update``/``_sparse_adagrad_update`` with a
 row_sparse gradient.  ``fused_update_multi`` declines any tree with a
 sparse gradient, and the Updater then updates one parameter at a time.
-Adam takes a sparse gradient densified.
+The other optimizers take a sparse gradient densified.
 
 ``make_scan_step`` gives the whole-tree step that
-``mxtpu_torch.fused_train.FusedTrainLoop`` runs K times a call: a
-:class:`ScanStep` whose ``step`` updates the weights and states in place
-and reads each step's learning rates from a device tensor row (so that a
-captured CUDA graph reads new rates on every replay), and whose
-``host_sched`` computes those rows up front on the host, scheduler and
-Adam's bias correction included, without touching a counter.
+``mxtpu_torch.fused_train.FusedTrainLoop`` runs K times a call (SGD
+and Adam on full-precision trees): a :class:`ScanStep` whose ``step``
+updates the weights and states in place and reads each step's learning
+rates from a device tensor row (so that a captured CUDA graph reads new
+rates on every replay), and whose ``host_sched`` computes those rows up
+front on the host, scheduler and Adam's bias correction included,
+without touching a counter.
 
-Multi-precision is not ported (ROADMAP A10c): ``multi_precision=True``
-with a low-precision weight raises.  The other optimizers are not
-ported either.
+The class flags ``zero1_compatible`` and ``single_apply_update`` are
+the JAX package's (its sharded optimizer-state engine reads them).
 """
 from __future__ import annotations
 
@@ -46,7 +58,9 @@ import torch
 from ..base import MXNetError
 from ..ndarray.ndarray import array, imperative_invoke, zeros
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdaGrad", "ScanStep", "Updater",
+__all__ = ["Optimizer", "SGD", "Signum", "SignSGD", "FTML", "DCASGD", "NAG",
+           "SGLD", "Adam", "AdaGrad", "RMSProp", "AdaDelta", "Ftrl",
+           "Adamax", "Nadam", "LBSGD", "Test", "ScanStep", "Updater",
            "get_updater", "create", "register"]
 
 _LOWP = (torch.float16, torch.bfloat16)
@@ -68,8 +82,20 @@ class _Mults(object):
         self.lr_mult, self.wd_mult = state
 
 
+def _is_lowp(weight) -> bool:
+    return weight._data.dtype in _LOWP
+
+
 class Optimizer(object):
     opt_registry: Dict[str, type] = {}
+
+    # True where ``update`` is elementwise in (weight, grad, state) with
+    # host scalars from the update counts alone, so that an update cut
+    # into slices equals the whole one; False for whole-weight norms
+    # (LBSGD), per-call noise (SGLD) and per-call schedules (Nadam)
+    zero1_compatible = True
+    # True where a dense ``update`` is exactly one update op
+    single_apply_update = False
 
     @staticmethod
     def register(klass):
@@ -122,15 +148,27 @@ class Optimizer(object):
         return None
 
     def create_state_multi_precision(self, index, weight):
-        """The plain ``create_state``: a float32 master copy for a
-        low-precision weight is not ported."""
-        if self.multi_precision and weight._data.dtype in _LOWP:
-            raise MXNetError("multi_precision for a %s weight is not ported "
-                             "(ROADMAP A10c)" % weight.dtype)
+        """``create_state``; under ``multi_precision`` a bfloat16 or
+        float16 weight gets (its float32 master copy, the master's
+        state)."""
+        if self.multi_precision and _is_lowp(weight):
+            master = weight.astype(np.float32)
+            return (master, self.create_state(index, master))
         return self.create_state(index, weight)
 
     def update(self, index, weight, grad, state):
         raise NotImplementedError
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """``update``; under ``multi_precision`` a low-precision weight's
+        float32 master takes the update from the gradient cast to
+        float32, and the weight becomes the master cast back."""
+        if self.multi_precision and _is_lowp(weight):
+            master, base_state = state
+            self.update(index, master, grad.astype(np.float32), base_state)
+            weight._set_data(master._data.to(weight._data.dtype))
+        else:
+            self.update(index, weight, grad, state)
 
     def fused_update_multi(self, indices, weights, grads, states) -> bool:
         """Update many parameters at once; False when this optimizer has
@@ -340,6 +378,8 @@ class SGD(Optimizer):
     * mom - lr * (g + wd * w)``, ``w += mom`` (``w -= lr * (g + wd * w)``
     without momentum)."""
 
+    single_apply_update = True
+
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
@@ -379,22 +419,40 @@ class SGD(Optimizer):
 
     def fused_update_multi(self, indices, weights, grads, states) -> bool:
         """The per-parameter arithmetic of ``update``, over every
-        parameter in one sequence of ``torch._foreach_*`` calls."""
+        parameter in one sequence of ``torch._foreach_*`` calls; under
+        ``multi_precision`` a tree of low-precision weights is updated
+        on its float32 masters, each weight then cast from its master
+        (the JAX package's ``sgd_mp``), and a tree that mixes
+        precisions is declined."""
         if _any_sparse(grads):
+            return False
+        mp = self.multi_precision and any(_is_lowp(w) for w in weights)
+        if mp and not all(_is_lowp(w) for w in weights):
             return False
         for i in indices:
             self._update_count(i)
         lrs = [self._get_lr(i) for i in indices]
         wds = [self._get_wd(i) for i in indices]
-        mom = [s._data for s in states] if self.momentum != 0.0 else []
-        self._foreach_step([x._data for x in weights], mom,
-                           [x._data for x in grads], wds,
-                           lambda g: torch._foreach_mul_(g, lrs))
+        has_mom = self.momentum != 0.0
+        g = [x._data for x in grads]
+        if mp:
+            masters = [s[0]._data for s in states]
+            mom = [s[1]._data for s in states] if has_mom else []
+            g = [t.float() for t in g]
+        else:
+            masters = [x._data for x in weights]
+            mom = [s._data for s in states] if has_mom else []
+        self._foreach_step(masters, mom, g, wds,
+                           lambda u: torch._foreach_mul_(u, lrs))
+        if mp:
+            with torch.no_grad():
+                torch._foreach_copy_([w._data for w in weights], masters)
         return True
 
     def make_scan_step(self, indices, weights):
-        if self.multi_precision and any(w._data.dtype in _LOWP
-                                           for w in weights):
+        # a tree of low-precision weights under multi_precision keeps the
+        # per-call path (its masters are not the loop's weights)
+        if self.multi_precision and any(_is_lowp(w) for w in weights):
             return None
         indices = list(indices)
         wds = [self._get_wd(i) for i in indices]
@@ -419,6 +477,159 @@ class SGD(Optimizer):
         return ScanStep(pack_states, step, host_sched)
 
 
+def _zeros_like(weight):
+    return zeros(weight.shape, ctx=weight.ctx, dtype=weight.dtype)
+
+
+def _dense(grad):
+    return grad.todense() if grad.stype != "default" else grad
+
+
+def _clipped(opt, grad):
+    """``clip(rescale * grad)`` as a new tensor."""
+    g = _dense(grad)._data * opt.rescale_grad
+    if opt.clip_gradient is not None:
+        g = torch.clamp(g, -opt.clip_gradient, opt.clip_gradient)
+    return g
+
+
+@register
+class Signum(Optimizer):
+    """Signum: ``mom = momentum * mom - (1 - momentum) * (g + wd * w)``,
+    ``w = (1 - lr * wd_lh) * w + lr * sign(mom)`` (``signum_update``);
+    without momentum SignSGD's ``w -= lr * (sign(g) + wd * w)``."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        kw = self._common_kwargs()
+        if state is None:
+            self._apply("signsgd_update", weight, grad, (), lr=lr, wd=wd,
+                        **kw)
+        else:
+            self._apply("signum_update", weight, grad, (state,), lr=lr,
+                        wd=wd, momentum=self.momentum, wd_lh=self.wd_lh,
+                        **kw)
+
+
+@register
+class SignSGD(Signum):
+    """Signum without momentum (``signsgd_update``)."""
+
+    def __init__(self, **kwargs):
+        kwargs.setdefault("momentum", 0.0)
+        super().__init__(**kwargs)
+
+
+@register
+class FTML(Optimizer):
+    """FTML (``ftml_update``, its ``t`` the parameter's update count)."""
+
+    def __init__(self, beta1=0.6, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight),
+                _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        self._apply("ftml_update", weight, grad, state, lr=lr, wd=wd,
+                    beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon,
+                    t=self._index_update_count[index],
+                    **self._common_kwargs())
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov momentum as the JAX package has it (``nag_mom_update``,
+    not ``torch.optim.SGD(nesterov=True)``): ``g = clip(rescale * grad)
+    + wd * w``, ``mom = momentum * mom + g``, ``w -= lr * (g + momentum
+    * mom)``; plain SGD without momentum."""
+
+    single_apply_update = True
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        kw = self._common_kwargs()
+        if state is None:
+            self._apply("sgd_update", weight, grad, (), lr=lr, wd=wd, **kw)
+        else:
+            self._apply("nag_mom_update", weight, grad, (state,), lr=lr,
+                        wd=wd, momentum=self.momentum, **kw)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: ``w -= lr / 2 * (g + wd *
+    w)`` plus normal noise of variance ``lr``, drawn on the weight's
+    device from ``mxtpu_torch.random`` on each call."""
+
+    zero1_compatible = False
+
+    def update(self, index, weight, grad, state):
+        from .. import random as _rnd
+
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = _clipped(self, grad)
+        noise = _rnd.normal(0, math.sqrt(lr), shape=weight.shape,
+                            ctx=weight.ctx)._data
+        w = weight._data
+        weight._set_data(w - (lr / 2) * (g + wd * w) + noise)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated SGD: the step adds ``lamda * g * g * (w -
+    previous)`` to the gradient; the state is (momentum or None, the
+    previous weight)."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous: Dict[Any, Any] = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        mom = None if self.momentum == 0.0 else _zeros_like(weight)
+        return (mom, weight.copy())
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = _clipped(self, grad)
+        mom, previous = state
+        w = weight._data.clone()
+        dc = self.lamda * g * g * (w - previous._data)
+        if mom is not None:
+            mom._set_data(self.momentum * mom._data - lr * (g + wd * w + dc))
+            step = mom._data
+        else:
+            step = -lr * (g + wd * w + dc)
+        previous._set_data(w)
+        weight._set_data(w + step)
+
+
 @register
 class Adam(Optimizer):
     """Adam with the bias correction folded into the rate: at the
@@ -426,6 +637,8 @@ class Adam(Optimizer):
     beta1^t)``, ``g = clip(rescale * grad) + wd * w``, ``m = beta1 * m +
     (1 - beta1) * g``, ``v = beta2 * v + (1 - beta2) * g^2``, ``w -= lr_t
     * m / (sqrt(v) + epsilon)`` (the ``adam_update`` op)."""
+
+    single_apply_update = True
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_update=True, **kwargs):
@@ -529,6 +742,215 @@ class AdaGrad(Optimizer):
                     **self._common_kwargs())
 
 
+@register
+class RMSProp(Optimizer):
+    """RMSProp as the JAX package has it (``epsilon`` inside the square
+    root, not torch's): ``rmsprop_update``; ``centered`` takes
+    ``rmspropalex_update``, whose state is (n, g, delta)."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1, self.gamma2 = gamma1, gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return (_zeros_like(weight), _zeros_like(weight),
+                    _zeros_like(weight))
+        return _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        kw = self._common_kwargs()
+        if self.clip_weights:
+            kw["clip_weights"] = self.clip_weights
+        if self.centered:
+            self._apply("rmspropalex_update", weight, grad, state, lr=lr,
+                        wd=wd, gamma1=self.gamma1, gamma2=self.gamma2,
+                        epsilon=self.epsilon, **kw)
+        else:
+            self._apply("rmsprop_update", weight, grad, (state,), lr=lr,
+                        wd=wd, gamma1=self.gamma1, epsilon=self.epsilon,
+                        **kw)
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (``adadelta_update``; no learning rate)."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho, self.epsilon = rho, epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        self._apply("adadelta_update", weight, grad, state, rho=self.rho,
+                    epsilon=self.epsilon, wd=self._get_wd(index),
+                    **self._common_kwargs())
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal (``ftrl_update``; state (z, n))."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1, self.beta = lamda1, beta
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        self._apply("ftrl_update", weight, grad, state, lr=lr, wd=wd,
+                    lamda1=self.lamda1, beta=self.beta,
+                    **self._common_kwargs())
+
+
+@register
+class Adamax(Optimizer):
+    """Adamax: ``g = rescale * grad + wd * w``, clipped after the decay
+    (as the JAX package clips it), ``m = beta1 * m + (1 - beta1) * g``,
+    ``u = max(beta2 * u, |g|)``, ``w -= lr / (1 - beta1^t) * m / (u +
+    1e-8)``."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        lr /= (1.0 - self.beta1 ** self._index_update_count[index])
+        w = weight._data
+        g = _dense(grad)._data * self.rescale_grad + wd * w
+        if self.clip_gradient is not None:
+            g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+        m, u = state
+        m._set_data(self.beta1 * m._data + (1.0 - self.beta1) * g)
+        u._set_data(torch.maximum(self.beta2 * u._data, torch.abs(g)))
+        weight._set_data(w - lr * m._data / (u._data + 1e-8))
+
+
+@register
+class Nadam(Optimizer):
+    """Nadam; ``m_schedule`` advances once per ``update`` call (so a
+    whole-tree step advances it once per parameter, as in the JAX
+    package), and ``Updater.get_states(dump_optimizer=True)`` saves
+    it."""
+
+    zero1_compatible = False
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        w = weight._data
+        g = _dense(grad)._data * self.rescale_grad + wd * w
+        if self.clip_gradient is not None:
+            g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+        momentum_t = self.beta1 * (1.0 - 0.5 * 0.96 ** (
+            t * self.schedule_decay))
+        momentum_t_1 = self.beta1 * (1.0 - 0.5 * 0.96 ** (
+            (t + 1) * self.schedule_decay))
+        self.m_schedule *= momentum_t
+        m_schedule_next = self.m_schedule * momentum_t_1
+        m, v = state
+        m._set_data(self.beta1 * m._data + (1.0 - self.beta1) * g)
+        v._set_data(self.beta2 * v._data + (1.0 - self.beta2) * g * g)
+        g_prime = g / (1.0 - self.m_schedule)
+        m_prime = m._data / (1.0 - m_schedule_next)
+        v_prime = v._data / (1.0 - self.beta2 ** t)
+        m_bar = (1.0 - momentum_t) * g_prime + momentum_t_1 * m_prime
+        weight._set_data(w - lr * m_bar / (v_prime ** 0.5 + self.epsilon))
+
+
+@register
+class LBSGD(SGD):
+    """Large-batch SGD: each parameter's rate scaled by ``|w| / (|g| +
+    wd |w| + 1e-9)`` (1 where either norm is 0), the norms of the whole
+    weight and gradient read on the host, one sync a parameter; no
+    whole-tree path and no fused-loop step.  The norms are summed in
+    float64: in float32 a 2.4M-element norm is off by about 4e-5, by
+    an amount that depends on the device's order of summation."""
+
+    zero1_compatible = False
+    single_apply_update = False
+
+    def __init__(self, momentum=0.0, multi_precision=False,
+                 warmup_strategy="linear", warmup_epochs=5, batch_scale=1,
+                 updates_per_epoch=32, begin_epoch=0, num_epochs=60,
+                 **kwargs):
+        super().__init__(momentum=momentum, multi_precision=multi_precision,
+                         **kwargs)
+        self.warmup_strategy = warmup_strategy
+        self.warmup_epochs = warmup_epochs
+        self.batch_scale = batch_scale
+        self.updates_per_epoch = updates_per_epoch
+        self.num_epochs = num_epochs
+
+    def fused_update_multi(self, indices, weights, grads, states) -> bool:
+        return False
+
+    def make_scan_step(self, indices, weights):
+        return None
+
+    def _get_lars(self, weight, grad, wd):
+        w_norm, g_norm = torch.stack([
+            torch.linalg.vector_norm(weight._data, dtype=torch.float64),
+            torch.linalg.vector_norm(_dense(grad)._data,
+                                     dtype=torch.float64)]).tolist()
+        if w_norm > 0 and g_norm > 0:
+            return w_norm / (g_norm + wd * w_norm + 1e-9)
+        return 1.0
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        wd = self._get_wd(index)
+        lr = self._get_lr(index) * self._get_lars(weight, grad, wd)
+        kw = self._common_kwargs()
+        if state is None:
+            self._apply("sgd_update", weight, grad, (), lr=lr, wd=wd, **kw)
+        else:
+            self._apply("sgd_mom_update", weight, grad, (state,), lr=lr,
+                        wd=wd, momentum=self.momentum, **kw)
+
+
+@register
+class Test(Optimizer):
+    """``w += rescale * grad``; the state holds the new weight."""
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        weight._set_data(weight._data + _dense(grad)._data * self.rescale_grad)
+        state._set_data(weight._data)
+
+
 class Updater(object):
     """Holds each parameter's optimizer state and applies updates."""
 
@@ -543,7 +965,8 @@ class Updater(object):
         return self.states[index]
 
     def __call__(self, index, grad, weight):
-        self.optimizer.update(index, weight, grad, self._state(index, weight))
+        self.optimizer.update_multi_precision(index, weight, grad,
+                                              self._state(index, weight))
 
     def update_multi(self, triples):
         """Update many parameters, ``triples`` of (index, grad, weight):
@@ -554,11 +977,12 @@ class Updater(object):
                 [t[1] for t in triples], states):
             return
         for (idx, g, w), st in zip(triples, states):
-            self.optimizer.update(idx, w, g, st)
+            self.optimizer.update_multi_precision(idx, w, g, st)
 
     def get_states(self, dump_optimizer=False) -> bytes:
         """The states (as host arrays) and, with ``dump_optimizer``, the
-        update counters, pickled (the reference's ``get_states``)."""
+        update counters and Nadam's ``m_schedule``, pickled (the
+        reference's ``get_states``)."""
         opt_state = None
         if dump_optimizer:
             opt_state = {
@@ -566,6 +990,8 @@ class Updater(object):
                 "begin_num_update": self.optimizer.begin_num_update,
                 "_index_update_count": dict(
                     self.optimizer._index_update_count)}
+            if hasattr(self.optimizer, "m_schedule"):
+                opt_state["m_schedule"] = self.optimizer.m_schedule
         host = {i: _map_state(st, lambda a: a.asnumpy())
                 for i, st in self.states.items()}
         return pickle.dumps((host, opt_state))

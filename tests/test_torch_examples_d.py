@@ -3,7 +3,8 @@ and on the JAX package from the same initial weights, in this process:
 every Uniform draw of its Dense layers is taken, in order, from one
 numpy stream in both.  The whole run (pretraining, k-means, the DEC
 refinement) must end at the same cluster accuracy.  The script's own
-gate depends on the draws (`test_torch_examples.py`'s docstring)."""
+gate depends on the draws (`test_torch_examples.py`'s docstring).
+And `examples/rnn/large_word_lm/train.py` run to its end on the port."""
 import os
 import re
 import sys
@@ -57,3 +58,18 @@ def test_dec_from_the_same_weights_matches_mxtpu(monkeypatch, capsys):
     t = _dec_run(True, monkeypatch, capsys)
     assert final_metric(t, "FINAL_CLUSTER_ACCURACY") == \
         final_metric(j, "FINAL_CLUSTER_ACCURACY")
+
+
+def test_large_word_lm_sampled_softmax():
+    """`examples/rnn/large_word_lm/train.py` at its defaults (3 epochs),
+    its sampled softmax drawing its negatives with
+    `nd._sample_unique_zipfian`: the full validation perplexity over the
+    10,000 words must fall under the JAX package's gate of 5000
+    (`tests/test_examples.py`; uniform is 10,000), and below it epoch
+    by epoch."""
+    from test_torch_examples import run_example
+
+    out = run_example("rnn/large_word_lm/train.py")
+    ppl = [float(p) for p in re.findall(r"full valid ppl ([0-9.]+)", out)]
+    assert len(ppl) == 3 and ppl[0] > ppl[1] > ppl[2], ppl
+    assert final_metric(out, "FINAL_VALID_PPL") < 5000

@@ -257,10 +257,20 @@ def test_fused_rejects_unsupported(monkeypatch):
 
 
 def test_multi_precision_on_a_low_precision_weight_raises():
+    """Multi-precision is ported: a bfloat16 weight gets a float32
+    master copy (the state of an SGD without momentum is then (master,
+    None)), a float32 weight the plain state; what raises is the fused
+    loop, which has no scan step for a tree of low-precision weights
+    under multi_precision (`tests/test_torch_optimizers.py` holds the
+    updates themselves)."""
     opt = tmx.optimizer.create("sgd", multi_precision=True)
-    w16 = tmx.nd.zeros((2, 2), ctx=tmx.cpu(), dtype="bfloat16")
-    with pytest.raises(MXNetError, match="A10c"):
-        opt.create_state_multi_precision(0, w16)
+    w16 = tmx.nd.array([[1.5, -2.0], [0.25, 3.0]], ctx=tmx.cpu(),
+                       dtype="bfloat16")
+    master, state = opt.create_state_multi_precision(0, w16)
+    assert master.dtype == np.float32 and state is None
+    np.testing.assert_array_equal(master.asnumpy(),
+                                  w16.asnumpy().astype(np.float32))
+    assert opt.make_scan_step([0], [w16]) is None
     w32 = tmx.nd.zeros((2, 2), ctx=tmx.cpu())
     assert opt.create_state_multi_precision(0, w32) is None
 

@@ -144,6 +144,37 @@ def test_the_import_check_covers_the_op_corpus_and_the_zoo():
         assert os.path.join("mxtpu_torch", mod + ".py") in names, mod
 
 
+def test_the_import_check_covers_the_optimizers_samplers_and_io():
+    names = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for mod in ("ops/optimizer_ops", "ops/random_ops", "optimizer/optimizer",
+                "random", "initializer", "metric", "io/io",
+                "module/module", "model"):
+        assert os.path.join("mxtpu_torch", mod + ".py") in names, mod
+    # the loader of train_imagenet.py that chip_smoke.py imports
+    with open(os.path.join(REPO, "tests", "test_torch_example_port.py")) as f:
+        assert not _FORBIDDEN.search(f.read())
+
+
+def test_the_samplers_and_the_optimizer_states_need_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    w = tmx.nd.zeros((2,), ctx=tmx.cpu())
+    upd = tmx.optimizer.get_updater(tmx.optimizer.create("nag",
+                                                         momentum=0.9))
+    upd(0, tmx.nd.ones((2,), ctx=tmx.cpu()), w)
+    states = upd.get_states()
+    for call in (lambda: tmx.random.gamma(2.0, shape=(2,)),
+                 lambda: tmx.random.randint(0, 5, shape=(2,)),
+                 lambda: tmx.random.poisson(3.0, shape=(2,)),
+                 lambda: tmx.nd._sample_unique_zipfian(range_max=9,
+                                                       shape=(2,)),
+                 lambda: tmx.io.NDArrayIter(np.zeros((4, 2)),
+                                            batch_size=2).next(),
+                 lambda: upd.set_states(states)):
+        with pytest.raises(MXNetError, match="no CUDA device"):
+            call()
+    upd.set_states(states, ctx=tmx.cpu())
+
+
 def _first_forward(net):
     """``initialize()`` with no device, then a forward: the deferred
     Parameters take their device when the forward gives their shapes."""

@@ -455,12 +455,151 @@ case("_sparse_adagrad_update", Call(W, G, _a(3, 4, lo=0, hi=1, seed=2),
                                     lr=0.1, wd=0.01))
 
 
-# random draws: shape, finiteness and moments (name -> attrs, mean, std)
+# the other update ops (float16 weights with float32 masters for the
+# mp_ ones)
+W16 = W.astype(np.float16)
+case("mp_sgd_update", Call(W16, G.astype(np.float16), W, lr=0.1, wd=0.01,
+                           rescale_grad=0.5, clip_gradient=0.3))
+case("mp_sgd_mom_update", Call(W16, G.astype(np.float16), _a(3, 4, seed=2),
+                               W, lr=0.1, momentum=0.9, wd=0.01))
+case("nag_mom_update", Call(W, G, _a(3, 4, seed=2), lr=0.1, momentum=0.9,
+                            wd=0.01, clip_gradient=0.3, rescale_grad=0.5))
+case("ftml_update", Call(W, G, _a(3, 4, lo=0, hi=1, seed=2),
+                         _a(3, 4, lo=0, hi=1, seed=3), _a(3, 4, seed=4),
+                         lr=0.01, t=3, wd=0.01, clip_grad=0.4),
+     Call(W, G, _a(3, 4, lo=0, hi=1, seed=2), _a(3, 4, lo=0, hi=1, seed=3),
+          _a(3, 4, seed=4), lr=0.01, t=1, clip_gradient=0.2, clip_grad=0.4))
+case("ftrl_update", Call(W, G, _a(3, 4, seed=2), _a(3, 4, lo=0, hi=1, seed=3),
+                         lr=0.1, lamda1=0.3, wd=0.01))
+case("rmsprop_update", Call(W, G, _a(3, 4, lo=0, hi=1, seed=2), lr=0.01,
+                            wd=0.01, clip_weights=0.5))
+case("rmspropalex_update", Call(W, G, _a(3, 4, lo=0.5, hi=1, seed=2),
+                                _a(3, 4, lo=-0.1, hi=0.1, seed=3),
+                                _a(3, 4, seed=4), lr=0.01, wd=0.01,
+                                clip_weights=0.8))
+case("signsgd_update", Call(W, G, lr=0.1, wd=0.01))
+case("signum_update", Call(W, G, _a(3, 4, seed=2), lr=0.1, momentum=0.9,
+                           wd=0.01, wd_lh=0.05))
+case("adadelta_update", Call(W, G, _a(3, 4, lo=0, hi=1, seed=2),
+                             _a(3, 4, lo=0, hi=1, seed=3), wd=0.01))
+case("_contrib_group_adagrad_update",
+     Call(W, G, _a(3, lo=0, hi=1, seed=2), lr=0.1, clip_gradient=0.5),
+     Call(_a(2, 3, 2), _a(2, 3, 2, seed=1), _a(2, lo=0, hi=1, seed=2),
+          lr=0.1))
+
+
+# random draws: finiteness and moments (name -> attrs, mean, std, the
+# parameter arrays of a _sample_ op); a _like op draws in the shape and
+# dtype of its input
 MOMENTS = {"_random_uniform": (dict(low=-1.0, high=3.0), 1.0,
-                               4 / np.sqrt(12)),
-           "_random_normal": (dict(loc=2.0, scale=0.5), 2.0, 0.5)}
-for _n in MOMENTS:
+                               4 / np.sqrt(12), ()),
+           "_random_normal": (dict(loc=2.0, scale=0.5), 2.0, 0.5, ()),
+           "_random_gamma": (dict(alpha=2.0, beta=1.5), 3.0,
+                             1.5 * np.sqrt(2), ()),
+           "_random_exponential": (dict(lam=2.0), 0.5, 0.5, ()),
+           "_random_poisson": (dict(lam=3.0), 3.0, np.sqrt(3), ()),
+           "_random_negative_binomial": (dict(k=3, p=0.4), 4.5,
+                                         np.sqrt(11.25), ()),
+           "_random_generalized_negative_binomial": (
+               dict(mu=2.0, alpha=0.5), 2.0, 2.0, ()),
+           "_random_randint": (dict(low=-3, high=5), 0.5, np.sqrt(5.25), ())}
+for _n in list(MOMENTS):
+    if _n not in ("_random_randint",):
+        MOMENTS[_n + "_like"] = MOMENTS[_n]
+MOMENTS.update({
+    "_sample_uniform": ({}, 1.0, 4 / np.sqrt(12), ([-1.0], [3.0])),
+    "_sample_normal": ({}, 2.0, 0.5, ([2.0], [0.5])),
+    "_sample_gamma": ({}, 3.0, 1.5 * np.sqrt(2), ([2.0], [1.5])),
+    "_sample_exponential": ({}, 0.5, 0.5, ([2.0],)),
+    "_sample_poisson": ({}, 3.0, np.sqrt(3), ([3.0],)),
+    "_sample_negative_binomial": ({}, 4.5, np.sqrt(11.25), ([3.0], [0.4])),
+    "_sample_generalized_negative_binomial": ({}, 2.0, 2.0, ([2.0],
+                                                              [0.5]))})
+# draws held by their contracts (random_contracts), not by moments
+CONTRACTS = ("_sample_multinomial", "_sample_unique_zipfian", "_shuffle")
+for _n in list(MOMENTS) + list(CONTRACTS):
     case(_n)
+
+
+def draw(mx, name, n, ctx):
+    """``n`` draws of the MOMENTS row ``name`` on ``ctx`` as a flat numpy
+    array, and the dtype they must have."""
+    attrs, _, _, params = MOMENTS[name]
+    fn = getattr(mx.nd, name)
+    if name.endswith("_like"):
+        out = fn(mx.nd.zeros((n,), ctx=ctx), **attrs)
+    elif params:
+        out = fn(*[mx.nd.array(np.asarray(p, np.float32), ctx=ctx)
+                   for p in params], shape=(n,), **attrs)
+        assert out.shape == (1, n), out.shape
+    else:
+        out = fn(shape=(n,), ctx=ctx, **attrs)
+    want = np.int32 if name == "_random_randint" else np.float32
+    return out.asnumpy().reshape(-1), want
+
+
+def moment_errors(x, mean, std):
+    """(the sample mean's error, the sample variance's error), each in
+    standard errors of that estimate (the variance's from the sample's
+    fourth central moment)."""
+    x = np.asarray(x, np.float64)
+    n, m = x.size, x.mean()
+    var = x.var()
+    m4 = ((x - m) ** 4).mean()
+    se_var = np.sqrt(max(m4 - var ** 2, 1e-300) / n)
+    return (abs(m - mean) / (std / np.sqrt(n)),
+            abs(var - std ** 2) / se_var)
+
+
+def random_contracts(mx, ctx):
+    """The contracts of the draws that moments do not hold: (name,
+    failure or None) for each of CONTRACTS."""
+    out = []
+    mx.random.seed(11)
+    p = np.array([[0.1, 0.2, 0.7, 0.0], [0.25, 0.25, 0.25, 0.25]],
+                 np.float32)
+    d, lp = mx.random.multinomial(mx.nd.array(p, ctx=ctx), shape=5000,
+                                  get_prob=True)
+    d, lp = d.asnumpy(), lp.asnumpy()
+    flat = mx.nd._sample_multinomial(mx.nd.array(p[0], ctx=ctx), shape=7)
+    freq = np.stack([np.bincount(r, minlength=4) / r.size for r in d])
+    bad = None
+    if d.shape != (2, 5000) or d.dtype != np.int32 or flat.shape != (7,):
+        bad = "shapes %s %s dtype %s" % (d.shape, flat.shape, d.dtype)
+    elif np.abs(freq - p).max() > 4 * np.sqrt(0.25 / 5000) or freq[0, 3]:
+        bad = "frequencies %s" % freq.tolist()
+    elif not np.allclose(lp, np.log(np.take_along_axis(p, d, 1)),
+                         atol=1e-6):
+        bad = "get_prob is not the log-probability of the draws"
+    out.append(("_sample_multinomial", bad))
+    z = mx.nd._sample_unique_zipfian(range_max=50, shape=(400, 10),
+                                     ctx=ctx).asnumpy()
+    bad = None
+    counts = np.bincount(z.reshape(-1), minlength=50)
+    if z.shape != (400, 10) or z.dtype != np.int32:
+        bad = "shape %s dtype %s" % (z.shape, z.dtype)
+    elif any(len(set(r)) != 10 for r in z) or z.min() < 0 or z.max() >= 50:
+        bad = "rows not unique or out of range"
+    elif not (counts[:5] > counts[-5:].max()).all():
+        bad = "not log-uniform: counts %s" % counts.tolist()
+    else:
+        try:
+            mx.nd._sample_unique_zipfian(range_max=5, shape=(6,), ctx=ctx)
+            bad = "6 unique draws from 5 classes did not raise"
+        except ValueError:
+            pass
+    out.append(("_sample_unique_zipfian", bad))
+    x = np.arange(60, dtype=np.float32).reshape(20, 3)
+    s = mx.nd._shuffle(mx.nd.array(x, ctx=ctx)).asnumpy()
+    bad = None
+    if s.shape != x.shape or sorted(map(tuple, s)) != sorted(map(tuple, x)):
+        bad = "not a permutation of the rows"
+    elif np.array_equal(s, x):
+        bad = "the rows stayed in order"
+    out.append(("_shuffle", bad))
+    return out
+
+
 # outside training Dropout is the identity; its draws are held by
 # moments where it trains
 case("Dropout", Call(_a(3, 4), p=0.5, grad=()))

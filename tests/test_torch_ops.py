@@ -14,7 +14,10 @@ random-weighted sum of the outputs are held to the same bound.  The
 cases include the places where torch's default differs from the
 reference's: `clip` at its bounds (gradient 0.5), ties of `max`/`min`,
 `sort`/`argsort`/`topk` and `_maximum`, rounding at .5 and `mod` with
-mixed signs.  Random ops are held by shape, finiteness and moments.
+mixed signs.  Random ops are held by shape, dtype, finiteness and
+moments (the mean and the variance each within 4 standard errors of
+the distribution's), and the multinomial, unique-zipfian and shuffle
+samplers by their contracts (`random_contracts`).
 
 The sweep is one parametrised test, split over this file and
 `test_torch_ops_b.py`/`_c.py`/`_d.py` (`SHARDS`) to keep each file
@@ -27,8 +30,9 @@ import pytest
 import mxtpu as jmx
 import mxtpu_torch as tmx
 from mxtpu_torch.ops import registry as treg
-from test_torch_op_cases import (CASES, MOMENTS, _a, _f, error_units,
-                                 grad_inputs, run_call)
+from test_torch_op_cases import (CASES, CONTRACTS, MOMENTS, _a, _f, draw,
+                                 error_units, grad_inputs, moment_errors,
+                                 random_contracts, run_call)
 
 RTOL, ATOL = 1e-5, 1e-6
 SHARDS = 4
@@ -61,7 +65,7 @@ def run_case(name):
                     "tests/test_torch_op_cases.py" % name)
     if name not in _canonical_ops():
         pytest.fail("case %r names no registered op" % name)
-    assert CASES[name] or name in MOMENTS, name
+    assert CASES[name] or name in MOMENTS or name in CONTRACTS, name
     for c in CASES[name]:
         check_call(name, c)
     if name in SPECIAL:
@@ -90,14 +94,20 @@ def _block_grad():
 
 def _moments(name):
     def check():
-        attrs, mean, std = MOMENTS[name]
+        _, mean, std, _ = MOMENTS[name]
         tmx.random.seed(3)
-        out = getattr(tmx.nd, name)(shape=(20000,), ctx=tmx.cpu(), **attrs)
-        x = out.asnumpy()
-        assert x.shape == (20000,) and x.dtype == np.float32
+        x, dtype = draw(tmx, name, 20000, tmx.cpu())
+        assert x.shape == (20000,) and x.dtype == dtype, (x.shape, x.dtype)
         assert np.isfinite(x).all()
-        assert abs(x.mean() - mean) < 4 * std / np.sqrt(x.size)
-        assert abs(x.std() - std) < 0.03 * std
+        err_mean, err_var = moment_errors(x, mean, std)
+        assert err_mean < 4 and err_var < 4, (name, err_mean, err_var)
+    return check
+
+
+def _contract(name):
+    def check():
+        bad = dict(random_contracts(tmx, tmx.cpu()))[name]
+        assert bad is None, (name, bad)
     return check
 
 
@@ -116,7 +126,7 @@ def _dropout():
 
 # checks beside the calls: what needs more than one op or draws
 SPECIAL = dict({n: _moments(n) for n in MOMENTS}, BlockGrad=_block_grad,
-               Dropout=_dropout)
+               Dropout=_dropout, **{n: _contract(n) for n in CONTRACTS})
 
 
 @pytest.mark.parametrize("name", shard(0))
