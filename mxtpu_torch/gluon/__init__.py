@@ -2,8 +2,8 @@
 (counterpart of ``mxtpu/gluon/``): Parameter, Block, HybridBlock (which
 ``hybridize()`` runs as one CachedOp), SymbolBlock, Trainer, ``nn``,
 ``loss``, ``utils``, the ResNets of ``model_zoo`` and the fused
-recurrent layers of ``rnn``.  ``rnn``'s cells, ``data`` and
-``contrib`` are not ported (ROADMAP A13)."""
+recurrent layers and cells of ``rnn``.  ``data`` and ``contrib`` are
+not ported (ROADMAP A13)."""
 from .parameter import (Parameter, Constant, ParameterDict,
                         DeferredInitializationError)
 from .block import Block, HybridBlock, SymbolBlock

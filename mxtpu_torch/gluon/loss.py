@@ -1,18 +1,21 @@
 """Losses of the PyTorch port (counterpart of ``mxtpu/gluon/loss.py``),
 with the reference's classes and semantics: ``sample_weight``, the
-class ``weight``, and the mean over every axis but ``batch_axis``.
-CTCLoss, TripletLoss, PoissonNLLLoss and CosineEmbeddingLoss wait for
-their ops (ROADMAP A13/A14).
+class ``weight``, and the mean over every axis but ``batch_axis``
+(CTCLoss, TripletLoss and CosineEmbeddingLoss give one value a sample,
+PoissonNLLLoss the mean of all).
 """
 from __future__ import annotations
+
+import numpy as np
 
 from ..base import MXNetError
 from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
-           "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
-           "LogisticLoss"]
+           "KLDivLoss", "CTCLoss", "HuberLoss", "HingeLoss",
+           "SquaredHingeLoss", "LogisticLoss", "TripletLoss",
+           "PoissonNLLLoss", "CosineEmbeddingLoss"]
 
 
 def _apply_weighting(F, loss, weight=None, sample_weight=None):
@@ -145,6 +148,30 @@ class KLDivLoss(Loss):
         return self._batch_mean(F, loss, sample_weight, self._weight)
 
 
+class CTCLoss(Loss):
+    """The CTC cost of each sample: ``pred`` (``layout`` NTC or TNC)
+    against ``label`` (``label_layout`` NT or TN, padded with -1 or
+    given ``label_lengths``), the blank the first class."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        super().__init__(weight, label_layout.find("N"), **kwargs)
+        self._layout = layout
+        self._label_layout = label_layout
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.SwapAxis(pred, dim1=0, dim2=1)
+        if self._batch_axis == 1:
+            label = F.SwapAxis(label, dim1=0, dim2=1)
+        extra = [x for x in (pred_lengths, label_lengths) if x is not None]
+        loss = F.CTCLoss(pred, label, *extra,
+                         use_data_lengths=pred_lengths is not None,
+                         use_label_lengths=label_lengths is not None)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
+
+
 class HuberLoss(Loss):
     """``|d| - rho / 2`` where ``|d| > rho``, else ``d^2 / (2 rho)``."""
 
@@ -201,3 +228,62 @@ class LogisticLoss(Loss):
             label = (label + 1.0) / 2.0
         loss = F.relu(pred) - pred * label + _softrelu_of_minus_abs(F, pred)
         return self._batch_mean(F, loss, sample_weight, self._weight)
+
+
+class TripletLoss(Loss):
+    """``max(0, |pos - pred|^2 - |neg - pred|^2 + margin)`` a
+    sample."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, positive, negative, sample_weight=None):
+        positive = F.reshape_like(positive, pred)
+        negative = F.reshape_like(negative, pred)
+        loss = F.sum(F.square(positive - pred) - F.square(negative - pred),
+                     axis=self._batch_axis, exclude=True)
+        loss = F.relu(loss + self._margin)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
+
+
+class PoissonNLLLoss(Loss):
+    """The Poisson negative log-likelihood of ``target`` with the rate
+    ``exp(pred)`` (``from_logits``) or ``pred``, with Stirling's term
+    for targets above 1 under ``compute_full``; the mean of all."""
+
+    def __init__(self, weight=None, from_logits=True, batch_axis=0,
+                 compute_full=False, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_logits = from_logits
+        self._compute_full = compute_full
+
+    def hybrid_forward(self, F, pred, target, sample_weight=None,
+                       epsilon=1e-08):
+        target = F.reshape_like(target, pred)
+        if self._from_logits:
+            loss = F.exp(pred) - target * pred
+        else:
+            loss = pred - target * F.log(pred + epsilon)
+        if self._compute_full:
+            stirling = target * F.log(target + 1e-12) - target + \
+                0.5 * F.log(2 * np.pi * (target + 1e-12))
+            loss = loss + stirling * (target > 1)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss)
+
+
+class CosineEmbeddingLoss(Loss):
+    """``1 - cos(input1, input2)`` for label 1, else ``max(0, cos -
+    margin)``, over the last axis."""
+
+    def __init__(self, weight=None, batch_axis=0, margin=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, input1, input2, label, sample_weight=None):
+        cos = F.sum(input1 * input2, axis=-1) / (
+            F.norm(input1, axis=-1) * F.norm(input2, axis=-1) + 1e-12)
+        label = label.reshape((-1,))
+        loss = F.where(label == 1, 1.0 - cos, F.relu(cos - self._margin))
+        return _apply_weighting(F, loss, self._weight, sample_weight)

@@ -1,8 +1,9 @@
 """Basic layers of the PyTorch port (counterpart of
 ``mxtpu/gluon/nn/basic_layers.py``): Sequential, HybridSequential,
-Dense, Dropout, BatchNorm, Embedding, Flatten, Lambda, HybridLambda
-and Activation.  LayerNorm, InstanceNorm and the LeakyReLU family wait
-for their ops (ROADMAP A13/A14).  ``Embedding(sparse_grad=True)`` gives
+Dense, Dropout, BatchNorm, LayerNorm, InstanceNorm, Embedding,
+Flatten, Lambda, HybridLambda, Activation and the LeakyReLU family
+(LeakyReLU, PReLU, ELU, SELU, GELU) with Swish.
+``Embedding(sparse_grad=True)`` gives
 its weight a row-sparse gradient when it runs imperatively; hybridized,
 the traced op's gradient is dense and reaches the weight as the rows
 holding a non-zero, as in the JAX package.
@@ -22,7 +23,9 @@ from ...base import MXNetError
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
-           "Embedding", "Flatten", "Lambda", "HybridLambda", "Activation"]
+           "LayerNorm", "InstanceNorm", "Embedding", "Flatten", "Lambda",
+           "HybridLambda", "Activation", "LeakyReLU", "PReLU", "ELU", "SELU",
+           "GELU", "Swish"]
 
 
 class _Stack(object):
@@ -168,6 +171,55 @@ class BatchNorm(HybridBlock):
         super().cast(dtype)
 
 
+class _Norm(HybridBlock):
+    """What LayerNorm and InstanceNorm share: ``gamma`` and ``beta``
+    of ``in_channels`` (deferred when 0), each learned or not
+    (``scale``, ``center``)."""
+
+    def __init__(self, epsilon, center, scale, beta_initializer,
+                 gamma_initializer, in_channels, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self._epsilon = epsilon
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+
+class LayerNorm(_Norm):
+    """Normalizes over ``axis`` with the statistics of each sample."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, **kwargs)
+        self._axis = axis
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis,
+                           eps=self._epsilon)
+
+
+class InstanceNorm(_Norm):
+    """Normalizes each sample's channels over their spatial axes
+    (``axis`` is taken and not read, as in the reference)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, **kwargs)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
 class Embedding(HybridBlock):
     """A lookup table: ids (any shape) -> their rows of ``weight``
     (input_dim, output_dim); out-of-range ids are clipped.  With
@@ -240,3 +292,67 @@ class Activation(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return F.Activation(x, act_type=self._act_type)
+
+
+class LeakyReLU(HybridBlock):
+    """``x`` where positive, else ``alpha * x``."""
+
+    def __init__(self, alpha, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """LeakyReLU with a learned slope ``alpha`` (one value, 0.25 at
+    first)."""
+
+    def __init__(self, alpha_initializer=None, **kwargs):
+        super().__init__(**kwargs)
+        from ... import initializer as _init_mod
+
+        with self.name_scope():
+            self.alpha = self.params.get(
+                "alpha", shape=(1,),
+                init=alpha_initializer or _init_mod.Constant(0.25))
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    """``x`` where positive, else ``alpha * (exp(x) - 1)``."""
+
+    def __init__(self, alpha=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    """The scaled ELU."""
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
+
+
+class GELU(HybridBlock):
+    """``x * Phi(x)``, the exact (erf) form."""
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="gelu")
+
+
+class Swish(HybridBlock):
+    """``x * sigmoid(beta * x)``."""
+
+    def __init__(self, beta=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._beta = beta
+
+    def hybrid_forward(self, F, x):
+        return x * F.sigmoid(self._beta * x)

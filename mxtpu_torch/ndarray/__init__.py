@@ -1,6 +1,7 @@
 """``mxtpu_torch.nd``: the imperative NDArray API (counterpart of
 ``mxtpu/ndarray/``).  Every registered op is attached as a function;
-the ``_contrib_*`` ops also as ``nd.contrib.*`` without the prefix; the
+the ``_contrib_*`` and ``_linalg_*`` ops also as ``nd.contrib.*`` and
+``nd.linalg.*`` without the prefix; the
 sparse arrays are ``nd.sparse``."""
 import sys as _sys
 
@@ -15,6 +16,7 @@ from . import register as _register_mod
 _this = _sys.modules[__name__]
 _register_mod._init_op_module(_this)
 contrib = _register_mod.prefix_namespace(_this, "_contrib_", "contrib")
+linalg = _register_mod.prefix_namespace(_this, "_linalg_", "linalg")
 
 # the helpers shadow same-named generated wrappers on purpose (the
 # wrappers were set on this module, over the names imported above)

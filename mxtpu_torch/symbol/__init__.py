@@ -1,6 +1,7 @@
 """``mxtpu_torch.sym``: the symbolic API (counterpart of
 ``mxtpu/symbol/``).  Every registered op is attached as a composer; the
-``_contrib_*`` ops also as ``sym.contrib.*`` without the prefix, and
+``_contrib_*`` and ``_linalg_*`` ops also as ``sym.contrib.*`` and
+``sym.linalg.*`` without the prefix, and
 ``_zeros`` and ``_ones`` also as ``zeros`` and ``ones`` (the recurrent
 cells' begin states).
 
@@ -22,6 +23,7 @@ from ..ndarray.register import prefix_namespace as _prefix_namespace
 _this = _sys.modules[__name__]
 _register_mod._init_symbol_module(_this)
 contrib = _prefix_namespace(_this, "_contrib_", "contrib")
+linalg = _prefix_namespace(_this, "_linalg_", "linalg")
 zeros = _this._zeros
 ones = _this._ones
 

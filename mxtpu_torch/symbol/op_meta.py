@@ -5,9 +5,11 @@ Forward shapes come from running the op on ``meta`` tensors, so this
 table carries only what that cannot give: input names (for auto-created
 variables such as ``fc1_weight``), which inputs are auxiliary states
 (BatchNorm's moving stats), and the parameter shapes solved backward
-from the data shape for FullyConnected, Convolution, BatchNorm,
-Embedding and RNN (its flat parameter vector and its states).  Ops
-not listed take their input names from their function's signature.
+from the data shape for FullyConnected, Convolution, Deconvolution,
+BatchNorm, LayerNorm, InstanceNorm, LeakyReLU's prelu slope,
+Embedding and RNN (its flat parameter vector and its states).  The
+loss heads' labels are plain inputs, not shaped.  Ops not listed take
+their input names from their function's signature.
 """
 from __future__ import annotations
 
@@ -104,6 +106,28 @@ register_meta("Convolution_v1", OpMeta(_bias_inputs,
                                        param_shapes=_conv_shapes))
 
 
+def _deconv_inputs(attrs):
+    # the op's no_bias defaults to True
+    return ["data", "weight"] if attrs.get("no_bias", True) else \
+        ["data", "weight", "bias"]
+
+
+def _deconv_shapes(shapes, attrs):
+    data = shapes[0]
+    if data is None:
+        return {}
+    nf = int(attrs["num_filter"])
+    g = int(attrs.get("num_group", 1))
+    out = {1: (data[1], nf // g) + tuple(attrs["kernel"])}
+    if not attrs.get("no_bias", True):
+        out[2] = (nf,)
+    return out
+
+
+register_meta("Deconvolution", OpMeta(_deconv_inputs,
+                                      param_shapes=_deconv_shapes))
+
+
 def _bn_shapes(shapes, attrs):
     data = shapes[0]
     if data is None:
@@ -117,9 +141,48 @@ for _bn in ("BatchNorm", "BatchNorm_v1"):
         ["data", "gamma", "beta", "moving_mean", "moving_var"],
         aux_indices=(3, 4), param_shapes=_bn_shapes))
 
+
+
+def _ln_shapes(shapes, attrs):
+    data = shapes[0]
+    if data is None:
+        return {}
+    c = data[int(attrs.get("axis", -1)) % len(data)]
+    return {1: (c,), 2: (c,)}
+
+
+def _in_shapes(shapes, attrs):
+    data = shapes[0]
+    if data is None:
+        return {}
+    return {1: (data[1],), 2: (data[1],)}
+
+
+register_meta("LayerNorm", OpMeta(["data", "gamma", "beta"],
+                                  param_shapes=_ln_shapes))
+register_meta("InstanceNorm", OpMeta(["data", "gamma", "beta"],
+                                     param_shapes=_in_shapes))
+
+
+def _lrelu_inputs(attrs):
+    return ["data", "gamma"] if attrs.get("act_type") == "prelu" \
+        else ["data"]
+
+
+def _lrelu_shapes(shapes, attrs):
+    data = shapes[0]
+    if attrs.get("act_type") != "prelu" or data is None:
+        return {}
+    return {1: (data[1],) if len(data) > 1 else (1,)}
+
+
+register_meta("LeakyReLU", OpMeta(_lrelu_inputs, param_shapes=_lrelu_shapes))
+
 # loss heads: the label is a plain input (not auto-shaped)
-register_meta("SoftmaxOutput", OpMeta(["data", "label"]))
-register_meta("Softmax", OpMeta(["data", "label"]))
+for _head in ("SoftmaxOutput", "Softmax", "LinearRegressionOutput",
+              "MAERegressionOutput", "LogisticRegressionOutput",
+              "SVMOutput"):
+    register_meta(_head, OpMeta(["data", "label"]))
 
 
 def _emb_shapes(shapes, attrs):

@@ -155,6 +155,32 @@ LAYERS = {
 for _act in ("relu", "sigmoid", "tanh", "softrelu", "softsign"):
     LAYERS["activation_" + _act] = (
         lambda mx, a=_act: mx.gluon.nn.Activation(a), [(3, 5)])
+# the transposed convolutions (deferred in_channels), the
+# padding, norm and activation layers
+LAYERS.update({
+    "conv1d_transpose": (lambda mx: mx.gluon.nn.Conv1DTranspose(
+        4, 3, strides=2, padding=1, output_padding=1), [(2, 3, 5)]),
+    "conv2d_transpose": (lambda mx: mx.gluon.nn.Conv2DTranspose(
+        6, (3, 2), strides=(2, 1), padding=(1, 0), output_padding=(1, 0),
+        dilation=(1, 2), groups=2, activation="relu"), [(2, 4, 4, 5)]),
+    "conv3d_transpose": (lambda mx: mx.gluon.nn.Conv3DTranspose(
+        2, 2, strides=2, use_bias=False), [(1, 3, 2, 3, 2)]),
+    "reflection_pad2d": (lambda mx: mx.gluon.nn.ReflectionPad2D(2),
+                         [(2, 3, 5, 6)]),
+    "layernorm": (lambda mx: mx.gluon.nn.LayerNorm(), [(3, 4, 5)]),
+    "layernorm_axis1": (lambda mx: mx.gluon.nn.LayerNorm(
+        axis=1, epsilon=1e-3, center=False, in_channels=4), [(3, 4, 5)]),
+    "instancenorm": (lambda mx: mx.gluon.nn.InstanceNorm(scale=True),
+                     [(2, 3, 4, 5)]),
+    "instancenorm_default": (lambda mx: mx.gluon.nn.InstanceNorm(),
+                             [(2, 3, 4)]),
+    "leaky_relu": (lambda mx: mx.gluon.nn.LeakyReLU(0.1), [(3, 5)]),
+    "prelu": (lambda mx: mx.gluon.nn.PReLU(), [(2, 3, 4)]),
+    "elu": (lambda mx: mx.gluon.nn.ELU(0.7), [(3, 5)]),
+    "selu": (lambda mx: mx.gluon.nn.SELU(), [(3, 5)]),
+    "gelu": (lambda mx: mx.gluon.nn.GELU(), [(3, 5)]),
+    "swish": (lambda mx: mx.gluon.nn.Swish(1.5), [(3, 5)]),
+})
 
 
 def _seq(mx):

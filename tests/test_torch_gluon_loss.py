@@ -27,6 +27,10 @@ def _probs(*shape, seed=4):
         np.float32)
 
 
+# CTC labels padded with -1 (the blank is class 0)
+CTC_LABEL = np.array([[1, 2, 2, -1], [3, -1, -1, -1], [4, 1, 3, 2]],
+                     np.float32)
+
 LOSSES = {
     "l2": (lambda mx: mx.gluon.loss.L2Loss(), [_x(4, 3), _x(4, 3, seed=2)],
            ()),
@@ -78,6 +82,26 @@ LOSSES = {
     "logistic_binary": (
         lambda mx: mx.gluon.loss.LogisticLoss(label_format="binary"),
         [_x(4, 3), _probs(4, 3).round()], ()),
+    # on CTCLoss, and the losses of a sample's three inputs
+    "ctc": (lambda mx: mx.gluon.loss.CTCLoss(),
+            [_x(3, 8, 5), CTC_LABEL], ()),
+    "ctc_tnc_lengths": (
+        lambda mx: mx.gluon.loss.CTCLoss(layout="TNC", label_layout="TN",
+                                         weight=0.5),
+        [_x(8, 3, 5), CTC_LABEL.T.copy()],
+        (np.array([8, 6, 7], np.float32), np.array([2, 1, 3], np.float32))),
+    "triplet": (lambda mx: mx.gluon.loss.TripletLoss(margin=0.5),
+                [_x(4, 3), _x(4, 3, seed=2), _x(4, 3, seed=3)], ()),
+    "poisson_nll": (lambda mx: mx.gluon.loss.PoissonNLLLoss(),
+                    [_x(4, 3), _probs(4, 3) * 3], ()),
+    "poisson_nll_full": (
+        lambda mx: mx.gluon.loss.PoissonNLLLoss(from_logits=False,
+                                                compute_full=True),
+        [_probs(4, 3) + 0.1, _probs(4, 3, seed=5) * 4], ()),
+    "cosine_embedding": (
+        lambda mx: mx.gluon.loss.CosineEmbeddingLoss(margin=0.2),
+        [_x(4, 5), _x(4, 5, seed=2), np.array([1, -1, 1, -1], np.float32)],
+        ()),
 }
 
 

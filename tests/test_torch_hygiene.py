@@ -155,6 +155,30 @@ def test_the_import_check_covers_the_optimizers_samplers_and_io():
         assert not _FORBIDDEN.search(f.read())
 
 
+def test_the_import_check_covers_slice_14():
+    names = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for mod in ("ops/linalg", "gluon/rnn/rnn_cell", "gluon/rnn/__init__",
+                "gluon/nn/conv_layers", "gluon/nn/basic_layers",
+                "gluon/loss", "symbol/op_meta"):
+        assert os.path.join("mxtpu_torch", mod + ".py") in names, mod
+    # the DCGAN's nets and loop, which chip_smoke.py imports
+    with open(os.path.join(REPO, "tests", "test_torch_dcgan_net.py")) as f:
+        assert not _FORBIDDEN.search(f.read())
+
+
+def test_the_cells_begin_states_need_a_card(monkeypatch):
+    """A cell's ``begin_state`` without ``ctx=`` is on the card, as
+    ``nd.zeros`` is; an unroll of arrays starts on their device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cell = tmx.gluon.rnn.LSTMCell(3, input_size=2)
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        cell.begin_state(2)
+    cell.initialize(ctx=tmx.cpu())
+    outs, states = cell.unroll(2, tmx.nd.zeros((4, 2, 2), ctx=tmx.cpu()),
+                               layout="NTC")
+    assert [s.shape for s in states] == [(4, 3), (4, 3)]
+
+
 def test_the_samplers_and_the_optimizer_states_need_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     w = tmx.nd.zeros((2,), ctx=tmx.cpu())

@@ -31,10 +31,11 @@ def run_call(mx, name, c, ctx, grad_idx):
     if not xs:
         attrs["ctx"] = ctx
     fn = getattr(mx.nd, name)
+    canon = c.canon or (lambda outs: outs)
     if not grad_idx:
         out = fn(*xs, **attrs)
         outs = out if isinstance(out, list) else [out]
-        return [o.asnumpy() for o in outs], []
+        return canon([o.asnumpy() for o in outs]), []
     for i in grad_idx:
         xs[i].attach_grad()
     with mx.autograd.record():
@@ -44,8 +45,8 @@ def run_call(mx, name, c, ctx, grad_idx):
         0, 1, o.shape).astype(np.float32), ctx=ctx)
         for k, o in enumerate(outs)]
     mx.autograd.backward(outs, heads)
-    return [o.asnumpy() for o in outs], [xs[i].grad.asnumpy()
-                                         for i in grad_idx]
+    return canon([o.asnumpy() for o in outs]), [xs[i].grad.asnumpy()
+                                                for i in grad_idx]
 
 
 def error_units(got, want, exact, rtol, atol):
@@ -89,11 +90,14 @@ def _f(values):
 class Call(object):
     """One call of an op: its inputs (numpy), its attrs, the inputs whose
     gradients are compared (None: every float input of a differentiable
-    op), and whether the outputs must be equal."""
+    op), whether the outputs must be equal, and ``canon``, a function
+    of the outputs (numpy) that takes out what the libraries may choose
+    apart (the signs of factors)."""
 
-    def __init__(self, *inputs, grad=None, exact=False, **attrs):
+    def __init__(self, *inputs, grad=None, exact=False, canon=None,
+                 **attrs):
         self.inputs, self.attrs = inputs, attrs
-        self.grad, self.exact = grad, exact
+        self.grad, self.exact, self.canon = grad, exact, canon
 
 
 CASES = {}
@@ -442,6 +446,145 @@ RNN_PARAMS = 4 * 3 * (2 + 3) + 2 * 4 * 3   # lstm, input 2, hidden 3
 case("RNN", Call(_a(4, 2, 2), _a(RNN_PARAMS, seed=1), _a(1, 2, 3, seed=2),
                  _a(1, 2, 3, seed=3), state_size=3, num_layers=1,
                  mode="lstm", state_outputs=True))
+
+# the transposed convolution: groups, adj, dilation, target_shape, 3-D,
+# and an adj past the stride (which torch's output_padding refuses)
+case("Deconvolution",
+     Call(_a(2, 4, 3, 3), _a(4, 3, 3, 3, seed=1), _a(6, seed=2),
+          kernel=(3, 3), stride=(2, 2), pad=(1, 1), adj=(1, 1),
+          num_filter=6, num_group=2, no_bias=False),
+     Call(_a(2, 3, 5), _a(3, 2, 3, seed=1), kernel=(3,), stride=(2,),
+          dilate=(2,), num_filter=2, target_shape=(12,)),
+     Call(_a(1, 2, 2, 3, 2), _a(2, 2, 2, 2, 2, seed=1), kernel=(2, 2, 2),
+          stride=(1, 2, 1), num_filter=2),
+     Call(_a(2, 2, 4), _a(2, 3, 3, seed=1), kernel=(3,), stride=(2,),
+          pad=(1,), adj=(3,), num_filter=3))
+# the resizes: growing and shrinking (antialiased), block means
+case("UpSampling", Call(_a(2, 3, 3, 4), scale=2, sample_type="nearest"),
+     Call(_a(2, 3, 3, 4), scale=3, sample_type="bilinear"))
+case("_contrib_BilinearResize2D", Call(_a(2, 3, 4, 5), height=7, width=9),
+     Call(_a(1, 2, 8, 8), height=3, width=5),
+     Call(_a(1, 2, 6, 4), scale_height=0.5, scale_width=1.5))
+case("_contrib_AdaptiveAvgPooling2D",
+     Call(_a(2, 3, 6, 4), output_size=(3, 2)),
+     Call(_a(2, 3, 7, 5), output_size=(3, 2)), Call(_a(1, 2, 4, 4)),
+     Call(_a(1, 2, 4, 4), output_size=2))
+# the norms (LayerNorm's mean and std as outputs too)
+case("LayerNorm", Call(_a(3, 4, 5, lo=-2, hi=3), _a(5, lo=0.5, hi=1.5),
+                       _a(5, seed=1)),
+     Call(_a(3, 4, 5, lo=-2, hi=3), _a(4, lo=0.5, hi=1.5), _a(4, seed=1),
+          axis=1, eps=1e-3, output_mean_var=True))
+case("InstanceNorm", Call(_a(2, 3, 4, 5, lo=-2, hi=3),
+                          _a(3, lo=0.5, hi=1.5), _a(3, seed=1)))
+case("L2Normalization", *[Call(_a(2, 3, 4, 2), mode=m)
+                          for m in ("instance", "channel", "spatial")])
+case("LRN", Call(_a(2, 6, 3, 3)), Call(_a(2, 6, 3, 3), nsize=3, alpha=0.1,
+                                      beta=0.5, knorm=1.0))
+case("LeakyReLU", Call(_away(3, 4), slope=0.1),
+     *[Call(_away(3, 4), act_type=t) for t in ("elu", "gelu", "selu",
+                                                "rrelu")],
+     Call(_away(2, 3, 4), _a(3, seed=1), act_type="prelu"))
+case("SoftmaxActivation", Call(_a(2, 3, 4, lo=-3, hi=3)),
+     Call(_a(2, 3, 4, lo=-3, hi=3), mode="channel"))
+# the loss heads: their gradients ignore the head gradient
+for _n in ("LinearRegressionOutput", "MAERegressionOutput",
+           "LogisticRegressionOutput"):
+    case(_n, Call(_a(3, 4), _a(3, 4, seed=1), grad=(0,)),
+         Call(_a(3, 4), _a(3, 4, seed=1), grad_scale=2.5, grad=(0,)))
+case("SVMOutput", Call(_a(4, 5, lo=-2, hi=2), _f([0, 3, 1, 4]), grad=(0,)),
+     Call(_a(4, 5, lo=-2, hi=2), _f([0, 3, 1, 4]), margin=0.5,
+          regularization_coefficient=2.0, use_linear=True, grad=(0,)))
+case("MakeLoss", Call(_a(3, 4)), Call(_a(3, 4), grad_scale=0.5,
+                                      normalization="batch"))
+# CTC: both blank conventions, lengths given, and a -1 pad, which the
+# "last" convention reads as a label (a row longer than its frames is
+# held to its own bound in tests/test_torch_nn_ops.py)
+CTC_FIRST = _f([[1, 2, 2, 0], [3, 0, 0, 0], [4, 1, 3, 2]])
+case("CTCLoss", Call(_a(8, 3, 5, lo=-2, hi=2), CTC_FIRST, grad=(0,)),
+     Call(_a(8, 3, 5, lo=-2, hi=2), _f([[0, 1, 1, 4], [2, 4, 4, 4],
+                                        [3, 0, 2, 1]]),
+          blank_label="last", grad=(0,)),
+     Call(_a(8, 3, 5, lo=-2, hi=2), CTC_FIRST, _f([8, 6, 7]), _f([2, 1, 3]),
+          use_data_lengths=True, use_label_lengths=True, grad=(0,)),
+     Call(_a(6, 2, 5, lo=-2, hi=2), _f([[0, 1, -1, -1], [2, 3, 4, 4]]),
+          blank_label="last", grad=(0,)))
+# the Sequence ops along axis 0 and 1, lengths clamped
+SEQ_LEN = _f([2, 4, 1])
+for _n in ("SequenceMask", "SequenceLast", "SequenceReverse"):
+    case(_n, Call(_a(4, 3, 2)),
+         Call(_a(4, 3, 2), SEQ_LEN, use_sequence_length=True, grad=(0,)),
+         Call(_a(4, 3, 2), _f([0, 9, 3]), use_sequence_length=True,
+              grad=(0,)),
+         *([Call(_a(3, 4, 2), SEQ_LEN, use_sequence_length=True, axis=1,
+                 grad=(0,))] if _n != "SequenceReverse" else []))
+case("_contrib_div_sqrt_dim", Call(_a(2, 3, 8)))
+case("_contrib_quadratic", Call(_a(3, 4), a=0.5, b=-1.0, c=2.0))
+case("IdentityAttachKLSparseReg", Call(_a(3, 4)))
+
+# ---------------------------------------------------------------------------
+# linalg (batched, well-conditioned: symmetric positive definite, or
+# triangular with a heavy diagonal)
+# ---------------------------------------------------------------------------
+
+
+def _spd(b, n, seed=0):
+    m = _a(b, n, n, seed=seed).astype(np.float64)
+    return (m @ m.transpose(0, 2, 1) + n * np.eye(n)).astype(np.float32)
+
+
+def _tri(b, n, lower=True, seed=0):
+    m = np.tril(_a(b, n, n, seed=seed)) if lower else \
+        np.triu(_a(b, n, n, seed=seed))
+    return (m + 2 * np.eye(n, dtype=np.float32)).astype(np.float32)
+
+
+def sign_lq(outs):
+    """(L, Q) with L's diagonal made positive."""
+    lo, q = outs
+    d = np.sign(np.diagonal(lo, axis1=-2, axis2=-1))[..., None]
+    return [lo * np.swapaxes(d, -1, -2), q * d]
+
+
+def sign_rows(outs):
+    """(U, lambda) with each row of U signed by its largest element."""
+    u, w = outs
+    big = np.take_along_axis(u, np.abs(u).argmax(-1)[..., None], -1)
+    return [u * np.sign(big), w]
+
+
+case("_linalg_gemm", Call(_a(2, 3, 4), _a(2, 4, 5, seed=1),
+                          _a(2, 3, 5, seed=2), alpha=0.5, beta=2.0),
+     Call(_a(2, 4, 3), _a(2, 5, 4, seed=1), _a(2, 3, 5, seed=2),
+          transpose_a=True, transpose_b=True))
+case("_linalg_gemm2", Call(_a(2, 3, 4), _a(2, 4, 5, seed=1), alpha=0.5),
+     Call(_a(2, 4, 3), _a(2, 4, 5, seed=1), transpose_a=True),
+     Call(_a(3, 4), _a(5, 4, seed=1), transpose_b=True))
+case("_linalg_potrf", Call(_spd(2, 4)))
+case("_linalg_potri", Call(np.linalg.cholesky(_spd(2, 4)).astype(
+    np.float32)))
+case("_linalg_trmm", Call(_tri(2, 3), _a(2, 3, 4, seed=1)),
+     Call(_tri(2, 3), _a(2, 4, 3, seed=1), rightside=True, transpose=True,
+          alpha=2.0))
+case("_linalg_trsm", Call(_tri(2, 3), _a(2, 3, 4, seed=1)),
+     Call(_tri(2, 3), _a(2, 3, 4, seed=1), transpose=True, alpha=0.5),
+     Call(_tri(2, 3), _a(2, 4, 3, seed=1), rightside=True),
+     Call(_tri(2, 3, lower=False), _a(2, 4, 3, seed=1), rightside=True,
+          transpose=True, lower=False, alpha=-1.5))
+case("_linalg_sumlogdiag", Call(_spd(2, 4)))
+case("_linalg_syrk", Call(_a(2, 3, 4)), Call(_a(2, 3, 4), transpose=True,
+                                             alpha=0.5))
+case("_linalg_gelqf", Call(_a(2, 3, 5), grad=(), canon=sign_lq))
+case("_linalg_syevd", Call(_spd(2, 4), grad=(), canon=sign_rows))
+case("_linalg_makediag", Call(_a(2, 3)), Call(_a(2, 3), offset=1),
+     Call(_a(3), offset=-2))
+case("_linalg_extractdiag", Call(_a(2, 3, 4)), Call(_a(2, 3, 4), offset=1))
+INVERTIBLE = (_a(2, 3, 3, seed=4) + 2 * np.eye(3)).astype(np.float32)
+INVERTIBLE[1, 0] *= -1     # a negative determinant
+case("_linalg_inverse", Call(INVERTIBLE))
+case("_linalg_det", Call(INVERTIBLE))
+case("_linalg_slogdet", Call(INVERTIBLE))
+case("_contrib_fft", Call(_a(3, 8)))
+case("_contrib_ifft", Call(_a(3, 16)))
 
 # optimizer updates: the new values they return
 W, G = _a(3, 4), _a(3, 4, seed=1)
