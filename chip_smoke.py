@@ -374,6 +374,46 @@ Phases, each of which fails the run (non-zero exit) on any error:
    card against the CPU, outputs and gradients (``LINALG_TOL``; the
    factors of gelqf and syevd without their signs).  No flash kernel
    may launch on any row.
+19. cflow  -- row ``cflow_foreach_lm``: the lm phase's word LM at its widths
+   (``CFLOW_LM``: vocabulary 33,278, 2 LSTM layers of 650, bptt 35,
+   batch 32, fp32 with TF32 off) written as a Symbol with one
+   ``sym.contrib.foreach`` over the 35 steps whose body is the two
+   layers' FullyConnected gates in the fused op's order (i, f, c, o),
+   the decoder tied to the Embedding, ``SoftmaxOutput``
+   (``tests/test_torch_foreach_lm_net.py``); through ``Module`` (SGD lr
+   1 on the mean loss), 2 warm and 20 timed steps, then through
+   ``FusedTrainLoop`` (K = 8, one CUDA graph): ms a step, tokens/s, busy,
+   idle, operations a step, peak, losses finite.  One step from the
+   same weights against the same model over the fused ``RNN`` op
+   (``CFLOW_RNN_TOL``) and the captured loop's weights after 8 steps
+   against 8 per-step steps (``CFLOW_LOOP_TOL``).  Then
+   ``cflow_cases``, each on the card against the CPU
+   (``CFLOW_CASE_TOL``): a ``while_loop`` at ``max_iterations`` 64 whose
+   trip count depends on the data, ``cond`` with each branch taken
+   (forward and gradient, the branch not taken none), a BatchNorm inside
+   ``foreach`` whose moving stats reach the outer aux, a HybridBlock
+   calling ``F.contrib.foreach`` hybridized and not, a graph with a
+   ``cond`` and a ``while_loop`` trained in a captured FusedTrainLoop
+   against per-step steps; a symbolic ``while_loop`` backward must
+   raise, as in the JAX package.
+20. data   -- row ``data_cifar_resnet18``: CIFAR-10's published binary
+   format written from ``DATA_SEED`` into a temporary root (five files
+   of 10,000 rows of 3,073 bytes, 153.65 MB), read by
+   ``gluon.data.vision.CIFAR10``, ``transform_first(Compose([
+   RandomFlipLeftRight(), ToTensor(), Normalize(...)]))``,
+   ``DataLoader(batch_size=128, shuffle=True, last_batch="discard",
+   num_workers=4)`` with threads, into ``resnet18_v1(classes=10)``
+   hybridized under a Trainer (SGD lr 0.1, momentum 0.9, wd 5e-4, fp32
+   with TF32 off): 60 iterations (5 warm) at ``MXTPU_PREFETCH_DEVICE``
+   0 and 30 at 2, ms an iteration, images/s and the input-wait share
+   (``telemetry.input_wait``); a profiled iteration (busy, idle,
+   operations, by kind, peak, the bound from ``data_flops``); the loader
+   alone over 100 batches at 0 workers, 4 threads and 4 processes over
+   the same images as numpy.  Checks: the three worker modes' first
+   three batches equal (flip left out), ``state()`` after batch 5 and
+   ``set_state`` on a fresh loader give the same batches 6-8, the flip's
+   rate over 200 draws, one iteration at batch 8 against the CPU
+   (``DATA_CPU_TOL``), the losses finite.  No flash kernel may launch.
 
 The line before the last is the card's name and power limit, the line
 before that the kernels' JSON record; the last line is
@@ -462,6 +502,7 @@ if not torch.cuda.is_available():
 
 import mxtpu_torch as mx  # noqa: E402
 from mxtpu_torch import serve  # noqa: E402
+from mxtpu_torch import telemetry  # noqa: E402
 from mxtpu_torch.ops import flash_attention as fa  # noqa: E402
 from mxtpu_torch.ops import kernel_build as kb  # noqa: E402
 from mxtpu_torch.parallel import transformer as tf  # noqa: E402
@@ -6849,6 +6890,848 @@ def phase_seq():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# cflow: the word LM written with sym.contrib.foreach at word_lm's
+# widths, per step and captured, and the control-flow ops' cases
+# ---------------------------------------------------------------------------
+
+CFLOW_LM = dict(vocab=33278, width=650, layers=2)
+CFLOW_BPTT, CFLOW_BATCH = 35, 32
+CFLOW_LR = 1.0                # SGD on the mean loss
+CFLOW_WARM, CFLOW_STEPS = 2, 20
+CFLOW_K, CFLOW_CALLS = 8, 2   # fused: K steps a call, timed calls
+# one step of the foreach graph against the fused RNN op's graph from
+# the same weights on the card, fp32 with TF32 off (relative L2): the
+# loop's products and cuDNN's fused LSTM sum in other orders
+CFLOW_RNN_TOL = dict(loss=1e-5, grads=1e-4, weights=1e-5)
+# the captured loop's weights after K steps against K per-step Module
+# steps on the card (relative L2 of each weight)
+CFLOW_LOOP_TOL = 1e-5
+# cflow_cases: the card against the CPU (relative L2)
+CFLOW_CASE_TOL = 1e-5
+CFLOW_WHILE_MAX = 64
+
+
+def cflow_lm():
+    return tests_module("test_torch_foreach_lm_net")
+
+
+def cflow_module(lm, make, weights, ctx, batch=CFLOW_BATCH):
+    return lm.lm_module(mx, make(mx, **CFLOW_LM), CFLOW_LM["vocab"],
+                        CFLOW_LM["width"], CFLOW_LM["layers"], CFLOW_BPTT,
+                        batch, weights, ctx, lr=CFLOW_LR)
+
+
+def cflow_batches(lm, n, ctx, batch=CFLOW_BATCH, seed=0):
+    return [lm.lm_data_batch(mx, x, y, CFLOW_LM["width"], CFLOW_LM["layers"],
+                             ctx)
+            for x, y in lm.lm_batches(CFLOW_LM["vocab"], CFLOW_BPTT, batch,
+                                      n, seed)]
+
+
+def module_step(mod, batch):
+    mod.forward(batch, is_train=True)
+    mod.backward()
+    mod.update()
+
+
+def cflow_rnn_check(lm, weights):
+    """One step of the foreach graph and of the fused RNN op's graph
+    from the same weights on the card: the loss, every gradient and
+    every updated weight (relative L2)."""
+    gpu = mx.gpu(0)
+    batch = cflow_batches(lm, 1, gpu, seed=7)[0]
+    y = batch.label[0].asnumpy()
+    res = []
+    for make in (lm.foreach_lm, lm.fused_lm):
+        mod = cflow_module(lm, make, weights, gpu)
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        ex = mod._exec_group.execs[0]
+        grads = {k: ex.grad_dict[k].asnumpy() for k in weights}
+        loss = lm.cross_entropy(mod.get_outputs()[0].asnumpy(), y)
+        mod.update()
+        res.append((loss, grads, {k: v.asnumpy() for k, v in
+                                  mod.get_params()[0].items()}))
+        del mod, ex
+        free_card()
+    (fl, fg, fw), (rl, rg, rw) = res
+    keys = sorted(weights)
+    flat = lambda d: np.concatenate([d[k].ravel() for k in keys])  # noqa
+    return {"loss": abs(fl - rl) / abs(rl),
+            "grads": max(op_rel_l2(fg[k], rg[k]) for k in keys),
+            "weights": op_rel_l2(flat(fw), flat(rw)),
+            "worst_weight": max(op_rel_l2(fw[k], rw[k]) for k in keys)}, \
+        (fl, rl)
+
+
+def cflow_row(lm, weights):
+    """The foreach LM through Module per step (CFLOW_WARM warm and
+    CFLOW_STEPS timed steps), then through FusedTrainLoop (K a call,
+    one warm call that captures, CFLOW_CALLS timed calls)."""
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    gpu = mx.gpu(0)
+    tokens = CFLOW_BPTT * CFLOW_BATCH
+    n = CFLOW_WARM + CFLOW_STEPS
+    batches = cflow_batches(lm, n, gpu)
+    t0 = time.monotonic()
+    mod = cflow_module(lm, lm.foreach_lm, weights, gpu)
+    setup_s = time.monotonic() - t0
+    zero_launches()
+    losses = []
+    t0 = time.monotonic()
+    for b in batches[:CFLOW_WARM]:
+        module_step(mod, b)
+    losses.append(lm.cross_entropy(mod.get_outputs()[0].asnumpy(),
+                                   batches[0].label[0].asnumpy()))
+    first_s = time.monotonic() - t0
+    t1 = time.perf_counter()
+    for b in batches[CFLOW_WARM:]:
+        module_step(mod, b)
+    out = mod.get_outputs()[0].asnumpy()
+    wall = time.perf_counter() - t1
+    losses.append(lm.cross_entropy(out, batches[-1].label[0].asnumpy()))
+    ms = wall / CFLOW_STEPS * 1e3
+    launches = read_launches()
+    spans = device_spans(lambda: module_step(mod, batches[0]))
+    if not spans:
+        fail("cflow: the profiler saw no device time in a step")
+    busy, window, heads = profile_summary(spans, top=6)
+    peak = torch.cuda.max_memory_allocated()
+    del mod
+    free_card()
+    # the same graph captured: K steps a call
+    fused = cflow_module(lm, lm.foreach_lm, weights, gpu)
+    loop = mx.FusedTrainLoop(fused, steps_per_program=CFLOW_K,
+                             collect_outputs=False)
+    stack = batches[:CFLOW_K]
+    t0 = time.monotonic()
+    loop.run(stack)
+    torch.cuda.synchronize()
+    capture_s = time.monotonic() - t0
+    t1 = time.perf_counter()
+    for _ in range(CFLOW_CALLS):
+        loop.run(stack)
+    torch.cuda.synchronize()
+    fwall = time.perf_counter() - t1
+    fms = fwall / (CFLOW_CALLS * CFLOW_K) * 1e3
+    fspans = device_spans(lambda: loop.run(stack))
+    fbusy, fwindow, fheads = profile_summary(fspans, top=6)
+    fpeak = torch.cuda.max_memory_allocated()
+    flaunches = read_launches()
+    weights_after = {k: v.asnumpy() for k, v in fused.get_params()[0].items()}
+    if not all(np.isfinite(v).all() for v in weights_after.values()):
+        fail("cflow: the captured loop's weights are not finite")
+    del loop, fused
+    free_card()
+    log("[cflow] %s: cflow_foreach_lm (the word LM written with "
+        "sym.contrib.foreach over %d steps: vocabulary %d, %d LSTM layers "
+        "of %d from FullyConnected gates, tied decoder, batch %d, SGD lr %g "
+        "on the mean loss, fp32 with TF32 off) through Module: %d timed "
+        "steps after %d warm (%.1f s with the bind's %.1f): %.3f ms a step, "
+        "%.0f tokens/s (host clock, synchronised by value); one profiled "
+        "step: device busy %.3f ms, idle share %.3f, %d device "
+        "operations; peak %.1f MB; losses %.4f -> %.4f; most device time: "
+        "%s" % (card(), CFLOW_BPTT, CFLOW_LM["vocab"], CFLOW_LM["layers"],
+                CFLOW_LM["width"], CFLOW_BATCH, CFLOW_LR, CFLOW_STEPS,
+                CFLOW_WARM, first_s, setup_s, ms, tokens / ms * 1e3, busy,
+                1 - busy / window, len(spans), peak / 1e6, losses[0],
+                losses[1], "; ".join("%s %.3f ms" % (nm[:60], t / 1e3)
+                                     for nm, t in heads)))
+    log("[cflow] %s: cflow_foreach_lm through FusedTrainLoop (K = %d steps "
+        "a call, one CUDA graph replayed; the first call captured it in "
+        "%.1f s): %d timed calls, %.3f ms a step, %.0f tokens/s; one "
+        "profiled call: device busy %.3f ms a step, idle share %.3f, %d "
+        "device operations a step; peak %.1f MB; most device time: %s"
+        % (card(), CFLOW_K, capture_s, CFLOW_CALLS, fms,
+           tokens / fms * 1e3, fbusy / CFLOW_K, 1 - fbusy / fwindow,
+           len(fspans) // CFLOW_K, fpeak / 1e6,
+           "; ".join("%s %.3f ms" % (nm[:60], t / 1e3) for nm, t in fheads)))
+    if not all(np.isfinite(losses)):
+        fail("cflow: a loss is not finite: %s" % losses)
+    for what, l in (("per step", launches), ("fused", flaunches)):
+        if any(l.values()):
+            fail("cflow: a flash-attention kernel launched %s: %s"
+                 % (what, l))
+    return dict(ms=ms, tokens_per_sec=tokens / ms * 1e3, busy_ms=busy,
+                idle=1 - busy / window, ops=len(spans), peak_mb=peak / 1e6,
+                fused_ms=fms, fused_tokens_per_sec=tokens / fms * 1e3,
+                fused_busy_ms=fbusy / CFLOW_K,
+                fused_idle=1 - fbusy / fwindow,
+                fused_ops=len(fspans) // CFLOW_K, fused_peak_mb=fpeak / 1e6,
+                capture_s=capture_s, losses=losses, launches=launches,
+                fused_launches=flaunches)
+
+
+def cflow_loop_check(lm, weights):
+    """The captured loop's weights after K steps against K per-step
+    Module steps from the same weights (relative L2, the worst weight)."""
+    gpu = mx.gpu(0)
+    stack = cflow_batches(lm, CFLOW_K, gpu, seed=3)
+    per = cflow_module(lm, lm.foreach_lm, weights, gpu)
+    for b in stack:
+        module_step(per, b)
+    want = {k: v.asnumpy() for k, v in per.get_params()[0].items()}
+    del per
+    free_card()
+    fused = cflow_module(lm, lm.foreach_lm, weights, gpu)
+    mx.FusedTrainLoop(fused, steps_per_program=CFLOW_K).run(stack)
+    got = {k: v.asnumpy() for k, v in fused.get_params()[0].items()}
+    del fused
+    free_card()
+    return max(op_rel_l2(got[k], want[k]) for k in want)
+
+
+def _cflow_graphs(s):
+    """The cases' graphs (symbol module ``s``): a while loop whose trip
+    count depends on the data, a cond, a BatchNorm inside foreach."""
+    c = mx.sym.contrib
+    outs, fin = c.while_loop(
+        lambda i, a: s.sum(i) < s.sum(s.var("bound")),
+        lambda i, a: ([i * a, s.tanh(a)], [i * 2, a + 1]),
+        [s.var("i"), s.var("a")], max_iterations=CFLOW_WHILE_MAX)
+    a, b = s.var("ca"), s.var("cb")
+    cnd = c.cond(s.var("p"), lambda: a * a, lambda: s.tanh(b) + 1)
+
+    def body(xt, st):
+        return s.BatchNorm(data=xt, name="cbn", fix_gamma=False), st + 1
+
+    fe, _ = c.foreach(body, s.var("x"), s.var("st"))
+    return s.Group(outs + fin), cnd, fe
+
+
+def cflow_cases():
+    """Each control-flow case on the card against the CPU; returns the
+    largest relative L2 and the count of checks."""
+    s = mx.sym
+    loop, cnd, fe = _cflow_graphs(s)
+    rng = np.random.RandomState(11)
+    errs = {}
+
+    a0 = rng.uniform(-1, 1, 64).astype(np.float32)
+
+    def while_run(ctx):
+        ex = loop.simple_bind(ctx=ctx, grad_req="null", i=(1,), a=(64,),
+                              bound=(1,))
+        return [o.asnumpy() for o in ex.forward(
+            i=np.ones(1, np.float32), a=a0, bound=np.array(
+                [3000.0], np.float32))]
+
+    card_w, cpu_w = while_run(mx.gpu(0)), while_run(mx.cpu())
+    trips = int((np.abs(cpu_w[0]).sum(axis=1) > 0).sum())
+    if not (card_w[0].shape == (CFLOW_WHILE_MAX, 64) and 10 <= trips < 64
+            and float(cpu_w[2][0]) == 2.0 ** trips):
+        fail("cflow: while_loop ran %d iterations (i %s)"
+             % (trips, cpu_w[2]))
+    errs["while_loop"] = max(op_rel_l2(g, w) for g, w in zip(card_w, cpu_w))
+
+    def cond_run(ctx, p):
+        ex = cnd.simple_bind(ctx=ctx, grad_req={"ca": "write", "cb": "write",
+                                                "p": "null"},
+                             p=(1,), ca=(5,), cb=(5,))
+        ex.forward(is_train=True, p=np.full(1, p, np.float32), ca=ca, cb=cb)
+        ex.backward()
+        return [ex.outputs[0].asnumpy(), ex.grad_dict["ca"].asnumpy(),
+                ex.grad_dict["cb"].asnumpy()]
+
+    ca = rng.uniform(-1, 1, 5).astype(np.float32)
+    cb = rng.uniform(-1, 1, 5).astype(np.float32)
+    for p in (1.0, 0.0):
+        got, want = cond_run(mx.gpu(0), p), cond_run(mx.cpu(), p)
+        if not np.array_equal(got[2 if p else 1], np.zeros(5, np.float32)):
+            fail("cflow: cond's branch not taken has a gradient on the card")
+        errs["cond_%d" % p] = max(op_rel_l2(g, w) for g, w in zip(got, want))
+
+    xv = (rng.randn(6, 4, 3) * 3 + 5).astype(np.float32)
+
+    def bn_run(ctx):
+        ex = fe.simple_bind(ctx=ctx, grad_req="null", x=(6, 4, 3), st=(1,))
+        ex.forward(is_train=True, x=xv, st=np.zeros(1, np.float32))
+        return [ex.outputs[0].asnumpy()] + [
+            ex.aux_dict[k].asnumpy() for k in ("cbn_moving_mean",
+                                                "cbn_moving_var")]
+
+    got, want = bn_run(mx.gpu(0)), bn_run(mx.cpu())
+    if np.allclose(got[1], 0) or np.allclose(got[2], 1):
+        fail("cflow: the BatchNorm inside foreach left its moving stats")
+    errs["foreach_batchnorm"] = max(op_rel_l2(g, w)
+                                    for g, w in zip(got, want))
+    errs.update(cflow_block_cases(rng))
+    raised = None
+    try:
+        i, acc, w = s.var("i"), s.var("acc"), s.var("w")
+        _, fin = mx.sym.contrib.while_loop(
+            lambda i, a: i < 5, lambda i, a: (i * w, [i + 1, a + i * w]),
+            [i, acc], max_iterations=8)
+        ex = s.sum(fin[1]).simple_bind(
+            ctx=mx.gpu(0), i=(1,), acc=(1,), w=(1,),
+            grad_req={"w": "write", "i": "null", "acc": "null"})
+        ex.forward(is_train=True, i=np.zeros(1, np.float32),
+                   acc=np.zeros(1, np.float32), w=np.ones(1, np.float32))
+    except mx.base.MXNetError as e:
+        raised = str(e)
+    if raised is None or "no gradient" not in raised:
+        fail("cflow: a symbolic while_loop backward did not raise: %r"
+             % raised)
+    errs["capture"] = cflow_capture_case()
+    return errs
+
+
+def cflow_block_cases(rng):
+    """A HybridBlock calling F.contrib.foreach (an Elman RNN), on the
+    card hybridized and not, against the CPU: output and gradients."""
+    from mxtpu_torch.gluon.parameter import load_numpy
+
+    class ForeachRNN(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.i2h = mx.gluon.nn.Dense(16, in_units=8, flatten=False)
+                self.h2h = mx.gluon.nn.Dense(16, in_units=16, flatten=False)
+
+        def hybrid_forward(self, F, x, h0):
+            def step(xt, h):
+                hn = F.tanh(self.i2h(xt) + self.h2h(h))
+                return hn, hn
+            return F.contrib.foreach(step, x, h0)[0]
+
+    x = rng.randn(12, 4, 8).astype(np.float32)
+    head = rng.randn(12, 4, 16).astype(np.float32)
+    weights = None
+    results = {}
+    for where, ctx, hybridize in (("cpu", mx.cpu(), False),
+                                  ("card", mx.gpu(0), False),
+                                  ("card", mx.gpu(0), True)):
+        with mx.sym.NameManager():
+            net = ForeachRNN(prefix="frnn_")
+        net.initialize(ctx=ctx)
+        if weights is None:
+            weights = {k: rng.normal(0, 0.3, p.shape).astype(np.float32)
+                       for k, p in net.collect_params().items()}
+        load_numpy(net.collect_params(), weights)
+        if hybridize:
+            net.hybridize()
+        with mx.autograd.record():
+            out = net(mx.nd.array(x, ctx=ctx),
+                      mx.nd.zeros((4, 16), ctx=ctx))
+        out.backward(mx.nd.array(head, ctx=ctx))
+        results[(where, hybridize)] = [out.asnumpy()] + [
+            p.grad().asnumpy() for _, p in sorted(
+                net.collect_params().items())]
+    want = results[("cpu", False)]
+    return {"block_%s" % ("hybridized" if h else "imperative"):
+            max(op_rel_l2(g, w) for g, w in zip(results[("card", h)], want))
+            for h in (False, True)}
+
+
+def cflow_capture_case():
+    """A graph with a cond and a while loop (no gradient through it)
+    trained K = 4 steps in a captured FusedTrainLoop against 4 per-step
+    Module steps on the card: inside the capture, cond selects both
+    branches with torch.where and the loop runs its masked steps, as no
+    predicate may be read there.  Returns the worst weight's relative L2
+    (CFLOW_CASE_TOL)."""
+    s = mx.sym
+
+    def fc(name):
+        # a branch's leaves become the cond's free variables, whose
+        # shapes only the branch's own declared shapes solve
+        return s.FullyConnected(s.var("data"),
+                                weight=s.var(name + "_weight", shape=(8, 6)),
+                                bias=s.var(name + "_bias", shape=(8,)),
+                                num_hidden=8, name=name)
+
+    picked = mx.sym.contrib.cond(s.var("p"), lambda: fc("cfc") * 2,
+                                 lambda: s.tanh(fc("cfc2")))
+    _, fin = mx.sym.contrib.while_loop(
+        lambda i: s.sum(i) < s.sum(s.var("bound")), lambda i: (i, [i * 2]),
+        [s.var("i0")], max_iterations=16)
+    net = s.MakeLoss(s.mean(s.square(picked)) * s.sum(fin[0]) / 100)
+    rng = np.random.RandomState(5)
+    w0 = {"%s_%s" % (n, k): rng.normal(0, 0.3, shape).astype(np.float32)
+          for n in ("cfc", "cfc2") for k, shape in (("weight", (8, 6)),
+                                                    ("bias", (8,)))}
+    feed = [(rng.randn(4, 6).astype(np.float32), float(k % 2), float(k + 1),
+             float(20 * (k + 1))) for k in range(4)]
+    gpu = mx.gpu(0)
+
+    def module():
+        mod = mx.mod.Module(net, data_names=("data", "p", "i0", "bound"),
+                            label_names=None, context=gpu)
+        mod.bind(data_shapes=[("data", (4, 6)), ("p", (1,)), ("i0", (1,)),
+                              ("bound", (1,))])
+        mod.init_params(arg_params={k: mx.nd.array(v, ctx=gpu)
+                                    for k, v in w0.items()})
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.1, "momentum": 0.9})
+        return mod
+
+    batches = [mx.io.DataBatch(data=[mx.nd.array(d, ctx=gpu)] + [
+        mx.nd.array(np.array([v], np.float32), ctx=gpu) for v in rest],
+        label=None) for d, *rest in feed]
+    per = module()
+    for b in batches:
+        module_step(per, b)
+    fused = module()
+    loop = mx.FusedTrainLoop(fused, steps_per_program=4)
+    loop.run(batches)
+    if loop.captures != (torch.device(gpu).type == "cuda"):
+        fail("cflow: the control-flow graph was captured %d times"
+             % loop.captures)
+    want, got = per.get_params()[0], fused.get_params()[0]
+    return max(op_rel_l2(got[k].asnumpy(), want[k].asnumpy()) for k in w0)
+
+
+def phase_cflow():
+    """The foreach word LM at word_lm's widths, per step and captured,
+    its checks against the fused RNN op and the per-step loop, and the
+    control-flow cases on the card against the CPU; returns the rows."""
+    t0 = time.monotonic()
+    lm = cflow_lm()
+    weights = lm.lm_weights(CFLOW_LM["vocab"], CFLOW_LM["width"],
+                            CFLOW_LM["layers"])
+    zero_launches()
+    row = cflow_row(lm, weights)
+    zero_launches()
+    rnn_errs, (fl, rl) = cflow_rnn_check(lm, weights)
+    loop_err = cflow_loop_check(lm, weights)
+    log("[cflow] %s: one step from the same weights on the card, the "
+        "foreach graph against the fused RNN op's (loss %.5f against "
+        "%.5f), relative L2 (bounds %s): %s; the captured loop's weights "
+        "after %d steps against %d per-step Module steps: worst %.3g "
+        "(bound %g)" % (card(), fl, rl, CFLOW_RNN_TOL,
+                        ", ".join("%s %.3g" % kv for kv in rnn_errs.items()),
+                        CFLOW_K, CFLOW_K, loop_err, CFLOW_LOOP_TOL))
+    for k, tol in CFLOW_RNN_TOL.items():
+        if not rnn_errs[k] <= tol:
+            fail("cflow: the foreach LM's step is %g from the fused RNN "
+                 "op's in %s (bound %g)" % (rnn_errs[k], k, tol))
+    if not loop_err <= CFLOW_LOOP_TOL:
+        fail("cflow: the captured loop is %g from the per-step steps"
+             % loop_err)
+    row.update(rnn_errs=rnn_errs, loop_err=loop_err)
+    zero_launches()
+    errs = cflow_cases()
+    cases = dict(errs=errs, launches=read_launches())
+    log("[cflow] %s: cflow_cases on the card against the CPU, relative L2 "
+        "(bound %g): %s; a symbolic while_loop backward raised, as in the "
+        "JAX package; flash-attention launches %s; the phase took %.1f s"
+        % (card(), CFLOW_CASE_TOL, ", ".join("%s %.3g" % kv
+                                             for kv in errs.items()),
+           cases["launches"], time.monotonic() - t0))
+    bad = {k: v for k, v in errs.items() if not v <= CFLOW_CASE_TOL}
+    if bad:
+        fail("cflow: cases past their bound: %s" % bad)
+    if any(cases["launches"].values()):
+        fail("cflow: the cases launched a flash-attention kernel")
+    return {"cflow_foreach_lm": row, "cflow_cases": cases}
+
+
+# ---------------------------------------------------------------------------
+# data: CIFAR-10 at its published size through gluon.data into
+# ResNet-18 v1
+# ---------------------------------------------------------------------------
+
+DATA_SEED = 0
+DATA_PER_FILE = 10000             # CIFAR-10's five training files
+DATA_BATCH, DATA_WORKERS = 128, 4
+DATA_WARM, DATA_ITERS = 5, 60     # the 60 iterations include the warm ones
+DATA_PREFETCH_ITERS = 30          # at MXTPU_PREFETCH_DEVICE=2
+DATA_LOADER_BATCHES = 100
+DATA_ALONE_ITERS = 20             # the step on a batch already on the card
+DATA_CHECK_BATCH = 8
+DATA_STATE_AT = 5
+# one iteration at batch 8 on the card against the CPU from the same
+# weights (relative L2 of the losses and of all the parameters, and of
+# the moving stats), fp32 with TF32 off: cuDNN's and oneDNN's sums in
+# other orders, through BatchNorm at 1x1 in the last stage
+DATA_CPU_TOL = 1e-4
+DATA_FLIP_DRAWS = 200
+# the card's ToTensor and Normalize against the same arithmetic in
+# numpy (what process workers run): the largest difference over the
+# largest magnitude (about 2.5), a few float32 roundings of the division
+# (an H100 80GB HBM3 at 700 W read 7.2e-7 absolute, 2.9e-7 of it)
+DATA_TRANSFORM_TOL = 1e-6
+DATA_KINDS = (("convolution", ("cudnn", "xmma", "implicit_gemm", "wgrad",
+                               "dgrad", "fprop", "nchwToNhwc",
+                               "nhwcToNchw")),
+              ("image ops and batchify", ("flip", "CatArray", "upsample",
+                                          "Memcpy", "memcpy")),
+              ("optimizer", ("multi_tensor_apply",)),
+              ("reduction", ("reduce_kernel",)),
+              ("copy and cast", ("direct_copy", "copy_kernel")),
+              ("elementwise", ("elementwise",)))
+
+
+def cifar_module():
+    return tests_module("test_torch_cifar_net")
+
+
+def data_flops(net, side=32):
+    """Flops of one image's training iteration through the convolutions
+    and the dense layer of the gluon ``net`` (3 x 2 x their
+    multiply-adds: forward and two backward products), from the traced
+    graph's shapes at ``side`` x ``side``."""
+    with mx.sym.NameManager():
+        out, _, _ = net._trace_symbol(mx.sym.var("data0"))
+    internals = out.get_internals()
+    _, shapes, _ = internals.infer_shape(data0=(1, 3, side, side))
+    macs = 0
+    for (node, _), shape in zip(internals._outputs, shapes):
+        if node.is_variable or shape is None:
+            continue
+        if node.op.name == "Convolution":
+            w_shape = _input_shape(internals, shapes, node, 1)
+            macs += int(np.prod(shape)) * int(np.prod(w_shape[1:]))
+        elif node.op.name == "FullyConnected":
+            w_shape = _input_shape(internals, shapes, node, 1)
+            macs += int(np.prod(shape)) * int(w_shape[1])
+    return 3 * 2 * macs
+
+
+def _input_shape(internals, shapes, node, k):
+    entry = node.inputs[k]
+    return shapes[internals._outputs.index(entry)]
+
+
+class prefetch_depth(object):
+    """MXTPU_PREFETCH_DEVICE set to ``depth`` inside the scope."""
+
+    def __init__(self, depth):
+        self.depth = depth
+
+    def __enter__(self):
+        self.saved = os.environ.get("MXTPU_PREFETCH_DEVICE")
+        os.environ["MXTPU_PREFETCH_DEVICE"] = str(self.depth)
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            os.environ.pop("MXTPU_PREFETCH_DEVICE", None)
+        else:
+            os.environ["MXTPU_PREFETCH_DEVICE"] = self.saved
+
+
+def data_train(cifar, net, step, loss_fn, iters, seed, warm=0):
+    """``iters`` iterations over the loader (threads, the flip on);
+    returns (ms an iteration after ``warm``, the input-wait share of
+    that wall time, the mean losses)."""
+    gpu_losses = []
+    it = iter(cifar.loader(mx, DATA_ROOT[0], DATA_BATCH, DATA_WORKERS, seed))
+    for _ in range(warm):
+        x, y = next(it)
+        gpu_losses.append(cifar.iteration(mx, net, step, loss_fn, x,
+                                          y).mean())
+    if gpu_losses:
+        float(gpu_losses[-1].asnumpy())
+    telemetry.clear()
+    t0 = time.perf_counter()
+    for _ in range(iters - warm):
+        x, y = next(it)
+        gpu_losses.append(cifar.iteration(mx, net, step, loss_fn, x,
+                                          y).mean())
+    float(gpu_losses[-1].asnumpy())
+    wall = time.perf_counter() - t0
+    waits = telemetry.metrics()
+    del it
+    losses = [float(l.asnumpy()) for l in gpu_losses]
+    return (wall / (iters - warm) * 1e3, waits["input_wait_sum_s"] / wall,
+            losses)
+
+
+def loader_rate(make, batches):
+    """Images a second of the loader alone over ``batches`` batches,
+    each batch's arrays waited for on the card."""
+    it = iter(make())
+    next(it)  # the workers' start
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        b = next(it)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del it
+    return batches * DATA_BATCH / wall
+
+
+def data_row(cifar):
+    """ResNet-18 v1 on CIFAR-10 through DataLoader: DATA_ITERS
+    iterations (DATA_WARM warm) at MXTPU_PREFETCH_DEVICE 0, then
+    DATA_PREFETCH_ITERS at 2; a profiled iteration; the loader alone."""
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    gpu = mx.gpu(0)
+    mx.random.seed(DATA_SEED)
+    net = cifar.resnet18(mx, gpu)
+    step = cifar.trainer(mx, net)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    zero_launches()
+    with prefetch_depth(0):
+        ms, wait0, losses = data_train(cifar, net, step, loss_fn,
+                                       DATA_ITERS, DATA_SEED, DATA_WARM)
+    log("[data] %d iterations at MXTPU_PREFETCH_DEVICE 0 done" % DATA_ITERS)
+    with prefetch_depth(2):
+        ms2, wait2, losses2 = data_train(cifar, net, step, loss_fn,
+                                         DATA_PREFETCH_ITERS, DATA_SEED + 1,
+                                         DATA_WARM)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    x, y = next(iter(cifar.loader(mx, DATA_ROOT[0], DATA_BATCH, 0,
+                                  DATA_SEED)))
+    # the same iterations on one batch already on the card: the step
+    # without the loader's threads beside it
+    cifar.iteration(mx, net, step, loss_fn, x, y).asnumpy()
+    t0 = time.perf_counter()
+    for _ in range(DATA_ALONE_ITERS):
+        last = cifar.iteration(mx, net, step, loss_fn, x, y)
+    last.asnumpy()
+    alone_ms = (time.perf_counter() - t0) / DATA_ALONE_ITERS * 1e3
+    spans = device_spans(lambda: cifar.iteration(mx, net, step, loss_fn, x,
+                                                 y))
+    if not spans:
+        fail("data: the profiler saw no device time in an iteration")
+    busy, window, heads = profile_summary(spans, top=6)
+    kinds = sorted(by_kind(spans, DATA_KINDS).items(), key=lambda kv: -kv[1])
+    # the same iteration with its input made on the card: the loader's
+    # share of a profiled iteration
+    lspans = device_spans(lambda: cifar.iteration(
+        mx, net, step, loss_fn, *next(iter(cifar.loader(
+            mx, DATA_ROOT[0], DATA_BATCH, 0, DATA_SEED + 2)))))
+    lbusy, lwindow, _ = profile_summary(lspans, top=1)
+    flops = data_flops(net) * DATA_BATCH
+    bound, bound_by = bound_ms(0, flops, torch.float32)
+    rates = {}
+    for name, make in (
+            ("0 workers", lambda: cifar.loader(mx, DATA_ROOT[0], DATA_BATCH,
+                                               0, DATA_SEED)),
+            ("4 threads", lambda: cifar.loader(mx, DATA_ROOT[0], DATA_BATCH,
+                                               DATA_WORKERS, DATA_SEED)),
+            ("4 processes (numpy)", lambda: mx.gluon.data.DataLoader(
+                cifar.numpy_dataset(mx, DATA_ROOT[0]),
+                batch_size=DATA_BATCH, shuffle=True, last_batch="discard",
+                num_workers=DATA_WORKERS, thread_pool=False,
+                seed=DATA_SEED))):
+        rates[name] = loader_rate(make, DATA_LOADER_BATCHES)
+        log("[data] the loader alone at %s: %.1f images/s"
+            % (name, rates[name]))
+    log("[data] %s: data_cifar_resnet18 (CIFAR-10's five training batches "
+        "written by the phase, %d images, through CIFAR10, "
+        "transform_first(RandomFlipLeftRight, ToTensor, Normalize), "
+        "DataLoader batch %d, shuffle, last_batch discard, %d thread "
+        "workers; resnet18_v1(classes=10) hybridized, Trainer SGD lr %g "
+        "momentum %g wd %g, fp32 with TF32 off): %d timed iterations after "
+        "%d warm at MXTPU_PREFETCH_DEVICE 0: %.3f ms an iteration, %.1f "
+        "images/s, input-wait share %.3f (telemetry.input_wait); %d at "
+        "MXTPU_PREFETCH_DEVICE 2: %.3f ms, %.1f images/s, input-wait share "
+        "%.3f; mean losses %.4f -> %.4f"
+        % (card(), 5 * DATA_PER_FILE, DATA_BATCH, DATA_WORKERS,
+           cifar.OPT["learning_rate"],
+           cifar.OPT["momentum"], cifar.OPT["wd"], DATA_ITERS - DATA_WARM,
+           DATA_WARM, ms, DATA_BATCH / ms * 1e3, wait0,
+           DATA_PREFETCH_ITERS - DATA_WARM, ms2, DATA_BATCH / ms2 * 1e3,
+           wait2, losses[0], losses[-1]))
+    log("[data] %s: data_cifar_resnet18's step on one batch already on "
+        "the card, no loader running: %.3f ms an iteration over %d "
+        "(%.1f images/s); the loader's threads make the step %.2fx that"
+        % (card(), alone_ms, DATA_ALONE_ITERS, DATA_BATCH / alone_ms * 1e3,
+           ms / alone_ms))
+    log("[data] %s: data_cifar_resnet18, one profiled iteration on a "
+        "batch already on the card: device busy %.3f ms, idle share %.3f, "
+        "%d device operations, by kind: %s; most device time: %s; with "
+        "its batch made by the loader inside the profile: busy %.3f ms, "
+        "idle share %.3f, %d operations; peak %.1f MB allocated; the "
+        "bound: %.1f GFLOP an iteration (data_flops) at 67 TFLOP/s: %.3f "
+        "ms (%s), busy is %.2fx it"
+        % (card(), busy, 1 - busy / window, len(spans),
+           "; ".join("%s %.3f ms" % (k, t / 1e3) for k, t in kinds),
+           "; ".join("%s %.3f ms" % (n[:60], t / 1e3) for n, t in heads),
+           lbusy, 1 - lbusy / lwindow, len(lspans), peak / 1e6,
+           flops / 1e9, bound, bound_by, busy / bound))
+    log("[data] %s: the loader alone, %d batches of %d: %s images/s"
+        % (card(), DATA_LOADER_BATCHES, DATA_BATCH,
+           ", ".join("%s %.1f" % kv for kv in rates.items())))
+    if not np.isfinite(losses + losses2).all():
+        fail("data: a loss is not finite")
+    if any(launches.values()):
+        fail("data: a flash-attention kernel launched: %s" % launches)
+    join_loader_threads()
+    result = dict(ms=ms, imgs_per_sec=DATA_BATCH / ms * 1e3,
+                  input_wait=wait0, prefetch_ms=ms2,
+                  prefetch_imgs_per_sec=DATA_BATCH / ms2 * 1e3,
+                  prefetch_input_wait=wait2, alone_ms=alone_ms, busy_ms=busy,
+                  idle=1 - busy / window, ops=len(spans),
+                  loader_busy_ms=lbusy, peak_mb=peak / 1e6,
+                  bound_ms=bound, loader_imgs_per_sec=rates,
+                  losses=[losses[0], losses[-1]], launches=launches)
+    del net, step
+    free_card()
+    return result
+
+
+LOADER_THREADS = ("mxtpu-dataloader", "mxtpu-device-prefetch")
+
+
+def join_loader_threads(timeout=30):
+    """Every DataLoader thread ended: none may outlive the phase (a
+    thread inside a CUDA call when the interpreter exits aborts it)."""
+    for t in threading.enumerate():
+        if t.name in LOADER_THREADS:
+            t.join(timeout)
+            if t.is_alive():
+                fail("data: a loader thread (%s) did not end" % t.name)
+
+
+def _host_batches(batches):
+    return [[np.asarray(b.asnumpy()) for b in batch] for batch in batches]
+
+
+def data_checks(cifar):
+    """The worker modes' batches, state()/set_state re-entry, the flip's
+    rate, and one batch-8 iteration against the CPU; returns the
+    readings."""
+    from mxtpu_torch.gluon.parameter import load_numpy
+
+    root = DATA_ROOT[0]
+
+    def first(loader, n=3):
+        out = []
+        for batch in loader:
+            out.append(batch)
+            if len(out) == n:
+                break
+        return _host_batches(out)
+
+    def numpy_loader(workers, thread_pool=True):
+        return mx.gluon.data.DataLoader(
+            cifar.numpy_dataset(mx, root), batch_size=DATA_BATCH,
+            shuffle=True, last_batch="discard", num_workers=workers,
+            thread_pool=thread_pool, seed=DATA_SEED)
+
+    # the worker modes over one dataset: bitwise equal batches
+    card = {"0 workers": first(cifar.loader(mx, root, DATA_BATCH, 0,
+                                            DATA_SEED, flip=False)),
+            "4 threads": first(cifar.loader(mx, root, DATA_BATCH,
+                                            DATA_WORKERS, DATA_SEED,
+                                            flip=False))}
+    host = {"0 workers": first(numpy_loader(0)),
+            "4 threads": first(numpy_loader(DATA_WORKERS)),
+            "4 processes": first(numpy_loader(DATA_WORKERS, False))}
+    for modes in (card, host):
+        want = modes["0 workers"]
+        for name, got in modes.items():
+            if not all(np.array_equal(g, w) for gb, wb in zip(got, want)
+                       for g, w in zip(gb, wb)):
+                fail("data: the loader's batches at %s differ from 0 "
+                     "workers'" % name)
+    # the image ops on the card against the same transform in numpy: a
+    # float32 rounding of the division apart
+    ulp = max(float(np.abs(g - w).max() / np.abs(w).max())
+              for gb, wb in zip(card["0 workers"], host["0 workers"])
+              for g, w in zip(gb, wb))
+    if not ulp <= DATA_TRANSFORM_TOL:
+        fail("data: the card's transform is %g from numpy's (bound %g)"
+             % (ulp, DATA_TRANSFORM_TOL))
+    whole = cifar.loader(mx, root, DATA_BATCH, DATA_WORKERS, DATA_SEED,
+                         flip=False)
+    seen = []
+    for i, batch in enumerate(whole):
+        seen.append(batch)
+        if i == DATA_STATE_AT - 1:
+            state = whole.state()
+        if i == DATA_STATE_AT + 2:
+            break
+    fresh = cifar.loader(mx, root, DATA_BATCH, DATA_WORKERS, DATA_SEED,
+                         flip=False)
+    fresh.set_state(state)
+    resumed = first(fresh)
+    if not all(np.array_equal(g, w) for gb, wb in zip(
+            resumed, _host_batches(seen[DATA_STATE_AT:])) for g, w in
+            zip(gb, wb)):
+        fail("data: set_state(%s) did not re-enter batches %d-%d"
+             % (state, DATA_STATE_AT + 1, DATA_STATE_AT + 3))
+    img = mx.nd.array(np.arange(32 * 32 * 3, dtype=np.float32).reshape(
+        32, 32, 3), ctx=mx.gpu(0))
+    flipped = np.flip(img.asnumpy(), 1)
+    n = sum(np.array_equal(mx.nd._image_random_flip_left_right(
+        img).asnumpy(), flipped) for _ in range(DATA_FLIP_DRAWS))
+    half = DATA_FLIP_DRAWS / 2
+    if not abs(n - half) < 5 * np.sqrt(DATA_FLIP_DRAWS * 0.25):
+        fail("data: the flip flipped %d of %d draws" % (n, DATA_FLIP_DRAWS))
+    # one iteration at batch 8 on the card and on the CPU
+    x, y = _host_batches([next(iter(cifar.loader(
+        mx, root, DATA_CHECK_BATCH, 0, DATA_SEED + 5, flip=False)))])[0]
+    res, weights = [], None
+    for ctx in (mx.gpu(0), mx.cpu()):
+        net = cifar.resnet18(mx, ctx)
+        with mx.autograd.pause():
+            net(mx.nd.array(x, ctx=ctx))
+        if weights is None:
+            weights = {k: p.data().asnumpy()
+                       for k, p in net.collect_params().items()}
+        else:
+            load_numpy(net.collect_params(), weights)
+        step = cifar.trainer(mx, net)
+        loss = cifar.iteration(mx, net, step,
+                               mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                               mx.nd.array(x, ctx=ctx),
+                               mx.nd.array(y, ctx=ctx, dtype=y.dtype))
+        res.append((loss.asnumpy(), {k: p.data().asnumpy() for k, p in
+                                     net.collect_params().items()}))
+        del net, step
+    (gl, gp), (cl, cp) = res
+    params = sorted(k for k in gp if "running" not in k)
+    stats = sorted(k for k in gp if "running" in k)
+    flat = lambda d, ks: np.concatenate([d[k].ravel() for k in ks])  # noqa
+    cpu_errs = {"losses": op_rel_l2(gl, cl),
+                "parameters": op_rel_l2(flat(gp, params), flat(cp, params)),
+                "moving stats": op_rel_l2(flat(gp, stats), flat(cp, stats))}
+    if not max(cpu_errs.values()) <= DATA_CPU_TOL:
+        fail("data: the batch-%d iteration is %s from the CPU's (bound %g)"
+             % (DATA_CHECK_BATCH, cpu_errs, DATA_CPU_TOL))
+    free_card()
+    join_loader_threads()
+    return dict(flips=int(n), cpu_errs=cpu_errs, state=state,
+                transform_err=ulp)
+
+
+DATA_ROOT = []
+
+
+def phase_data():
+    """CIFAR-10 at its published size through gluon.data into ResNet-18
+    v1 on the card; returns the row."""
+    t0 = time.monotonic()
+    cifar = cifar_module()
+    tmp = tempfile.mkdtemp(prefix="mxtpu-cifar-")
+    atexit.register(shutil.rmtree, tmp, True)
+    DATA_ROOT[:] = [tmp]
+    nbytes = cifar.write_cifar10(tmp, per_file=DATA_PER_FILE, seed=DATA_SEED)
+    write_s = time.monotonic() - t0
+    log("[data] %.2f MB of CIFAR-10 written in %.1f s" % (nbytes / 1e6,
+                                                        write_s))
+    row = data_row(cifar)
+    zero_launches()
+    checks = data_checks(cifar)
+    row.update(checks, check_launches=read_launches())
+    log("[data] %s: the worker modes' first three batches equal (0 "
+        "workers and 4 threads on the card's image ops; 0 workers, 4 "
+        "threads and 4 processes over numpy; the flip left out), the "
+        "card's transform %.3g from numpy's (bound %g); "
+        "set_state(%s) re-entered batches %d-%d; the flip flipped %d of "
+        "%d draws; one iteration at batch %d against the CPU, relative L2 "
+        "(bound %g): %s; %.2f MB of CIFAR-10 written in %.1f s; the phase "
+        "took %.1f s" % (card(), checks["transform_err"], DATA_TRANSFORM_TOL,
+                         checks["state"], DATA_STATE_AT + 1,
+                         DATA_STATE_AT + 3, checks["flips"], DATA_FLIP_DRAWS,
+                         DATA_CHECK_BATCH, DATA_CPU_TOL,
+                         ", ".join("%s %.3g" % kv
+                                   for kv in checks["cpu_errs"].items()),
+                         nbytes / 1e6, write_s, time.monotonic() - t0))
+    if any(row["check_launches"].values()):
+        fail("data: the checks launched a flash-attention kernel")
+    shutil.rmtree(tmp, True)
+    return {"data_cifar_resnet18": row}
+
+
 # a process of the --parent comparison: the sparse and lm phases of the
 # checkout in its working directory, their rows printed as JSON
 PARENT_CODE = ("import json, sys; sys.argv = ['chip_smoke.py']; "
@@ -6956,6 +7839,8 @@ def main():
     rand = phase_random()
     gan = phase_gan()
     seq = phase_seq()
+    cflow = phase_cflow()
+    data = phase_data()
     sources = {"flash_fwd": ("flash_fwd.cu", 149),
                "flash_bwd_dq": ("flash_bwd.cu", 277),
                "flash_bwd_dkv": ("flash_bwd.cu", 309)}
@@ -6977,7 +7862,8 @@ def main():
         by_path.update({row: r["launches"][name]
                         for row, r in mnist.items()})
         by_path.update({row: r["launches"][name]
-                        for rows in (zoo, imagenet, optim, rand, gan, seq)
+                        for rows in (zoo, imagenet, optim, rand, gan, seq,
+                                     cflow, data)
                         for row, r in rows.items()})
         kernels.append(dict(
             name=name, route="cuda",

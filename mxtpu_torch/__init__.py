@@ -45,7 +45,15 @@ Ported so far:
   initialization, indexing and ordering ops), NDArray's and Symbol's
   methods, ``autograd.grad`` and ``autograd.Function``, and the model
   zoo's AlexNet, DenseNet, Inception v3, MobileNet v1/v2, SqueezeNet
-  and VGG.
+  and VGG;
+* the other optimizers, samplers, initializers, metrics and iterators;
+  the nn and linalg ops with gluon's transposed convolutions, norms,
+  activations, losses and recurrent cells;
+* control flow: ``nd.contrib``/``sym.contrib``'s ``foreach``,
+  ``while_loop`` and ``cond`` (``control_flow``, over the ops of
+  ``ops.control_flow``); the image ops; and gluon's ``data`` (datasets,
+  samplers, the DataLoader, the vision datasets and transforms) and
+  ``contrib``.
 
 Importing the package starts no parameter-server role, whatever
 ``MXTPU_ROLE`` says: a launched server or scheduler runs
@@ -67,6 +75,14 @@ from . import symbol
 from . import symbol as sym
 from .symbol import Symbol, AttrScope
 from . import name
+from . import control_flow
+# the front ends of MXNet's ``nd.contrib`` and ``sym.contrib``: one
+# implementation that takes NDArrays or Symbols
+for _ns in (ndarray.contrib, symbol.contrib):
+    _ns.foreach = control_flow.foreach
+    _ns.while_loop = control_flow.while_loop
+    _ns.cond = control_flow.cond
+del _ns
 from . import executor
 from .executor import Executor
 from . import initializer
@@ -92,7 +108,7 @@ from .fused_train import FusedTrainLoop
 __all__ = ["base", "context", "cpu", "gpu", "num_gpus", "current_context",
            "ops",
            "amp", "autograd", "random", "seed", "ndarray", "nd", "NDArray",
-           "symbol", "sym", "Symbol", "AttrScope", "name",
+           "symbol", "sym", "Symbol", "AttrScope", "name", "control_flow",
            "executor", "Executor", "CachedOp", "initializer", "init",
            "optimizer", "lr_scheduler",
            "model", "io", "kvstore", "kv", "metric", "callback",

@@ -113,19 +113,24 @@ def _maybe_remat(fn):
     return apply_remat(fn, os.environ.get("MXTPU_REMAT_POLICY", "full"))
 
 
-def _build_graph_fn(symbol: Symbol, arg_names: List[str],
-                    aux_names: List[str], is_train: bool, device,
-                    compute_dtype: Optional[str] = None):
+def _graph_walk(symbol: Symbol, arg_names: List[str],
+                aux_names: List[str], is_train: bool, device,
+                compute_dtype: Optional[str] = None):
     """fn(arg_vals, aux_vals) -> (outputs, new_aux_vals), a walk of the
     graph in topological order; with ``compute_dtype`` each node's inputs
-    are cast by the AMP policy first."""
+    are cast by the AMP policy first, and the policy is the current one
+    during the walk, so that a control-flow node's subgraph walks
+    (``ops/control_flow.py``) keep it.  A control-flow op returns its
+    subgraph's updated aux values after its visible outputs; in training
+    they are written back to the outer aux slots of the same name."""
     from . import random as _rnd
 
     nodes = _topo_order(symbol._outputs)
     arg_pos = {n: i for i, n in enumerate(arg_names)}
     aux_pos = {n: i for i, n in enumerate(aux_names)}
+    meta = torch.device(device).type == "meta"
 
-    def graph_fn(arg_vals, aux_vals):
+    def walk(arg_vals, aux_vals):
         env = {}
         aux_new = list(aux_vals)
         for node in nodes:
@@ -142,8 +147,17 @@ def _build_graph_fn(symbol: Symbol, arg_names: List[str],
                 attrs["is_train"] = is_train
             if not invals:
                 attrs["device"] = device
-            gen = _rnd.generator(device) if node.op.needs_rng else None
+            gen = _rnd.generator(device) \
+                if node.op.needs_rng and not meta else None
             out = _reg.invoke(node.op, invals, attrs, gen)
+            n_out = node.op.n_outputs(node.attrs)
+            if len(out) > n_out:
+                if is_train:
+                    for name, val in zip(node.attrs.get("sub_aux", ()),
+                                         out[n_out:]):
+                        if name in aux_pos:
+                            aux_new[aux_pos[name]] = val.detach()
+                out = out[:n_out]
             for i, o in enumerate(out):
                 env[(id(node), i)] = o
             # BatchNorm: fold the batch stats into the moving stats
@@ -156,7 +170,23 @@ def _build_graph_fn(symbol: Symbol, arg_names: List[str],
                         aux_new[p] = m * aux_new[p] + (1.0 - m) * stat.detach()
         return [env[(id(n), i)] for n, i in symbol._outputs], aux_new
 
-    return _maybe_remat(graph_fn) if is_train else graph_fn
+    if compute_dtype is None:
+        return walk
+
+    def graph_fn(arg_vals, aux_vals):
+        with _amp.scope(compute_dtype):
+            return walk(arg_vals, aux_vals)
+    return graph_fn
+
+
+def _build_graph_fn(symbol: Symbol, arg_names: List[str],
+                    aux_names: List[str], is_train: bool, device,
+                    compute_dtype: Optional[str] = None):
+    """The graph's walk (:func:`_graph_walk`), under :func:`apply_remat`
+    in training when MXNET_BACKWARD_DO_MIRROR is set."""
+    fn = _graph_walk(symbol, arg_names, aux_names, is_train, device,
+                     compute_dtype)
+    return _maybe_remat(fn) if is_train else fn
 
 
 class Executor(object):

@@ -115,7 +115,11 @@ class FusedTrainLoop(object):
             raise MXNetError("FusedTrainLoop: grad_req 'add' not supported")
 
         self._arg_names = ex._arg_names
-        self._diff_idx = list(ex._diff_idx)
+        # a name that several variable nodes share is one parameter: the
+        # graph reads its last position, the one trained here
+        last = {n: i for i, n in enumerate(self._arg_names)}
+        self._diff_idx = [i for i in ex._diff_idx
+                          if last[self._arg_names[i]] == i]
         diff = set(self._diff_idx)
         data_names = set(module._data_names) | set(module._label_names)
         # the data and label arguments; the rest (neither trained nor

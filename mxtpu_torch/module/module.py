@@ -60,7 +60,10 @@ class Module(BaseModule):
         arg_names = symbol.list_arguments()
         input_names = self._data_names + self._label_names + \
             list(state_names or [])
-        self._param_names = [n for n in arg_names if n not in input_names]
+        # a name that several variable nodes share is one parameter
+        # (the executor binds it once), updated once a step
+        self._param_names = list(dict.fromkeys(
+            n for n in arg_names if n not in input_names))
         self._fixed_param_names = list(fixed_param_names or [])
         self._aux_names = symbol.list_auxiliary_states()
         self._output_names = symbol.list_outputs()

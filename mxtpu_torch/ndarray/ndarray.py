@@ -61,10 +61,12 @@ def _from_numpy(a: np.ndarray, device, dtype=None) -> torch.Tensor:
     dt = torch_dtype(a.dtype if dtype is None else dtype)
     # asarray(order="C") keeps a 0-d array 0-d (ascontiguousarray does not)
     if dt == torch.bfloat16:
-        t = torch.from_numpy(np.asarray(a, dtype=np.float32, order="C"))
+        a = np.asarray(a, dtype=np.float32, order="C")
     else:
-        t = torch.from_numpy(np.asarray(a, order="C"))
-    return t.to(device=device, dtype=dt, copy=True)
+        a = np.asarray(a, order="C")
+    if not a.flags.writeable:  # a dataset read with np.frombuffer
+        a = a.copy()
+    return torch.from_numpy(a).to(device=device, dtype=dt, copy=True)
 
 
 class NDArray(object):
@@ -613,7 +615,8 @@ def imperative_invoke(op_name: str, *inputs, out=None,
 
         gen = _rnd.generator(device)
     with torch.set_grad_enabled(_ag.is_recording() and opdef.differentiable):
-        if opdef.name == "Embedding" and attrs.get("sparse_grad") \
+        if (opdef.name == "_contrib_SparseEmbedding"
+                or (opdef.name == "Embedding" and attrs.get("sparse_grad"))) \
                 and _ag.is_recording():
             # recorded imperatively, the lookup's weight gradient is
             # row-sparse (the JAX package's _record_embedding_sparse);

@@ -6,12 +6,15 @@ registry (:mod:`.registry`) holds the ops the symbolic and imperative
 layers call: the dense corpus of :mod:`.elemwise`, :mod:`.reduce`,
 :mod:`.matrix`, :mod:`.init_ops` and :mod:`.indexing`, the nn ops
 (:mod:`.nn`), the linalg ops (:mod:`.linalg`), the recurrent ``RNN`` op
-(:mod:`.rnn_op`, cuDNN on the card), and the random and
-optimizer-update ops the trainers need.
+(:mod:`.rnn_op`, cuDNN on the card), the random and optimizer-update
+ops the trainers need, the control-flow ops (:mod:`.control_flow`) and
+the image ops of gluon's transforms (:mod:`.image`).
 """
 from . import registry
+from . import control_flow
 from . import elemwise
 from . import flash_attention
+from . import image
 from . import indexing
 from . import init_ops
 from . import linalg
@@ -22,6 +25,7 @@ from . import random_ops
 from . import reduce
 from . import rnn_op
 
-__all__ = ["registry", "elemwise", "flash_attention", "indexing",
+__all__ = ["registry", "control_flow", "elemwise", "flash_attention",
+           "image", "indexing",
            "init_ops", "linalg", "matrix", "nn", "optimizer_ops", "random_ops",
            "reduce", "rnn_op"]

@@ -1,5 +1,5 @@
 """Indexing, ordering and storage ops of the PyTorch port (counterpart
-of ``mxtpu/ops/indexing.py`` but ``_contrib_SparseEmbedding``, and of
+of ``mxtpu/ops/indexing.py``, and of
 the dense graph forms of ``cast_storage`` and ``_sparse_retain`` in
 ``mxtpu/ops/vision.py``).
 
@@ -23,6 +23,8 @@ JAX package; recorded imperatively with ``sparse_grad=True``
 (``nd.Embedding``, a gluon ``Embedding`` not hybridized) it runs
 :func:`embedding_sparse_grad`, whose gradient with respect to a leaf
 weight is a sparse COO tensor over the looked-up ids.
+``_contrib_SparseEmbedding`` is the same lookup whose imperative
+recorded gradient is always that sparse one, whatever its attrs say.
 """
 from __future__ import annotations
 
@@ -41,6 +43,12 @@ def _ids(data, weight):
 @register("Embedding")
 def _embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
                sparse_grad=False):
+    return F.embedding(_ids(data, weight), weight)
+
+
+@register("_contrib_SparseEmbedding")
+def _sparse_embedding(data, weight, input_dim=0, output_dim=0,
+                      dtype="float32", deterministic=False):
     return F.embedding(_ids(data, weight), weight)
 
 

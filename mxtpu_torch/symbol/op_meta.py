@@ -7,7 +7,9 @@ variables such as ``fc1_weight``), which inputs are auxiliary states
 (BatchNorm's moving stats), and the parameter shapes solved backward
 from the data shape for FullyConnected, Convolution, Deconvolution,
 BatchNorm, LayerNorm, InstanceNorm, LeakyReLU's prelu slope,
-Embedding and RNN (its flat parameter vector and its states).  The
+Embedding and RNN (its flat parameter vector and its states), and the
+free variables of the control-flow ops' subgraphs (solved by the
+subgraph's own partial inference, ``mxtpu_torch/control_flow.py``).  The
 loss heads' labels are plain inputs, not shaped.  Ops not listed take
 their input names from their function's signature.
 """
@@ -219,3 +221,15 @@ def _rnn_shapes(shapes, attrs):
 
 
 register_meta("RNN", OpMeta(_rnn_inputs, param_shapes=_rnn_shapes))
+
+
+def _control_flow_metas():
+    from .. import control_flow as _cf
+
+    for name, fn in (("_foreach", _cf._foreach_shapes),
+                     ("_while_loop", _cf._while_loop_shapes),
+                     ("_cond", _cf._cond_shapes)):
+        register_meta(name, OpMeta([], variadic=True, param_shapes=fn))
+
+
+_control_flow_metas()

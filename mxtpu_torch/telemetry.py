@@ -1,17 +1,23 @@
-"""Streaming percentile histograms of the PyTorch port.
+"""Streaming percentile histograms and the input-wait gauge of the
+PyTorch port.
 
 Counterpart of ``mxtpu/telemetry.py``'s ``Histogram`` and
-``histogram()``: only what ``serve`` needs for its request-latency
-p50/p95/p99.  The event ring, metrics providers and cross-process
+``histogram()`` (what ``serve`` needs for its request-latency
+p50/p95/p99) and of its ``record_input_wait``/``input_wait`` with the
+totals they keep (:func:`metrics`): the wall time a training loop spent
+waiting for gluon's ``DataLoader`` to hand over the next batch.  The
+event ring, the step metrics, metrics providers and cross-process
 aggregation of that module are not ported yet (ROADMAP A18).
 """
 from __future__ import annotations
 
 import math
 import threading
+import time
 from typing import Any, Dict
 
-__all__ = ["Histogram", "histogram"]
+__all__ = ["Histogram", "histogram", "record_input_wait", "input_wait",
+           "metrics", "clear"]
 
 
 class Histogram(object):
@@ -114,3 +120,70 @@ def histogram(name: str, low: float = 1e-6, high: float = 1e4,
         if h is None:
             h = _HISTOGRAMS[name] = Histogram(low, high, bins_per_decade)
         return h
+
+
+# the input-wait totals (under _IW_LOCK)
+_IW_LOCK = threading.Lock()
+_IW = {"input_waits": 0, "input_wait_sum": 0.0, "input_wait_last": 0.0}
+
+
+def record_input_wait(dur_s: float) -> None:
+    """Account one host-input wait: the wall time the training loop
+    spent blocked until the data pipeline handed over the next batch.
+    Producers that can nest (a DataLoader whose fetch drives an inner
+    iterator) wrap the fetch in :func:`input_wait` instead, which
+    records only at the outermost level."""
+    with _IW_LOCK:
+        _IW["input_waits"] += 1
+        _IW["input_wait_sum"] += dur_s
+        _IW["input_wait_last"] = dur_s
+
+
+_INPUT_WAIT_TLS = threading.local()
+
+
+class _InputWait(object):
+    """Re-entrancy-guarded input-wait scope (see :func:`input_wait`)."""
+
+    __slots__ = ("_outer", "_t0")
+
+    def __enter__(self):
+        depth = getattr(_INPUT_WAIT_TLS, "depth", 0)
+        _INPUT_WAIT_TLS.depth = depth + 1
+        self._outer = depth == 0
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        _INPUT_WAIT_TLS.depth = getattr(_INPUT_WAIT_TLS, "depth", 1) - 1
+        # only the outermost scope on this thread records
+        if self._outer and exc[0] is None:
+            record_input_wait(time.perf_counter() - self._t0)
+        return False
+
+
+def input_wait() -> _InputWait:
+    """Context manager measuring one host-input wait; nested scopes on
+    the same thread record nothing, so one wait is counted once::
+
+        with telemetry.input_wait():
+            batch = next(source)
+    """
+    return _InputWait()
+
+
+def metrics() -> Dict[str, Any]:
+    """The input-wait totals of this process: the count of waits, the
+    last and the mean wait, and their sum, in seconds."""
+    with _IW_LOCK:
+        n, total = _IW["input_waits"], _IW["input_wait_sum"]
+        return {"input_waits": n,
+                "input_wait_last_s": _IW["input_wait_last"],
+                "input_wait_avg_s": total / max(1, n),
+                "input_wait_sum_s": total}
+
+
+def clear() -> None:
+    """Reset the input-wait totals."""
+    with _IW_LOCK:
+        _IW.update(input_waits=0, input_wait_sum=0.0, input_wait_last=0.0)

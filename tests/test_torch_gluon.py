@@ -182,6 +182,54 @@ LAYERS.update({
     "swish": (lambda mx: mx.gluon.nn.Swish(1.5), [(3, 5)]),
 })
 
+# gluon.contrib's layers, and a block whose hybrid_forward loops with
+# F.contrib.foreach (run by test_torch_gluon_contrib.py, to keep this
+# file under 30 s)
+CONTRIB_LAYERS = {
+    "contrib_concurrent": (lambda mx: _concurrent(mx, False),
+                           [(2, 3, 4)]),
+    "contrib_hybrid_concurrent": (lambda mx: _concurrent(mx, True),
+                                  [(2, 3, 4)]),
+    "contrib_identity": (lambda mx: mx.gluon.contrib.nn.Identity(),
+                         [(3, 4)]),
+    "contrib_sync_batchnorm": (lambda mx: mx.gluon.contrib.nn.SyncBatchNorm(
+        num_devices=1, momentum=0.8), [(4, 3, 2, 2)]),
+    "contrib_pixel_shuffle2d": (lambda mx: mx.gluon.contrib.nn.PixelShuffle2D(
+        (2, 3)), [(2, 12, 3, 2)]),
+    "foreach_rnn_block": (lambda mx: _foreach_block(mx), [(4, 2, 3)]),
+}
+
+
+def _concurrent(mx, hybrid):
+    nn = mx.gluon.contrib.nn
+    net = nn.HybridConcurrent() if hybrid else nn.Concurrent()
+    with net.name_scope():
+        net.add(mx.gluon.nn.Dense(5, flatten=False), nn.Identity(),
+                mx.gluon.nn.Activation("tanh"))
+    return net
+
+
+def _foreach_block(mx):
+    class ForeachRNN(mx.gluon.HybridBlock):
+        """An Elman RNN over axis 0 of its (T, N, C) input."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.i2h = mx.gluon.nn.Dense(4, in_units=3, flatten=False)
+                self.h2h = mx.gluon.nn.Dense(4, in_units=4, flatten=False)
+
+        def hybrid_forward(self, F, x):
+            def step(xt, h):
+                hn = F.tanh(self.i2h(xt) + self.h2h(h))
+                return hn, hn
+            h0 = F.zeros_like(F.slice_axis(self.i2h(x), axis=0, begin=0,
+                                           end=1)).reshape((-3, 0))
+            outs, _ = F.contrib.foreach(step, x, h0)
+            return outs
+
+    return ForeachRNN()
+
 
 def _seq(mx):
     net = mx.gluon.nn.HybridSequential()

@@ -5,6 +5,8 @@
 * Entry points called without a device run on the card, and raise when
   there is none instead of carrying on quietly on the CPU.
 * `chip_smoke.py` fails, and prints no result, without a card.
+* The DataLoader's process workers run only numpy: nothing they call
+  touches torch, so no CUDA state reaches a forked child.
 * Importing the port in a process whose `MXTPU_ROLE` is `server`
   starts no role; a distributed store with no scheduler to reach
   raises a typed error within its connect budget, and does not hang.
@@ -164,6 +166,50 @@ def test_the_import_check_covers_slice_14():
     # the DCGAN's nets and loop, which chip_smoke.py imports
     with open(os.path.join(REPO, "tests", "test_torch_dcgan_net.py")) as f:
         assert not _FORBIDDEN.search(f.read())
+
+
+def test_the_import_check_covers_slice_15():
+    names = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for mod in ("control_flow", "ops/control_flow", "ops/image",
+                "telemetry", "gluon/data/__init__", "gluon/data/dataset",
+                "gluon/data/sampler", "gluon/data/dataloader",
+                "gluon/data/vision/datasets", "gluon/data/vision/transforms",
+                "gluon/contrib/__init__", "gluon/contrib/data/sampler",
+                "gluon/contrib/nn/basic_layers", "gluon/contrib/rnn/rnn_cell",
+                "gluon/contrib/rnn/conv_rnn_cell"):
+        assert os.path.join("mxtpu_torch", mod + ".py") in names, mod
+
+
+def _names_reached(fn, module, seen=None):
+    """The global names that ``fn`` and the functions of ``module`` it
+    calls refer to, followed through the module."""
+    seen = set() if seen is None else seen
+    names = set()
+    for name in fn.__code__.co_names:
+        names.add(name)
+        target = getattr(module, name, None)
+        if callable(target) and getattr(target, "__module__", None) == \
+                module.__name__ and hasattr(target, "__code__") \
+                and name not in seen:
+            seen.add(name)
+            names |= _names_reached(target, module, seen)
+    return names
+
+
+def test_the_process_workers_path_touches_no_torch():
+    """What a forked worker runs (``_worker_init``, ``_worker_fn`` and
+    the numpy batchify they reach) names nothing of torch and makes no
+    array: with CUDA up in the parent, a child that touched CUDA would
+    fail.  ``test_torch_gluon_data_b.py`` runs such workers and checks
+    that CUDA is not initialized in the parent after them."""
+    from mxtpu_torch.gluon.data import dataloader as dl
+
+    reached = set()
+    for fn in (dl._worker_init, dl._worker_fn, dl._np_batchify):
+        reached |= _names_reached(fn, dl)
+    forbidden = {"torch", "nd_array", "default_batchify_fn", "_to_nd",
+                 "stack", "array", "cuda"}
+    assert not reached & forbidden, reached & forbidden
 
 
 def test_the_cells_begin_states_need_a_card(monkeypatch):

@@ -28,6 +28,8 @@ def run_call(mx, name, c, ctx, grad_idx):
     by normal draws from seeds 7, 8..."""
     xs = [mx.nd.array(x, ctx=ctx, dtype=x.dtype) for x in c.inputs]
     attrs = dict(c.attrs)
+    if c.build is not None:
+        attrs.update(c.build(mx))
     if not xs:
         attrs["ctx"] = ctx
     fn = getattr(mx.nd, name)
@@ -90,14 +92,17 @@ def _f(values):
 class Call(object):
     """One call of an op: its inputs (numpy), its attrs, the inputs whose
     gradients are compared (None: every float input of a differentiable
-    op), whether the outputs must be equal, and ``canon``, a function
+    op), whether the outputs must be equal, ``canon``, a function
     of the outputs (numpy) that takes out what the libraries may choose
-    apart (the signs of factors)."""
+    apart (the signs of factors), and ``build``, a function of the
+    package that gives the attrs made by that package (the subgraph
+    Symbols of the control-flow ops)."""
 
     def __init__(self, *inputs, grad=None, exact=False, canon=None,
-                 **attrs):
+                 build=None, **attrs):
         self.inputs, self.attrs = inputs, attrs
         self.grad, self.exact, self.canon = grad, exact, canon
+        self.build = build
 
 
 CASES = {}
@@ -629,6 +634,114 @@ case("_contrib_group_adagrad_update",
      Call(W, G, _a(3, lo=0, hi=1, seed=2), lr=0.1, clip_gradient=0.5),
      Call(_a(2, 3, 2), _a(2, 3, 2, seed=1), _a(2, lo=0, hi=1, seed=2),
           lr=0.1))
+
+
+# ---------------------------------------------------------------------------
+# control flow: the subgraphs are built by each package's front end,
+# and the node's attrs handed to the op (inputs: data, states, free
+# variables in the subgraph's order, aux)
+# ---------------------------------------------------------------------------
+
+def node_attrs(make):
+    """A ``build`` for Call: the attrs of the control-flow node that
+    ``make(mx)`` returns a Symbol of."""
+    def build(mx):
+        out = make(mx)
+        return dict(out[0]._outputs[0][0].attrs if isinstance(out, list)
+                    else out._outputs[0][0].attrs)
+    return build
+
+
+def _foreach_rnn(mx):
+    s = mx.sym
+    w = s.var("w")
+    return mx.sym.contrib.foreach(
+        lambda xt, h: (s.tanh(s.dot(xt, w) + h) * 2, s.tanh(s.dot(xt, w) + h)),
+        s.var("x"), s.var("h"))[0]
+
+
+def _while_doubling(mx):
+    s = mx.sym
+    return mx.sym.contrib.while_loop(
+        lambda i, a: s.sum(i) < 40, lambda i, a: ([i * a], [i * 2, a + 1]),
+        [s.var("i"), s.var("a")], max_iterations=8)[0]
+
+
+def _cond_square(mx):
+    s = mx.sym
+    a = s.var("a")
+    return mx.sym.contrib.cond(s.var("p"), lambda: a * a,
+                               lambda: s.var("b") + 1)
+
+
+case("_foreach", Call(_a(4, 2, 3), _a(2, 5, seed=1), _a(3, 5, seed=2),
+                      build=node_attrs(_foreach_rnn)))
+# no gradient: the loop's trip count depends on the data (as in the JAX
+# package, whose lax.while_loop has no reverse mode)
+case("_while_loop", Call(_f([1.5]), _f([1, 2, 0.5]), grad=(),
+                         build=node_attrs(_while_doubling)))
+case("_cond", *[Call(_f([p]), _a(3, 4, seed=1), _a(3, 4, seed=2),
+                     grad=(1, 2), build=node_attrs(_cond_square))
+                for p in (1, 0)])
+
+# ---------------------------------------------------------------------------
+# image ops: HWC and NHWC, uint8 and float; the random flips on images
+# that their flip leaves as they are (their rate is held in
+# tests/test_torch_image.py)
+# ---------------------------------------------------------------------------
+
+def _u8(*shape, seed=0):
+    return np.random.RandomState(seed).randint(0, 256, shape) \
+        .astype(np.uint8)
+
+
+def _mirrored(x, axis):
+    return np.concatenate([x, np.flip(x, axis)], axis=axis)
+
+
+case("_image_to_tensor", Call(_u8(4, 5, 3)), Call(_a(2, 4, 5, 3, lo=0,
+                                                     hi=255)))
+case("_image_normalize",
+     Call(_a(3, 4, 5), mean=(0.1, 0.2, 0.3), std=(0.5, 0.6, 0.7)),
+     Call(_a(2, 3, 4, 5), mean=(0.4914, 0.4822, 0.4465),
+          std=(0.2023, 0.1994, 0.2010)),
+     Call(_a(2, 1, 4, 5), mean=(0.5,), std=(2.0,)))
+for _n in ("_image_flip_left_right", "_image_flip_top_bottom"):
+    case(_n, Call(_u8(4, 5, 3), exact=True),
+         Call(_a(2, 4, 5, 3), exact=True))
+case("_image_random_flip_left_right",
+     Call(_mirrored(_u8(4, 3, 3), 1), exact=True),
+     Call(_mirrored(_a(2, 4, 3, 3), 2), exact=True))
+case("_image_random_flip_top_bottom",
+     Call(_mirrored(_u8(3, 5, 3), 0), exact=True),
+     Call(_mirrored(_a(2, 3, 5, 3), 1), exact=True))
+# growing, shrinking (antialiased), nearest; uint8 in tests/test_torch_image.py
+case("_image_resize", Call(_a(4, 5, 3), size=(7, 6)),
+     Call(_a(2, 9, 8, 3), size=(3, 4)),
+     Call(_a(5, 4, 2), size=(6, 9), interp=0),
+     Call(_a(2, 6, 6, 1), size=4))
+case("_image_crop", Call(_u8(6, 7, 3), x=1, y=2, width=3, height=2,
+                         exact=True),
+     Call(_a(2, 6, 7, 3), x=0, y=1, width=5, height=4, exact=True))
+case("_cvimresize", Call(_a(6, 5, 3), w=9, h=4), Call(_a(8, 8, 3), w=3,
+                                                      h=5))
+case("_cvcopyMakeBorder",
+     *[Call(_u8(3, 4, 2), top=1, bot=2, left=3, right=0, type=t,
+            exact=True) for t in (1, 2, 4)],
+     # pads wider than the image: numpy reflects again
+     *[Call(_a(2, 3, 3), top=5, bot=4, left=7, right=3, type=t,
+            exact=True) for t in (2, 4)],
+     Call(_u8(3, 4, 2), top=2, bot=1, left=1, right=2, type=0, value=7.0,
+          exact=True),
+     Call(_a(3, 4, 3), top=1, bot=1, left=2, right=2, type=0,
+          values=(1.5, -2.0), exact=True))
+# the lookup; its weight's gradient (row-sparse, recorded imperatively)
+# densified
+case("_contrib_SparseEmbedding",
+     Call(_f([[0, 3, 3], [5, 1, 0]]), _a(6, 4), input_dim=6, output_dim=4,
+          grad=(1,)),
+     Call(_f([2, 9, -1]), _a(6, 4, seed=1), input_dim=6, output_dim=4,
+          grad=(1,)))
 
 
 # random draws: finiteness and moments (name -> attrs, mean, std, the
