@@ -256,7 +256,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    both workers see the same batches, so a round's summed gradient at
    half the rescale is the local step's.  No flash-attention kernel may
    launch in either phase (counted in the workers too).
-12. ops    -- every canonical op the port registers (280; the cases of
+12. ops    -- every canonical op the port registers (313; the cases of
    ``tests/test_torch_op_cases.py``: numpy inputs from fixed seeds, with
    the ties of max/min/sort/argsort/topk, clip's bounds, rounding at .5
    and mod with mixed signs) on the card against the same call on the
@@ -394,7 +394,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``foreach`` whose moving stats reach the outer aux, a HybridBlock
    calling ``F.contrib.foreach`` hybridized and not, a graph with a
    ``cond`` and a ``while_loop`` trained in a captured FusedTrainLoop
-   against per-step steps; a symbolic ``while_loop`` backward must
+   against per-step steps, a ``cond`` whose branch not taken has an
+   infinite or NaN derivative (the square root and the log of values at
+   and below 0) trained 4 steps in a captured FusedTrainLoop (both
+   branches run) and per step on the card and the CPU (the branch taken
+   only): every weight finite and equal to the CPU's
+   (``cflow_singular_case``); a symbolic ``while_loop`` backward must
    raise, as in the JAX package.
 20. data   -- row ``data_cifar_resnet18``: CIFAR-10's published binary
    format written from ``DATA_SEED`` into a temporary root (five files
@@ -414,6 +419,31 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``set_state`` on a fresh loader give the same batches 6-8, the flip's
    rate over 200 draws, one iteration at batch 8 against the CPU
    (``DATA_CPU_TOL``), the losses finite.  No flash kernel may launch.
+21. det    -- the detection ops.  Rows ``det_ssd_mini``
+   (``examples/ssd/ssd_mini.py``, 8 epochs at ``--det-threshold 0.05``,
+   ``DET_SSD_ARGS``: seconds an epoch, detections per image, its own
+   assertion) and ``det_frcnn_mini`` (``examples/rcnn/faster_rcnn_mini.py``
+   at its defaults, its ``mx.cpu()`` made the card's: FINAL_ROI_ACCURACY
+   above 0.5, and the proposals, the pooled maps and the parameters on
+   the card, read by wrapping ``nd.contrib.MultiProposal``,
+   ``nd.ROIPooling`` and ``Trainer.step``); ``det_frcnn_vgg16``
+   (``tests/test_torch_detection_net.py``: Faster R-CNN with the zoo's
+   VGG16 to conv5_3 on one 600x1000 image, the RPN, ``MultiProposal``
+   12,000 -> NMS 0.7 -> 2,000, 128 ROIs pooled 7x7, fc6 and fc7 4096, 21
+   classes, random weights; 2 warm and 6 timed SGD steps through
+   gluon's Trainer: ms a step, busy, idle, operations, peak, by kind;
+   losses finite; then on the card against the CPU: the boxes before
+   NMS (order and scores equal, coordinates within ``DET_BOX_TOL``), the
+   NMS mask of the same boxes, the rois and the pooled features equal,
+   and one step's gradients within ``DET_GRAD_TOL``, layer by layer
+   from the loss down, each layer given the card's input and the card's
+   gradient of its output on both devices, so that every ReLU and max
+   decides alike); ``det_ssd300_heads`` (SSD300's ``MultiBoxPrior`` over its six
+   maps, 8,732 anchors; ``MultiBoxTarget`` at batch 32 with 1-8 boxes an
+   image; ``MultiBoxDetection`` at batch 8 over 21 classes, NMS 0.45: its
+   decoding and its NMS on the card against the CPU's, the NMS over the
+   same decoded boxes equal; its IoU held a tile of (8, 256, 8,732) at a
+   time; host ms on the card and the CPU).  No flash kernel may launch.
 
 The line before the last is the card's name and power limit, the line
 before that the kernels' JSON record; the last line is
@@ -7175,6 +7205,7 @@ def cflow_cases():
         fail("cflow: a symbolic while_loop backward did not raise: %r"
              % raised)
     errs["capture"] = cflow_capture_case()
+    errs["capture_singular"] = cflow_singular_case()
     return errs
 
 
@@ -7281,6 +7312,78 @@ def cflow_capture_case():
              % loop.captures)
     want, got = per.get_params()[0], fused.get_params()[0]
     return max(op_rel_l2(got[k].asnumpy(), want[k].asnumpy()) for k in w0)
+
+
+def cflow_singular_case():
+    """ROADMAP's C9 on the card: a cond whose branch not taken has an
+    infinite or NaN derivative (the square root and the log of its own
+    affine map's outputs, some negative and one row exactly 0), its
+    predicate 1 at every step, trained K = 4 steps (SGD lr 0.1) in a captured
+    FusedTrainLoop, where both branches run, and as 4 per-step Module
+    steps on the card and on the CPU, where only the branch taken runs.
+    Fails unless every weight stays finite; returns the worst relative L2
+    of the captured loop's weights and of the card's per-step weights
+    against the CPU's (CFLOW_CASE_TOL)."""
+    s = mx.sym
+
+    def fc(name):
+        return s.FullyConnected(
+            s.var("data"), weight=s.var(name + "_weight", shape=(8, 6)),
+            bias=s.var(name + "_bias", shape=(8,)), num_hidden=8, name=name)
+
+    def singular():
+        z = fc("sfc2")
+        return s.sqrt(z) + s.log(z)
+
+    picked = mx.sym.contrib.cond(s.var("p"), lambda: fc("sfc") * 2,
+                                 singular)
+    net = s.MakeLoss(s.mean(s.square(picked)))
+    rng = np.random.RandomState(6)
+    w0 = {"%s_%s" % (n, k): (rng.normal(0, 0.5, shape) if k == "weight"
+                             else np.zeros(shape)).astype(np.float32)
+          for n in ("sfc", "sfc2") for k, shape in (("weight", (8, 6)),
+                                                    ("bias", (8,)))}
+    feed = []
+    for _ in range(4):
+        d = rng.randn(4, 6).astype(np.float32)
+        d[0] = 0.0                      # z = 0 in that row: log'(0) = inf
+        feed.append(d)
+
+    def module(ctx):
+        mod = mx.mod.Module(net, data_names=("data", "p"), label_names=None,
+                            context=ctx)
+        mod.bind(data_shapes=[("data", (4, 6)), ("p", (1,))])
+        mod.init_params(arg_params={k: mx.nd.array(v, ctx=ctx)
+                                    for k, v in w0.items()})
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": 0.1})
+        return mod
+
+    def batches(ctx):
+        return [mx.io.DataBatch(data=[mx.nd.array(d, ctx=ctx), mx.nd.array(
+            np.ones(1, np.float32), ctx=ctx)], label=None) for d in feed]
+
+    weights = {}
+    for where, ctx in (("cpu", mx.cpu()), ("card", mx.gpu(0))):
+        mod = module(ctx)
+        for b in batches(ctx):
+            module_step(mod, b)
+        weights[where] = {k: v.asnumpy() for k, v in
+                          mod.get_params()[0].items()}
+    fused = module(mx.gpu(0))
+    loop = mx.FusedTrainLoop(fused, steps_per_program=4)
+    loop.run(batches(mx.gpu(0)))
+    if loop.captures != (torch.device(mx.gpu(0)).type == "cuda"):
+        fail("cflow: the singular cond graph was captured %d times"
+             % loop.captures)
+    weights["captured"] = {k: v.asnumpy() for k, v in
+                           fused.get_params()[0].items()}
+    for where, ws in weights.items():
+        if not all(np.isfinite(v).all() for v in ws.values()):
+            fail("cflow: the singular cond's weights are not finite on the "
+                 "%s path: %s" % (where, ws))
+    return max(op_rel_l2(weights[where][k], weights["cpu"][k])
+               for where in ("captured", "card") for k in w0)
 
 
 def phase_cflow():
@@ -7732,6 +7835,449 @@ def phase_data():
     return {"data_cifar_resnet18": row}
 
 
+# ---------------------------------------------------------------------------
+# det: the detection ops: examples/ssd and examples/rcnn, a Faster R-CNN
+# VGG16 step at 600 x 1000 and SSD300's heads
+# ---------------------------------------------------------------------------
+
+DET_SSD = "ssd/ssd_mini.py"
+# its 8 epochs at tests/test_examples.py's threshold: at its default 0.2
+# no class score passes in either package, whose MultiBoxTarget does no
+# negative mining, so the background class takes every anchor
+DET_SSD_ARGS = ("--det-threshold", "0.05")
+DET_FRCNN = "rcnn/faster_rcnn_mini.py"  # at its defaults: 6 epochs
+DET_FRCNN_GATE = 0.5     # tests/test_examples.py's FINAL_ROI_ACCURACY gate
+DET_WARM, DET_STEPS = 2, 6              # the VGG16 row's steps
+# the VGG16 step on the card against the CPU: the decoded boxes before
+# NMS and the box targets (the decoding's exp rounds apart on the two)
+# within DET_BOX_TOL relative to the largest coordinate; each gradient's
+# relative L2 within DET_GRAD_TOL (float32 products in other orders);
+# the NMS masks, the picks, the pooled features, class ids and scores
+# equal
+DET_BOX_TOL = 1e-5
+DET_GRAD_TOL = 1e-4
+DET_TARGET_BATCH = 32                   # MultiBoxTarget, 1-8 boxes an image
+DET_DETECT_BATCH = 8                    # MultiBoxDetection, 21 classes
+DET_REPEAT = 3                          # timed calls of each head op
+
+
+class _TimedLines(_Lines):
+    """The log's lines and the clock at each."""
+
+    def __init__(self):
+        super().__init__()
+        self.times = []
+
+    def emit(self, record):
+        super().emit(record)
+        self.times.append(time.monotonic())
+
+
+def det_module():
+    """tests/test_torch_detection_net.py: Faster R-CNN VGG16 and SSD300's
+    heads, written against gluon (imports only numpy)."""
+    return tests_module("test_torch_detection_net")
+
+
+def det_examples():
+    """examples/ssd and examples/rcnn at their defaults on the card: the
+    SSD's detections per image and seconds an epoch; Faster R-CNN's
+    FINAL_ROI_ACCURACY, its proposals, pooled ROIs and parameters all on
+    the card."""
+    lines, root = _TimedLines(), logging.getLogger()
+    root.addHandler(lines)
+    t0 = time.monotonic()
+    try:
+        out, _, secs = example_run(DET_SSD, DET_SSD_ARGS, "det")
+    finally:
+        root.removeHandler(lines)
+    epochs = [t for t, m in zip(lines.times, lines.lines)
+              if m.startswith("epoch ")]
+    per_epoch = np.diff([t0] + epochs)
+    found = [ln for ln in lines.lines if ln.startswith("detections per")]
+    if not found or not epochs:
+        fail("det: %s printed no epoch or detection line" % DET_SSD)
+    dets = json.loads(found[-1].split(":", 1)[1])
+    ssd = dict(seconds=secs, epoch_s=per_epoch.tolist(), detections=dets,
+               launches=read_launches())
+    log("[det] %s: det_ssd_mini (%s, 8 epochs, %s): %.1f s, seconds an "
+        "epoch %s (the first with the set-up); detections per image (first "
+        "8) %s; flash-attention launches %s"
+        % (card(), DET_SSD, " ".join(DET_SSD_ARGS), secs, " ".join(
+            "%.2f" % s for s in per_epoch), dets, ssd["launches"]))
+
+    devices = {"rois": set(), "data": set(), "params": set()}
+    nd = mx.nd
+    pool, prop = nd.ROIPooling, nd.contrib.MultiProposal
+
+    def pool_spy(data, rois, *a, **kw):
+        devices["data"].add(str(data.context))
+        devices["rois"].add(str(rois.context))
+        return pool(data, rois, *a, **kw)
+
+    def prop_spy(*a, **kw):
+        out = prop(*a, **kw)
+        devices["rois"].add(str(out.context))
+        return out
+
+    step = mx.gluon.Trainer.step
+
+    def step_spy(self, *a, **kw):
+        devices["params"].update(str(p.data().context) for p in self._params)
+        return step(self, *a, **kw)
+
+    zero_launches()
+    nd.ROIPooling, nd.contrib.MultiProposal = pool_spy, prop_spy
+    mx.gluon.Trainer.step = step_spy
+    try:
+        out, lines, fsecs = example_run(DET_FRCNN, [], "det")
+    finally:
+        nd.ROIPooling, nd.contrib.MultiProposal = pool, prop
+        mx.gluon.Trainer.step = step
+    acc = re.findall(r"^FINAL_ROI_ACCURACY ([0-9.]+)", out, re.M)
+    frcnn = dict(seconds=fsecs, accuracy=float(acc[-1]) if acc else None,
+                 devices={k: sorted(v) for k, v in devices.items()},
+                 launches=read_launches())
+    log("[det] %s: det_frcnn_mini (%s at its defaults, 6 epochs, its "
+        "mx.cpu() made the card's): %.1f s, FINAL_ROI_ACCURACY %s (gate > "
+        "%g); the devices of the proposals, the pooled maps and the "
+        "parameters: %s; flash-attention launches %s"
+        % (card(), DET_FRCNN, fsecs, frcnn["accuracy"], DET_FRCNN_GATE,
+           frcnn["devices"], frcnn["launches"]))
+    if frcnn["accuracy"] is None or not frcnn["accuracy"] > DET_FRCNN_GATE:
+        fail("det: %s's FINAL_ROI_ACCURACY %s, not above %g"
+             % (DET_FRCNN, acc, DET_FRCNN_GATE))
+    card_dev = str(torch.device(mx.gpu(0)))
+    for what, devs in devices.items():
+        if devs != {card_dev}:
+            fail("det: %s's %s were on %s, not the card"
+                 % (DET_FRCNN, what, sorted(devs)))
+    return {"det_ssd_mini": ssd, "det_frcnn_mini": frcnn}
+
+
+def det_frcnn_net(dn, ctx, weights=None):
+    from mxtpu_torch.gluon.parameter import load_numpy
+
+    with mx.sym.NameManager():
+        net = dn.FasterRCNN(mx, ctx, dn.VGG16)
+    if weights is not None:
+        load_numpy(net.params, weights)
+    return net
+
+
+def det_proposal_check(dn, net, x, info):
+    """The proposals from the card's RPN outputs, on the card and on the
+    CPU: the top-12,000 order and scores equal, the decoded boxes within
+    DET_BOX_TOL, the NMS mask of the same boxes equal, the picked rois
+    and the pooled features equal.  Returns the readings and the card's
+    feature map and rois."""
+    from mxtpu_torch.ops import rcnn
+
+    spec = dn.VGG16
+    attrs = dn.proposal_attrs(spec)
+    feat, _, score, delta = net.rpn(x)
+    rois = net.proposals(score, delta, info)
+    a = len(dn.RPN_SCALES) * len(dn.RPN_RATIOS)
+    anchors = rcnn._generate_anchors(dn.STRIDE, dn.RPN_SCALES, dn.RPN_RATIOS)
+    got, want = [rcnn.proposal_boxes(
+        score._data[:, a:].to(dev), delta._data.to(dev), info._data.to(dev),
+        anchors, dn.STRIDE, spec["pre_nms"], float(attrs["rpn_min_size"]),
+        False) for dev in (score._data.device, "cpu")]
+    out = {}
+    out["order_equal"] = bool(torch.equal(got[2].cpu(), want[2]))
+    out["scores_equal"] = bool(torch.equal(got[1].cpu(), want[1]))
+    out["box_err"] = float((got[0].cpu() - want[0]).abs().max()
+                           / want[0].abs().max())
+    sup_card = rcnn._greedy_nms_suppressed(got[0], attrs["threshold"])
+    sup_cpu = rcnn._greedy_nms_suppressed(got[0].cpu(), attrs["threshold"])
+    sup_own = rcnn._greedy_nms_suppressed(want[0], attrs["threshold"])
+    out["mask_equal"] = bool(torch.equal(sup_card.cpu(), sup_cpu))
+    out["kept"] = int((~sup_cpu).sum())
+    out["own_mask_flips"] = int((sup_own != sup_cpu).sum())
+    picked, _ = rcnn.proposal_pick(got[0].cpu(), got[1].cpu(), sup_cpu,
+                                   spec["post_nms"])
+    want_rois = picked[0, :spec["rois"]].numpy()
+    out["rois_equal"] = bool(np.array_equal(rois.asnumpy()[:, 1:],
+                                            want_rois))
+    pooled = mx.nd.ROIPooling(feat, rois, pooled_size=(7, 7),
+                              spatial_scale=1.0 / dn.STRIDE)
+    cpu = mx.cpu()
+    pooled_cpu = mx.nd.ROIPooling(feat.as_in_context(cpu),
+                                  rois.as_in_context(cpu),
+                                  pooled_size=(7, 7),
+                                  spatial_scale=1.0 / dn.STRIDE)
+    out["pooled_equal"] = bool(np.array_equal(pooled.asnumpy(),
+                                              pooled_cpu.asnumpy()))
+    return out, feat, rois
+
+
+def det_grad_check(dn, net, x, feat, rois, t):
+    """One step's gradients on the card against the CPU from the same
+    weights, layer by layer from the loss down (the net module's
+    ``staged_grads``): each layer (the loss; a linear part, a ReLU,
+    ROIPooling and a pool apart) is given the card's input and the
+    card's gradient of its output on both devices.  The inputs are
+    shared because a ReLU or a max decides on values that two devices
+    round apart: about one pre-activation in 10^6 lies within float32's
+    rounding of 0, and one flipped ReLU moves a layer's weight gradient
+    by 1e-3 (PERF.md's detection findings).  Returns each parameter's
+    and each layer's input gradient's relative L2, and the loss on each
+    device."""
+    cpu = mx.cpu()
+    weights = {k: p.data().asnumpy() for k, p in net.params.items()}
+    ref = det_frcnn_net(dn, cpu, weights)
+    t_cpu = {k: v.as_in_context(cpu) for k, v in t.items()}
+    errs, losses = dn.staged_grads(
+        mx, [(net, mx.gpu(0), t), (ref, cpu, t_cpu)], x, feat, rois,
+        lambda a, b: op_rel_l2(a.asnumpy(), b.asnumpy()))
+    for k in net.params:
+        errs[k] = op_rel_l2(net.params[k].grad().asnumpy(),
+                            ref.params[k].grad().asnumpy())
+    del ref
+    return errs, losses
+
+
+def det_frcnn_vgg16_row(dn):
+    """Faster R-CNN VGG16 at 600 x 1000 on the card: DET_WARM + DET_STEPS
+    SGD steps through gluon's Trainer (momentum 0.9, wd 5e-4), a profiled
+    step, then the proposal and gradient checks against the CPU."""
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    gpu = mx.gpu(0)
+    spec = dn.VGG16
+    t0 = time.monotonic()
+    net = det_frcnn_net(dn, gpu)
+    x_np, info_np = dn.image(spec)
+    x, info = mx.nd.array(x_np, ctx=gpu), mx.nd.array(info_np, ctx=gpu)
+    t = dn.targets(mx, gpu, spec)
+    trainer = mx.gluon.Trainer(net.params, "sgd", {
+        "learning_rate": dn.LR, "momentum": 0.9, "wd": 5e-4})
+    setup_s = time.monotonic() - t0
+    losses = []
+
+    def step():
+        out = net.step(x, info, t)
+        trainer.step(1)
+        losses.append(out["loss"])
+
+    zero_launches()
+    t0 = time.monotonic()
+    for _ in range(DET_WARM):
+        step()
+    float(losses[-1].asnumpy())
+    first_s = time.monotonic() - t0
+    t1 = time.perf_counter()
+    for _ in range(DET_STEPS):
+        step()
+    float(losses[-1].asnumpy())
+    ms = (time.perf_counter() - t1) / DET_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    spans = device_spans(step)
+    if not spans:
+        fail("det: the profiler saw no device time in a VGG16 step")
+    busy, window, heads = profile_summary(spans, top=8)
+    kinds = sorted(by_kind(spans).items(), key=lambda kv: -kv[1])
+    launches = read_launches()
+    vals = np.array([float(v.asnumpy()) for v in losses])
+    log("[det] %s: det_frcnn_vgg16 (Faster R-CNN, the zoo's VGG16 to "
+        "conv5_3, one 600x1000 image, RPN 512 wide over 9 anchors, "
+        "MultiProposal 12000 -> NMS 0.7 -> 2000, 128 ROIs pooled 7x7, fc6 "
+        "and fc7 4096, 21 classes, SGD lr %g momentum 0.9 wd 5e-4, fp32 "
+        "with TF32 off): %d timed steps after %d warm (%.1f s with the "
+        "set-up's %.1f): %.3f ms a step (host clock, synchronised by "
+        "value); one profiled step: device busy %.3f ms, idle share %.3f, "
+        "%d device operations; peak device memory %.1f MB allocated; by "
+        "kind: %s; most device time: %s"
+        % (card(), dn.LR, DET_STEPS, DET_WARM, first_s, setup_s, ms, busy,
+           1 - busy / window, len(spans), peak / 1e6,
+           "; ".join("%s %.3f ms" % (k, v / 1e3) for k, v in kinds),
+           "; ".join("%s %.3f ms" % (n[:70], v / 1e3) for n, v in heads)))
+    log("[det] det_frcnn_vgg16: losses by step %s"
+        % " ".join("%.4f" % v for v in vals))
+    if not np.isfinite(vals).all():
+        fail("det: a VGG16 loss is not finite: %s" % vals.tolist())
+    if any(launches.values()):
+        fail("det: the VGG16 step launched a flash-attention kernel: %s"
+             % launches)
+    t0 = time.monotonic()
+    prop, feat, rois = det_proposal_check(dn, net, x, info)
+    errs, step_losses = det_grad_check(dn, net, x, feat, rois, t)
+    worst = max(errs, key=errs.get)
+    log("[det] %s: det_frcnn_vgg16 against the CPU (%.1f s): the "
+        "12000 boxes before NMS from the card's RPN: order equal %s, "
+        "scores equal %s, boxes %.3g of the largest (bound %g); the NMS "
+        "mask of the card's boxes on the card and the CPU equal %s (%d "
+        "kept; the CPU's own boxes flip %d); the 128 rois equal %s; the "
+        "pooled 128x512x7x7 equal %s; one step's gradients (loss %.6f on "
+        "the card, %.6f on the CPU), relative L2 (bound %g): worst %.3g in "
+        "%s; %s" % (card(), time.monotonic() - t0, prop["order_equal"],
+                    prop["scores_equal"], prop["box_err"], DET_BOX_TOL,
+                    prop["mask_equal"], prop["kept"],
+                    prop["own_mask_flips"], prop["rois_equal"],
+                    prop["pooled_equal"], step_losses[0], step_losses[1],
+                    DET_GRAD_TOL, errs[worst], worst,
+                    ", ".join("%s %.3g" % kv for kv in errs.items())))
+    for key in ("order_equal", "scores_equal", "mask_equal", "rois_equal",
+                "pooled_equal"):
+        if not prop[key]:
+            fail("det: the VGG16 proposals on the card and the CPU differ: "
+                 "%s is false" % key)
+    if not prop["box_err"] <= DET_BOX_TOL:
+        fail("det: the decoded boxes are %g apart" % prop["box_err"])
+    if not errs[worst] <= DET_GRAD_TOL:
+        fail("det: the VGG16 step's gradient of %s is %g from the CPU's"
+             % (worst, errs[worst]))
+    row = dict(ms=ms, busy_ms=busy, idle=1 - busy / window, ops=len(spans),
+               peak_mb=peak / 1e6, launches=launches,
+               losses=vals.tolist(), proposals=prop, grad_worst=errs[worst],
+               grad_worst_param=worst)
+    del net, trainer, losses, feat, rois
+    free_card()
+    return row
+
+
+def det_time(fn):
+    """Host ms a call of fn with its outputs read back, the best of
+    DET_REPEAT after a warm call."""
+    def run():
+        out = fn()
+        for o in (out if isinstance(out, (list, tuple)) else [out]):
+            o.asnumpy()
+
+    run()
+    best = float("inf")
+    for _ in range(DET_REPEAT):
+        t0 = time.perf_counter()
+        run()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def det_ssd300_heads(dn):
+    """SSD300's priors over its six maps (8732 anchors), MultiBoxTarget
+    at batch 32 and MultiBoxDetection at batch 8 on the card against the
+    CPU.  The detection NMS holds an IoU tile of (batch, 256, 8732), 71.5
+    MB of float32 at batch 8, never the 8732^2 matrix (305 MB an image)."""
+    from mxtpu_torch.ops import vision
+
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    nd = mx.nd
+    zero_launches()
+    anchors = dn.ssd300_anchors(mx, gpu)
+    anchors_cpu = dn.ssd300_anchors(mx, cpu)
+    out = {"anchors": anchors.shape[1],
+           "anchors_equal": bool(np.array_equal(anchors.asnumpy(),
+                                                anchors_cpu.asnumpy()))}
+    if anchors.shape != (1, dn.SSD300_ANCHORS, 4) or \
+            not out["anchors_equal"]:
+        fail("det: SSD300's priors: %s, equal to the CPU's %s"
+             % (anchors.shape, out["anchors_equal"]))
+    labels = dn.ssd_labels(DET_TARGET_BATCH)
+    probs, loc = dn.ssd_predictions(DET_TARGET_BATCH)
+    cls_preds = np.log(probs)
+
+    def target(ctx, a):
+        return nd.contrib.MultiBoxTarget(a, nd.array(labels, ctx=ctx),
+                                         nd.array(cls_preds, ctx=ctx))
+
+    got = [o.asnumpy() for o in target(gpu, anchors)]
+    want = [o.asnumpy() for o in target(cpu, anchors_cpu)]
+    out["target_box_err"] = float(np.abs(got[0] - want[0]).max()
+                                  / max(np.abs(want[0]).max(), 1e-30))
+    out["target_mask_equal"] = bool(np.array_equal(got[1], want[1]))
+    out["target_cls_equal"] = bool(np.array_equal(got[2], want[2]))
+    out["positives"] = int((want[2] > 0).sum())
+    out["target_ms"] = det_time(lambda: target(gpu, anchors))
+    out["target_cpu_ms"] = det_time(lambda: target(cpu, anchors_cpu))
+
+    b = DET_DETECT_BATCH
+    p_t = torch.as_tensor(probs[:b])
+    l_t = torch.as_tensor(loc[:b])
+    kw = dict(clip=True, threshold=0.01, background_id=0)
+    dec_card = vision.detection_boxes(p_t.to(anchors._data.device),
+                                      l_t.to(anchors._data.device),
+                                      anchors._data, **kw)
+    dec_cpu = vision.detection_boxes(p_t, l_t, anchors_cpu._data, **kw)
+    out["decode_cls_equal"] = bool(torch.equal(dec_card[0].cpu(),
+                                               dec_cpu[0]))
+    out["decode_score_equal"] = bool(torch.equal(dec_card[1].cpu(),
+                                                 dec_cpu[1]))
+    out["decode_box_err"] = float((dec_card[2].cpu() - dec_cpu[2]).abs()
+                                  .max())
+    nms_card = vision.detection_nms(*dec_card, nms_threshold=0.45)
+    nms_cpu = vision.detection_nms(*[d.cpu() for d in dec_card],
+                                   nms_threshold=0.45)
+    out["nms_equal"] = bool(torch.equal(nms_card.cpu(), nms_cpu))
+
+    def detect(ctx, a):
+        return nd.contrib.MultiBoxDetection(
+            nd.array(probs[:b], ctx=ctx), nd.array(loc[:b], ctx=ctx), a,
+            nms_threshold=0.45, threshold=0.01)
+
+    dets = detect(gpu, anchors).asnumpy()
+    t0 = time.perf_counter()
+    own = detect(cpu, anchors_cpu).asnumpy()
+    out["detect_cpu_ms"] = (time.perf_counter() - t0) * 1e3
+    out["op_equal_to_parts"] = bool(np.array_equal(dets, nms_card.cpu()
+                                                   .numpy()))
+    out["kept_per_image"] = (dets[:, :, 0] >= 0).sum(1).tolist()
+    out["own_rows_apart"] = int((np.abs(dets - own) > 1e-5).any(2).sum())
+    out["detect_ms"] = det_time(lambda: detect(gpu, anchors))
+    out["prior_ms"] = det_time(lambda: dn.ssd300_anchors(mx, gpu))
+    out["launches"] = read_launches()
+    log("[det] %s: det_ssd300_heads: MultiBoxPrior over the maps %s: %d "
+        "anchors, equal to the CPU's %s, %.3f ms; MultiBoxTarget at batch "
+        "%d (1-8 boxes an image, %d positive anchors): box targets %.3g of "
+        "the largest from the CPU's (bound %g), masks equal %s, classes "
+        "equal %s, %.3f ms on the card and %.3f on the CPU (best of %d); "
+        "MultiBoxDetection at batch %d over %d classes (NMS 0.45, "
+        "threshold 0.01): decoded classes equal %s, scores equal %s, boxes "
+        "%.3g apart, the NMS of the card's boxes equal on the card and the "
+        "CPU %s, the op equal to its parts %s, kept per image %s (the CPU's "
+        "own decoding moves %d rows), %.3f ms on the card (best of %d) "
+        "and %.3f on the CPU (one call; host clock); flash-attention "
+        "launches %s"
+        % (card(), dn.SSD300_MAPS, out["anchors"], out["anchors_equal"],
+           out["prior_ms"], DET_TARGET_BATCH, out["positives"],
+           out["target_box_err"], DET_BOX_TOL, out["target_mask_equal"],
+           out["target_cls_equal"], out["target_ms"], out["target_cpu_ms"],
+           DET_REPEAT, b, dn.CLASSES, out["decode_cls_equal"],
+           out["decode_score_equal"], out["decode_box_err"],
+           out["nms_equal"],
+           out["op_equal_to_parts"], out["kept_per_image"],
+           out["own_rows_apart"], out["detect_ms"], DET_REPEAT,
+           out["detect_cpu_ms"], out["launches"]))
+    for key in ("target_mask_equal", "target_cls_equal", "decode_cls_equal",
+                "decode_score_equal", "nms_equal", "op_equal_to_parts"):
+        if not out[key]:
+            fail("det: SSD300's heads on the card and the CPU differ: %s "
+                 "is false" % key)
+    for key in ("target_box_err", "decode_box_err"):
+        if not out[key] <= DET_BOX_TOL:
+            fail("det: SSD300's %s is %g (bound %g)" % (key, out[key],
+                                                        DET_BOX_TOL))
+    if any(out["launches"].values()):
+        fail("det: SSD300's heads launched a flash-attention kernel")
+    return out
+
+
+def phase_det():
+    """The two detection examples, the Faster R-CNN VGG16 row and SSD300's
+    heads on the card; returns the rows."""
+    t0 = time.monotonic()
+    dn = det_module()
+    zero_launches()
+    rows = det_examples()
+    zero_launches()
+    rows["det_frcnn_vgg16"] = det_frcnn_vgg16_row(dn)
+    zero_launches()
+    rows["det_ssd300_heads"] = det_ssd300_heads(dn)
+    log("[det] %s: flash-attention launches by row %s; the phase took "
+        "%.1f s" % (card(), {k: r["launches"] for k, r in rows.items()},
+                    time.monotonic() - t0))
+    return rows
+
+
 # a process of the --parent comparison: the sparse and lm phases of the
 # checkout in its working directory, their rows printed as JSON
 PARENT_CODE = ("import json, sys; sys.argv = ['chip_smoke.py']; "
@@ -7841,6 +8387,7 @@ def main():
     seq = phase_seq()
     cflow = phase_cflow()
     data = phase_data()
+    det = phase_det()
     sources = {"flash_fwd": ("flash_fwd.cu", 149),
                "flash_bwd_dq": ("flash_bwd.cu", 277),
                "flash_bwd_dkv": ("flash_bwd.cu", 309)}
@@ -7863,7 +8410,7 @@ def main():
                         for row, r in mnist.items()})
         by_path.update({row: r["launches"][name]
                         for rows in (zoo, imagenet, optim, rand, gan, seq,
-                                     cflow, data)
+                                     cflow, data, det)
                         for row, r in rows.items()})
         kernels.append(dict(
             name=name, route="cuda",

@@ -62,7 +62,7 @@ from .symbol.symbol import Symbol, _topo_order
 
 __all__ = ["Executor", "apply_remat"]
 
-_BN_OPS = {"BatchNorm", "BatchNorm_v1"}
+_BN_OPS = {"BatchNorm", "BatchNorm_v1", "_contrib_SyncBatchNorm"}
 
 _aten = torch.ops.aten
 _UNBATCHED = frozenset({_aten.mm.default, _aten.mm.dtype,

@@ -11,17 +11,16 @@
   later loader forks its process workers (a forked child copies the
   locks such a thread holds, and its pool then never answers).
 * Forked processes (``thread_pool=False``): workers batchify to numpy
-  only (``_np_batchify``) and the parent makes the arrays.  A sample
-  that is an NDArray is refused in the worker before anything reaches
-  torch, and the refusal is raised in the parent at once: with CUDA up
-  in the parent, a forked child that touches CUDA fails, so a retry
-  cannot succeed.  A worker's exception crosses back as a tagged tuple
-  with its traceback; the batch is retried once in a fresh worker,
-  then in the parent, and only then raised with the original
-  traceback.  A worker that dies (SIGKILL, a crash) loses its batch
-  silently in ``multiprocessing.Pool``; the loss is seen by the change
-  of the pool's pids (``_WorkerLost``) and the batch resubmitted once
-  to the replenished pool.
+  only (``_np_batchify``) and the parent makes the arrays.  A worker
+  refuses samples that are NDArrays (the device belongs to the parent)
+  with an ordinary worker error.  A worker's exception crosses back as
+  a tagged tuple with its traceback; the batch is retried once in a
+  fresh worker, then made in the parent (where NDArray samples batch
+  as they do inline), and only then raised with the original
+  traceback, as the JAX package does.  A worker that dies (SIGKILL, a
+  crash) loses its batch silently in ``multiprocessing.Pool``; the loss
+  is seen by the change of the pool's pids (``_WorkerLost``) and the
+  batch resubmitted once to the replenished pool.
 * ``state()``/``set_state``: the position (epoch, batches handed out,
   seed); a fresh loader with a seeded sampler re-enters the same batch
   stream without touching the dataset for the skipped batches.
@@ -73,15 +72,11 @@ def default_batchify_fn(data):
     return nd_array(arr)
 
 
-class _NDArraySamples(MXNetError):
-    """A process worker was handed NDArray samples."""
-
-
 def _np_batchify(data):
     """Worker-side batchify: numpy only (a worker never touches torch:
     the device belongs to the parent)."""
     if isinstance(data[0], NDArray):
-        raise _NDArraySamples(
+        raise MXNetError(
             "process workers (thread_pool=False) need datasets that "
             "return numpy or python samples: NDArray samples would pull "
             "the device runtime into the forked worker; use "
@@ -390,8 +385,6 @@ class DataLoader(object):
                                         _pool_pids(pool), attempt + 1)
         if isinstance(out, tuple) and len(out) == 4 and out[0] == _ERR_TAG:
             _, etype, emsg, tb = out
-            if etype == _NDArraySamples.__name__:
-                raise MXNetError(emsg)
             if attempt >= 1:
                 # a fresh worker failed too: the parent makes the batch
                 # under the retry policy; only then the original error

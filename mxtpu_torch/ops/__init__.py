@@ -7,10 +7,12 @@ layers call: the dense corpus of :mod:`.elemwise`, :mod:`.reduce`,
 :mod:`.matrix`, :mod:`.init_ops` and :mod:`.indexing`, the nn ops
 (:mod:`.nn`), the linalg ops (:mod:`.linalg`), the recurrent ``RNN`` op
 (:mod:`.rnn_op`, cuDNN on the card), the random and optimizer-update
-ops the trainers need, the control-flow ops (:mod:`.control_flow`) and
-the image ops of gluon's transforms (:mod:`.image`).
+ops the trainers need, the control-flow ops (:mod:`.control_flow`),
+the image ops of gluon's transforms (:mod:`.image`) and the detection
+ops (:mod:`.contrib`, :mod:`.vision`, :mod:`.rcnn`).
 """
 from . import registry
+from . import contrib
 from . import control_flow
 from . import elemwise
 from . import flash_attention
@@ -22,10 +24,12 @@ from . import matrix
 from . import nn
 from . import optimizer_ops
 from . import random_ops
+from . import rcnn
 from . import reduce
 from . import rnn_op
+from . import vision
 
-__all__ = ["registry", "control_flow", "elemwise", "flash_attention",
-           "image", "indexing",
-           "init_ops", "linalg", "matrix", "nn", "optimizer_ops", "random_ops",
-           "reduce", "rnn_op"]
+__all__ = ["registry", "contrib", "control_flow", "elemwise",
+           "flash_attention", "image", "indexing", "init_ops", "linalg",
+           "matrix", "nn", "optimizer_ops", "random_ops", "rcnn", "reduce",
+           "rnn_op", "vision"]

@@ -21,8 +21,13 @@ they are Python loops over torch calls, which autograd records:
   enabled on an input that wants a gradient, it raises.
 * ``_cond`` reads its predicate on the host once a call and walks the
   branch taken.  Inside a capture and on ``meta`` tensors it walks both
-  branches and selects the outputs and aux values with ``torch.where``,
-  so the branch not taken gets a zero gradient, as in the eager path.
+  branches and selects the outputs and aux values with ``torch.where``.
+  Each branch's inputs pass through ``_Gate``, whose backward selects
+  the gradient of the branch taken and 0 for the other: the branch not
+  taken may have an infinite or NaN derivative (a ``sqrt`` at 0, a
+  ``log`` below 0), and 0 times it would be NaN in the shared inputs'
+  gradients.  So only the branch taken is differentiated, as in the
+  eager path and the JAX package's ``lax.cond``.
 
 Every subgraph step draws its random numbers from the device's
 generator, so a dropout inside a body draws a fresh mask each step (the
@@ -64,6 +69,27 @@ def _no_host_read(t) -> bool:
 
 def _select(pred, a, b):
     return torch.where(pred.reshape(()).bool(), a, b)
+
+
+class _Gate(torch.autograd.Function):
+    """Identity forward; backward passes the gradient where ``taken`` and
+    0 elsewhere, by a select (not a product), so a NaN stops here."""
+
+    @staticmethod
+    def forward(ctx, x, taken):
+        ctx.save_for_backward(taken)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        taken, = ctx.saved_tensors
+        return torch.where(taken, g, torch.zeros((), dtype=g.dtype,
+                                                 device=g.device)), None
+
+
+def _gated(xs, taken):
+    return [_Gate.apply(x, taken) if x.is_floating_point() else x
+            for x in xs]
 
 
 @register("_foreach", needs_rng=True, train_aware=True,
@@ -196,8 +222,9 @@ def _cond(gen, *inputs, then_graph, then_args, else_graph, else_args,
         return list(outs) + list(aux_n)
 
     if _no_host_read(pred):
-        then = run(then_graph, then_args, frees_t)
-        other = run(else_graph, else_args, frees_e)
+        taken = pred.reshape(()).bool()
+        then = run(then_graph, then_args, _gated(frees_t, taken))
+        other = run(else_graph, else_args, _gated(frees_e, ~taken))
         return tuple(_select(pred, a, b) for a, b in zip(then, other))
     if bool(pred.reshape(()) != 0):
         return tuple(run(then_graph, then_args, frees_t))

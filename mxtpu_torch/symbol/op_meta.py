@@ -6,8 +6,11 @@ table carries only what that cannot give: input names (for auto-created
 variables such as ``fc1_weight``), which inputs are auxiliary states
 (BatchNorm's moving stats), and the parameter shapes solved backward
 from the data shape for FullyConnected, Convolution, Deconvolution,
-BatchNorm, LayerNorm, InstanceNorm, LeakyReLU's prelu slope,
-Embedding and RNN (its flat parameter vector and its states), and the
+BatchNorm (and SyncBatchNorm), LayerNorm, InstanceNorm, LeakyReLU's
+prelu slope, Embedding, RNN (its flat parameter vector and its states)
+and the deformable convolution (its weight and bias; the deformable
+PS-ROI pooling's optional ``trans`` is an input only without
+``no_trans``), and the
 free variables of the control-flow ops' subgraphs (solved by the
 subgraph's own partial inference, ``mxtpu_torch/control_flow.py``).  The
 loss heads' labels are plain inputs, not shaped.  Ops not listed take
@@ -138,7 +141,7 @@ def _bn_shapes(shapes, attrs):
     return {1: (c,), 2: (c,), 3: (c,), 4: (c,)}
 
 
-for _bn in ("BatchNorm", "BatchNorm_v1"):
+for _bn in ("BatchNorm", "BatchNorm_v1", "_contrib_SyncBatchNorm"):
     register_meta(_bn, OpMeta(
         ["data", "gamma", "beta", "moving_mean", "moving_var"],
         aux_indices=(3, 4), param_shapes=_bn_shapes))
@@ -233,3 +236,31 @@ def _control_flow_metas():
 
 
 _control_flow_metas()
+
+
+def _dc_inputs(attrs):
+    base = ["data", "offset", "weight"]
+    return base if attrs.get("no_bias", False) else base + ["bias"]
+
+
+def _dc_shapes(shapes, attrs):
+    data = shapes[0]
+    if data is None:
+        return {}
+    nf = int(attrs["num_filter"])
+    g = int(attrs.get("num_group", 1))
+    out = {2: (nf, data[1] // g) + tuple(attrs["kernel"])}
+    if not attrs.get("no_bias", False):
+        out[3] = (nf,)
+    return out
+
+
+register_meta("_contrib_DeformableConvolution",
+              OpMeta(_dc_inputs, param_shapes=_dc_shapes))
+for _prop in ("_contrib_Proposal", "_contrib_MultiProposal"):
+    register_meta(_prop, OpMeta(["cls_prob", "bbox_pred", "im_info"]))
+register_meta("_contrib_PSROIPooling", OpMeta(["data", "rois"]))
+register_meta("_contrib_DeformablePSROIPooling",
+              OpMeta(lambda attrs: ["data", "rois"]
+                     if attrs.get("no_trans", False)
+                     else ["data", "rois", "trans"]))

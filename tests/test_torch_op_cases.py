@@ -744,6 +744,162 @@ case("_contrib_SparseEmbedding",
           grad=(1,)))
 
 
+# ---------------------------------------------------------------------------
+# detection (contrib, vision, rcnn): boxes clustered so that NMS
+# suppresses, pooling bins with tied maxima, ROIs past the image and
+# degenerate, the shared best anchor of MultiBoxTarget
+# ---------------------------------------------------------------------------
+
+
+def boxes_near(n, seed=0, centers=3, span=1.0):
+    """n corner boxes (x1, y1, x2, y2) clustered around a few centres."""
+    rng = np.random.RandomState(seed)
+    c = rng.uniform(0.25, 0.75, (centers, 2))[rng.randint(0, centers, n)]
+    c = c + rng.normal(0, 0.04, (n, 2))
+    wh = rng.uniform(0.15, 0.4, (n, 2))
+    return (np.concatenate([c - wh / 2, c + wh / 2], 1) * span) \
+        .astype(np.float32)
+
+
+def relu_ties(*shape, seed=0):
+    """Halves in [0, 2], about a third of them 0: ties inside a bin."""
+    x = np.round(_a(*shape, lo=-1, hi=2, seed=seed) * 2) / 2
+    return np.maximum(x, 0).astype(np.float32)
+
+
+def nms_rows(b, n, seed=0):
+    """(b, n, 6) rows [class, score, x1, y1, x2, y2], two scores tied."""
+    rng = np.random.RandomState(seed)
+    rows = np.concatenate([rng.randint(0, 2, (b, n, 1)),
+                           rng.uniform(0, 1, (b, n, 1)),
+                           boxes_near(b * n, seed).reshape(b, n, 4)], 2)
+    rows[:, 1, 1] = rows[:, 0, 1]
+    return rows.astype(np.float32)
+
+
+# [batch, x1, y1, x2, y2] in image coordinates (twice the map's): inside,
+# past the image, fractional, negative, degenerate (x2 < x1)
+ROIS = _f([[0, 1, 2, 9, 7], [1, 0, 0, 15, 11], [0, 6.4, 3.5, 7.6, 4.5],
+           [1, -4, -3, 3, 2], [0, 12, 8, 30, 30], [1, 5, 5, 4, 4]])
+FRAC_ROIS = _f([[0, 1.3, 2.2, 9.1, 7.7], [1, 0.4, 0.6, 11.2, 9.3],
+                [0, 6.4, 3.5, 7.6, 4.5], [1, -1.7, -0.9, 3.3, 2.1]])
+case("ROIPooling",
+     Call(relu_ties(2, 3, 6, 8), ROIS, pooled_size=(3, 2),
+          spatial_scale=0.5, grad=(0,)),
+     Call(_a(2, 2, 7, 9, seed=1), ROIS, pooled_size=(2, 2), grad=(0,)))
+case("_contrib_ROIAlign",
+     Call(_a(2, 3, 6, 7), FRAC_ROIS, pooled_size=(1, 2), spatial_scale=0.5),
+     Call(_a(2, 3, 6, 7), FRAC_ROIS, pooled_size=(2, 1), spatial_scale=0.5,
+          sample_ratio=1, aligned=True))
+case("_contrib_box_iou", Call(boxes_near(4), boxes_near(5, seed=1)),
+     Call(_a(3, 4, lo=0.3, hi=1.0), _a(2, 4, lo=0.3, hi=1.0, seed=1),
+          format="center"))
+case("_contrib_box_nms", Call(nms_rows(2, 12)),
+     Call(nms_rows(2, 12, seed=1), overlap_thresh=0.3, id_index=0,
+          valid_thresh=0.2),
+     Call(nms_rows(1, 10, seed=2), id_index=0, force_suppress=True,
+          in_format="center"))
+case("_contrib_bipartite_matching",
+     Call(_a(2, 4, 5, seed=3), threshold=0.1, exact=True),
+     Call(_a(5, 3, seed=4), is_ascend=True, threshold=0.2, topk=2,
+          exact=True))
+case("_contrib_MultiBoxPrior",
+     Call(_a(1, 2, 3, 4), sizes=(0.3, 0.5), ratios=(1.0, 2.0, 0.5),
+          exact=True),
+     Call(_a(2, 1, 3, 2), sizes=(0.6,), ratios=(1.0, 3.0), clip=True,
+          steps=(0.25, 0.2), offsets=(0.3, 0.6), exact=True))
+case("_contrib_SyncBatchNorm",
+     Call(_a(4, 3, 2, 2, lo=-2, hi=3), _a(3, lo=0.5, hi=1.5), _a(3, seed=1),
+          np.zeros(3, np.float32), np.ones(3, np.float32), fix_gamma=False,
+          grad=(0, 1, 2)))
+case("_contrib_arange_like", Call(_a(2, 3), exact=True),
+     Call(_a(2, 5), start=1.0, step=0.5, repeat=2, exact=True),
+     Call(_a(3, 4), axis=1, step=2.0, exact=True))
+
+case("GridGenerator",
+     Call(_a(2, 6), transform_type="affine", target_shape=(3, 4)),
+     Call(_a(2, 2, 3, 4, lo=-2, hi=2), transform_type="warp"))
+# taps past the image, and a grid on whole pixels ((g + 1) * 2 an integer
+# on a 5 x 5 map), where a tap's weight is 0 or 1
+ON_PIXELS = np.random.RandomState(6).choice(
+    [-1.0, -0.5, 0.0, 0.5, 1.0], (2, 2, 3, 4)).astype(np.float32)
+case("BilinearSampler",
+     Call(_a(2, 3, 4, 5), _a(2, 2, 3, 4, lo=-1.3, hi=1.3, seed=1)),
+     Call(_a(2, 3, 5, 5), ON_PIXELS))
+case("SpatialTransformer",
+     Call(_a(2, 3, 5, 6), (_f([1, 0, 0, 0, 1, 0]) + _a(2, 6, lo=-0.3,
+                                                        hi=0.3, seed=1)),
+          target_shape=(4, 5)))
+# an even kernel: XLA's SAME pads (k - 1) // 2 before and k // 2 after
+case("Correlation",
+     Call(_a(1, 3, 6, 7), _a(1, 3, 6, 7, seed=1), max_displacement=2),
+     Call(_a(1, 2, 7, 7), _a(1, 2, 7, 7, seed=1), kernel_size=3,
+          max_displacement=2, stride1=2, stride2=2, pad_size=2),
+     Call(_a(2, 2, 5, 6), _a(2, 2, 5, 6, seed=1), kernel_size=2,
+          max_displacement=1, pad_size=1, is_multiply=False))
+
+ANCHORS = boxes_near(24, seed=5)[None]
+# image 0: gt 1 is anchor 3 itself and gt 0 nearly so: both claim anchor 3
+# (the later box keeps it); image 1: a valid box whose best anchor is 0,
+# then two pads, whose columns of -1 point at anchor 0 too (their later
+# writes unclaim it)
+MB_LABELS = np.full((2, 3, 5), -1.0, np.float32)
+MB_LABELS[0, 0] = [1] + list(ANCHORS[0, 3] + 0.01)
+MB_LABELS[0, 1] = [0] + list(ANCHORS[0, 3])
+MB_LABELS[0, 2] = [1] + list(boxes_near(1, seed=9)[0])
+MB_LABELS[1, 0] = [0] + list(ANCHORS[0, 0] + 0.01)   # IoU under 0.95
+case("_contrib_MultiBoxTarget",
+     Call(ANCHORS, MB_LABELS, _a(2, 3, 24, seed=2)),
+     Call(ANCHORS, MB_LABELS, _a(2, 3, 24, seed=2), overlap_threshold=0.3,
+          variances=(0.2, 0.2, 0.5, 0.5)))
+
+
+def class_probs(b, c, n, seed=0):
+    e = np.exp(_a(b, c, n, lo=-2, hi=2, seed=seed))
+    return (e / e.sum(1, keepdims=True)).astype(np.float32)
+
+
+case("_contrib_MultiBoxDetection",
+     Call(class_probs(2, 3, 24), _a(2, 96, lo=-0.5, hi=0.5), ANCHORS),
+     Call(class_probs(2, 3, 24, seed=1), _a(2, 96, lo=-0.5, hi=0.5, seed=1),
+          ANCHORS, force_suppress=True, clip=False, threshold=0.3,
+          nms_threshold=0.3))
+
+# the rois within float32's bound (the decoding's exp rounds apart); the
+# picks, and so the scores, equal
+PROP = dict(rpn_pre_nms_top_n=20, rpn_post_nms_top_n=8, threshold=0.6,
+            rpn_min_size=4, scales=(2.0, 4.0), ratios=(0.5, 1.0),
+            feature_stride=8)
+case("_contrib_Proposal",
+     Call(_a(1, 8, 4, 5, lo=0, hi=1), _a(1, 16, 4, 5, lo=-0.3, hi=0.3),
+          _f([[28, 40, 1.0]]), output_score=True, **PROP),
+     Call(_a(1, 8, 4, 5, lo=0, hi=1, seed=1),
+          _a(1, 16, 4, 5, lo=-3, hi=3, seed=1), _f([[32, 36, 2.0]]),
+          iou_loss=True, **PROP))
+case("_contrib_MultiProposal",
+     Call(_a(2, 8, 4, 5, lo=0, hi=1, seed=2),
+          _a(2, 16, 4, 5, lo=-0.3, hi=0.3, seed=2),
+          _f([[32, 40, 1.0], [20, 28, 1.5]]), output_score=True, **PROP))
+case("_contrib_PSROIPooling",
+     Call(_a(2, 18, 6, 7), ROIS, spatial_scale=0.5, output_dim=2,
+          pooled_size=3, grad=(0,)),
+     Call(_a(2, 8, 5, 5), ROIS, spatial_scale=0.25, output_dim=2,
+          pooled_size=3, group_size=2, grad=(0,)))
+case("_contrib_DeformableConvolution",
+     Call(_a(1, 4, 5, 5), _a(1, 36, 5, 5, lo=-1.5, hi=1.5, seed=1),
+          _a(4, 2, 3, 3, seed=2), _a(4, seed=3), kernel=(3, 3), pad=(1, 1),
+          num_filter=4, num_group=2, num_deformable_group=2),
+     Call(_a(2, 2, 6, 5), _a(2, 8, 2, 2, lo=-2, hi=2, seed=1),
+          _a(3, 2, 2, 2, seed=2), kernel=(2, 2), stride=(2, 2),
+          dilate=(2, 1), num_filter=3, no_bias=True))
+case("_contrib_DeformablePSROIPooling",
+     Call(_a(2, 18, 6, 7), ROIS, _a(6, 4, 3, 3, lo=-1, hi=1, seed=1),
+          spatial_scale=0.5, output_dim=2, group_size=3, pooled_size=3,
+          part_size=3, sample_per_part=2, trans_std=0.1, grad=(0, 2)),
+     Call(_a(2, 18, 6, 7), ROIS, spatial_scale=0.5, output_dim=2,
+          group_size=3, pooled_size=3, sample_per_part=2, no_trans=True,
+          grad=(0,)))
+
 # random draws: finiteness and moments (name -> attrs, mean, std, the
 # parameter arrays of a _sample_ op); a _like op draws in the shape and
 # dtype of its input
