@@ -444,6 +444,35 @@ Phases, each of which fails the run (non-zero exit) on any error:
    decoding and its NMS on the card against the CPU's, the NMS over the
    same decoded boxes equal; its IoU held a tile of (8, 256, 8,732) at a
    time; host ms on the card and the CPU).  No flash kernel may launch.
+22. quant  -- INT8 post-training quantization and the slice's other
+   names.  Row ``quant_resnet50_int8``: ResNet-50 v1
+   (``sym.ZOO["resnet50_v1"]``, He-normal weights from ``QUANT_SEED``)
+   through ``contrib.quantization.quantize_model`` over 10 batches of 32
+   synthetic 224² images, ``naive`` then ``entropy``, the first
+   convolution excluded (MXNet's ``imagenet_gen_qsym.py`` defaults);
+   the int8, fp32 (TF32 off) and bf16 graphs at batch 64: ms a batch,
+   images/s, busy, idle, operations, peak; the int8 GEMMs a forward
+   (``ops.quantization.INT8_LAUNCHES``: one ``torch._int_mm`` per
+   quantized node); every quantized convolution and FC fed the card's
+   own int8 input, its int32 accumulator equal to the float64 plain
+   version (``quant_layer_check``), and the excluded first convolution
+   (K = 147) quantized alike; the softmax against fp32 and the count of
+   quantized nodes printed, not gated.  Row ``quant_convbn_fold``:
+   ``optimize_for("TPU", args, aux)``, every BatchNorm folded, the
+   logits within ``QUANT_FOLD_TOL`` of the unfolded graph's, both timed.
+   Rows ``quant_example`` (``examples/quantization/quantize_model.py``
+   in both calibration modes, its assertion; every executor's arrays on
+   the card) and ``custom_softmax`` (``examples/numpy-ops/
+   custom_softmax.py --epochs 5``, its assertion, ms a batch; a
+   FusedTrainLoop of K = 4 over the same network never captured and
+   within ``CUSTOM_LOOP_TOL`` of 4 per-step steps).  Row
+   ``dgl_sample_pubmed``: a graph of Pubmed's size from a seed (19,717
+   vertices, 44,338 undirected edges both ways, dense (V, V) float32),
+   both neighbor samplers at 1,000 seeds, 2 hops of 10, at most 8,192
+   vertices: ms a call, peak, every hop-h vertex reached from hop h-1,
+   at most 10 new a frontier vertex, the induced subgraph equal to the
+   CPU's, and the sampler fed the card's draws equal to the CPU's.  No
+   flash kernel may launch.
 
 The line before the last is the card's name and power limit, the line
 before that the kernels' JSON record; the last line is
@@ -8278,6 +8307,607 @@ def phase_det():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# quant: INT8 post-training quantization of ResNet-50 v1, the Conv+BN
+# fold, the two examples of the slice, and dgl sampling at Pubmed's size
+# ---------------------------------------------------------------------------
+
+# imagenet_gen_qsym.py's defaults: 10 calibration batches of 32, the
+# first convolution excluded; inference timed at batch 64
+QUANT_CALIB_BATCHES, QUANT_CALIB_BATCH = 10, 32
+QUANT_BATCH, QUANT_SIDE = 64, 224
+QUANT_WARM, QUANT_ITERS = 2, 10
+QUANT_SEED = 0
+# the folded graph's logits against the unfolded graph's (relative L2):
+# each weight is rescaled in float32 (W * gamma / sqrt(var + eps)), one
+# rounding a weight, carried through 53 convolutions
+QUANT_FOLD_TOL = 1e-4
+QUANT_EXAMPLE = "quantization/quantize_model.py"
+CUSTOM_EXAMPLE = "numpy-ops/custom_softmax.py"
+CUSTOM_K = 4
+# the fused loop's weights against the per-step steps' (relative L2):
+# the same ops on the card, step by step
+CUSTOM_LOOP_TOL = 1e-6
+# Planetoid's Pubmed: 19,717 vertices, 44,338 undirected edges (stored
+# both ways in the dense (V, V) edge-id layout: 1.55 GB of float32)
+DGL_V, DGL_EDGES = 19717, 44338
+DGL_SEEDS, DGL_HOPS, DGL_NEIGHBORS, DGL_MAX = 1000, 2, 10, 8192
+DGL_REPEAT = 3
+
+
+def quant_params(symbol, side, seed=QUANT_SEED):
+    """ResNet-50 v1's weights from ``seed`` (He normal, zero biases and
+    betas, unit gammas; moving means 0 and variances 1), on the card."""
+    gpu = mx.gpu(0)
+    arg_shapes, _, aux_shapes = symbol.infer_shape(
+        data0=(1, 3, side, side), softmax_label=(1,))
+    rng = np.random.RandomState(seed)
+    args, aux = {}, {}
+    for name, shape in zip(symbol.list_arguments(), arg_shapes):
+        if name in ("data0", "softmax_label"):
+            continue
+        if name.endswith("weight"):
+            fan_in = int(np.prod(shape[1:]))
+            v = rng.normal(0, np.sqrt(2.0 / fan_in), shape)
+        elif name.endswith("gamma"):
+            v = np.ones(shape)
+        else:
+            v = np.zeros(shape)
+        args[name] = mx.nd.array(v.astype(np.float32), ctx=gpu)
+    for name, shape in zip(symbol.list_auxiliary_states(), aux_shapes):
+        v = np.ones(shape) if name.endswith("var") else np.zeros(shape)
+        aux[name] = mx.nd.array(v.astype(np.float32), ctx=gpu)
+    return args, aux
+
+
+def quant_bind(symbol, args, aux, batch, side):
+    """``symbol`` bound on the card for inference at ``batch``, with the
+    parameters' own shapes and dtypes (int8 tables, (1,) ranges)."""
+    names = set(symbol.list_arguments())
+    shapes = {k: tuple(v.shape) for k, v in args.items() if k in names}
+    shapes["data0"] = (batch, 3, side, side)
+    if "softmax_label" in names:
+        shapes["softmax_label"] = (batch,)
+    exe = symbol.simple_bind(ctx=mx.gpu(0), grad_req="null",
+                             type_dict={k: v.dtype for k, v in args.items()
+                                        if k in names}, **shapes)
+    exe.copy_params_from(args, aux, allow_extra_params=True)
+    return exe
+
+
+def quant_infer_row(tag, exe, x):
+    """ms a batch-``QUANT_BATCH`` forward (host clock, synchronised),
+    images/s, busy, idle share, operations and peak memory of one bound
+    graph."""
+    def fwd():
+        return exe.forward(is_train=False, data0=x)[0]
+
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(QUANT_WARM):
+        fwd()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(QUANT_ITERS):
+        out = fwd()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / QUANT_ITERS
+    spans = device_spans(fwd)
+    busy, window, top = profile_summary(spans, top=5)
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    x_batch = x.shape[0]
+    log("[quant] %s: %s, batch %d: %.3f ms a batch, %.1f images/s; one "
+        "profiled forward: busy %.3f ms in a %.3f ms window (idle share at "
+        "most %.3f), %d device operations, most time %s; peak %.1f MB"
+        % (card(), tag, x_batch, ms, x_batch / ms * 1e3, busy, window,
+           1 - busy / window, len(spans),
+           [(n[:40], round(us, 1)) for n, us in top], peak))
+    return out.asnumpy(), dict(ms=ms, images_per_sec=x_batch / ms * 1e3,
+                               busy_ms=busy, idle=1 - busy / window,
+                               ops=len(spans), peak_mb=peak)
+
+
+QUANT_OPS = ("_contrib_quantized_conv", "_contrib_quantized_fully_connected")
+
+
+def quant_layer_check(qsym, qargs, qaux, x):
+    """Every quantized convolution and FC of ``qsym`` fed the card's own
+    int8 input (and ranges) from one forward: its int32 accumulator
+    against the plain float64 product on the same inputs, which must be
+    equal.  Returns (nodes checked, nodes unequal, largest |difference|)."""
+    from mxtpu_torch.ops import quantization as tq
+
+    qnodes = [n for n in qsym._topo()
+              if not n.is_variable and n.op.name in QUANT_OPS]
+    entries, seen = [], set()
+    for n in qnodes:
+        for e in list(n.inputs) + [(n, 0)]:
+            if not e[0].is_variable and (id(e[0]), e[1]) not in seen:
+                seen.add((id(e[0]), e[1]))
+                entries.append(e)
+    group = mx.sym.Symbol(entries)
+    exe = quant_bind(group, qargs, qaux, x.shape[0], x.shape[2])
+    outs = exe.forward(is_train=False, data0=x)
+    val = {(id(e[0]), e[1]): o._data for e, o in zip(entries, outs)}
+
+    def value(entry):
+        node, idx = entry
+        return exe.arg_dict[node.name]._data if node.is_variable \
+            else val[(id(node), idx)]
+
+    bad, worst = 0, 0
+    for n in qnodes:
+        ins = [value(e) for e in n.inputs]
+        data, weight, bias = ins[0], ins[1], ins[2]
+        ranges = ins[3:7]
+        b_ranges = ins[7:9] if len(ins) >= 9 else [None, None]
+        a = n.attrs
+        if n.op.name == "_contrib_quantized_conv":
+            ns = len(a["kernel"])
+            want = tq.plain_conv(data, weight,
+                                 tq._norm(a.get("stride"), ns, 1),
+                                 tq._norm(a.get("dilate"), ns, 1),
+                                 tq._norm(a.get("pad"), ns, 0),
+                                 int(a.get("num_group", 1)))
+            shape = (1, -1) + (1,) * ns
+        else:
+            flat = data.reshape(data.shape[0], -1) \
+                if a.get("flatten", True) else data
+            want = tq.plain_matmul(flat, weight.t())
+            shape = (1, -1)
+        if not a.get("no_bias", False):
+            want = want + tq._rescaled_bias(
+                bias, *ranges, *b_ranges).reshape(shape)
+        got = val[(id(n), 0)]
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            bad += 1
+            worst = max(worst, int((got.long() - want.long()).abs().max()))
+    del exe, outs, val
+    return len(qnodes), bad, worst
+
+
+def quant_first_conv_check(symbol, args, x):
+    """The excluded first convolution (K = 3 x 7 x 7 = 147) quantized on
+    the card: its int8 route against the plain float64 version."""
+    from mxtpu_torch.ops import quantization as tq
+
+    conv = [n for n in symbol._topo()
+            if not n.is_variable and n.op.name == "Convolution"][0]
+    nd = mx.nd.contrib
+    q, lo, hi = nd.quantize_v2(x)
+    w, wlo, whi = nd.quantize_v2(args[conv.inputs[1][0].name])
+    a = conv.attrs
+    acc = nd.quantized_conv(q, w, w, lo, hi, wlo, whi, kernel=a["kernel"],
+                            stride=a.get("stride", ()), pad=a.get("pad", ()),
+                            num_filter=a["num_filter"], no_bias=True)[0]
+    want = tq.plain_conv(q._data, w._data, tq._norm(a.get("stride"), 2, 1),
+                         (1, 1), tq._norm(a.get("pad"), 2, 0))
+    return conv.name, bool(torch.equal(acc._data, want))
+
+
+def quant_resnet50(symbol, args, aux):
+    """Row quant_resnet50_int8: calibration in both modes, the int8, fp32
+    and bf16 graphs timed at QUANT_BATCH, the layer-by-layer check."""
+    from mxtpu_torch.contrib import quantization as cq
+    from mxtpu_torch.ops import quantization as tq
+
+    gpu = mx.gpu(0)
+    first = [n.name for n in symbol._topo()
+             if not n.is_variable and n.op.name == "Convolution"][0]
+    rng = np.random.RandomState(QUANT_SEED + 1)
+    n_calib = QUANT_CALIB_BATCHES * QUANT_CALIB_BATCH
+    images = rng.rand(n_calib, 3, QUANT_SIDE, QUANT_SIDE).astype(np.float32)
+    calib = mx.io.NDArrayIter({"data0": images}, batch_size=QUANT_CALIB_BATCH,
+                              ctx=gpu)
+    row, graphs = {}, {}
+    for mode in ("naive", "entropy"):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        graphs[mode] = cq.quantize_model(
+            symbol, args, aux, data_names=("data0",),
+            label_names=("softmax_label",), ctx=gpu,
+            excluded_sym_names=(first,), calib_mode=mode, calib_data=calib,
+            num_calib_examples=n_calib)
+        row["calib_%s_s" % mode] = time.monotonic() - t0
+    del images, calib
+    qsym, qargs, qaux = graphs["entropy"]
+    ops = [n.op.name for n in qsym._topo() if not n.is_variable]
+    row["quantized_nodes"] = ops.count("_contrib_quantize_v2")
+    devices = {str(v.ctx) for v in list(qargs.values()) + list(qaux.values())}
+    log("[quant] %s: quantize_model over %d batches of %d at %d² (first "
+        "convolution %s excluded): naive %.1f s, entropy %.1f s; %d "
+        "quantized nodes (%d convolutions, %d FC); parameters on %s"
+        % (card(), QUANT_CALIB_BATCHES, QUANT_CALIB_BATCH, QUANT_SIDE, first,
+           row["calib_naive_s"], row["calib_entropy_s"],
+           row["quantized_nodes"], ops.count(QUANT_OPS[0]),
+           ops.count(QUANT_OPS[1]), sorted(devices)))
+    if devices != {str(torch.device(gpu))} or not row["quantized_nodes"]:
+        fail("quant: the quantized parameters on %s, %d quantized nodes"
+             % (sorted(devices), row["quantized_nodes"]))
+    x = mx.nd.array(np.random.RandomState(QUANT_SEED + 2).rand(
+        QUANT_BATCH, 3, QUANT_SIDE, QUANT_SIDE).astype(np.float32), ctx=gpu)
+    exe = quant_bind(qsym, qargs, qaux, QUANT_BATCH, QUANT_SIDE)
+    before = tq.INT8_LAUNCHES["int8_gemm"]
+    exe.forward(is_train=False, data0=x)
+    torch.cuda.synchronize()
+    row["int8_gemm_a_forward"] = tq.INT8_LAUNCHES["int8_gemm"] - before
+    p8, row["int8"] = quant_infer_row("quant_resnet50_int8 (int8 graph)",
+                                      exe, x)
+    del exe
+    free_card()
+    exe = quant_bind(symbol, args, aux, QUANT_BATCH, QUANT_SIDE)
+    p32, row["fp32"] = quant_infer_row("quant_resnet50_int8 (fp32 graph, "
+                                       "TF32 off)", exe, x)
+    del exe
+    free_card()
+    with mx.amp.scope("bfloat16"):
+        exe = quant_bind(symbol, args, aux, QUANT_BATCH, QUANT_SIDE)
+    _, row["bf16"] = quant_infer_row("quant_resnet50_int8 (bf16 graph)",
+                                     exe, x)
+    del exe
+    free_card()
+    pn = quant_bind(graphs["naive"][0], graphs["naive"][1],
+                    graphs["naive"][2], QUANT_BATCH, QUANT_SIDE) \
+        .forward(is_train=False, data0=x)[0].asnumpy()
+    for name, p in (("entropy", p8), ("naive", pn)):
+        row["%s_rel_err" % name] = float(np.abs(p - p32).max()
+                                         / np.abs(p32).max())
+        row["%s_top1_agree" % name] = float((p.argmax(1) ==
+                                             p32.argmax(1)).mean())
+    checked, bad, worst = quant_layer_check(qsym, qargs, qaux, x)
+    first_name, first_ok = quant_first_conv_check(symbol, args, x)
+    row.update(layers_checked=checked, layers_unequal=bad,
+               first_conv_exact=first_ok)
+    log("[quant] %s: quant_resnet50_int8: %d int8 products a forward on "
+        "torch._int_mm; softmax against fp32 (not gated): entropy largest "
+        "error %.4g of the largest probability, top-1 agreement %.3f; naive "
+        "%.4g, %.3f; layer by layer, %d quantized convolutions and FCs fed "
+        "the card's int8 inputs: %d int32 accumulators differ from the "
+        "float64 plain version (largest |difference| %d); %s quantized "
+        "(K = 147) exact: %s"
+        % (card(), row["int8_gemm_a_forward"], row["entropy_rel_err"],
+           row["entropy_top1_agree"], row["naive_rel_err"],
+           row["naive_top1_agree"], checked, bad, worst, first_name,
+           first_ok))
+    if bad or not first_ok or not checked:
+        fail("quant: %d of %d int32 accumulators differ from the float64 "
+             "plain version; the first convolution exact: %s"
+             % (bad, checked, first_ok))
+    if row["int8_gemm_a_forward"] != checked:
+        fail("quant: %d int8 products in a forward of %d quantized nodes"
+             % (row["int8_gemm_a_forward"], checked))
+    del graphs, qargs, qaux, x
+    free_card()
+    return row
+
+
+def quant_convbn_fold(symbol, args, aux):
+    """Row quant_convbn_fold: optimize_for("TPU") folds every inference
+    BatchNorm into its convolution; the logits against the unfolded
+    graph's within QUANT_FOLD_TOL; both timed."""
+    fc = [n.name for n in symbol._topo()
+          if not n.is_variable and n.op.name == "FullyConnected"][-1]
+    t0 = time.monotonic()
+    fsym, fargs, faux = symbol.optimize_for("TPU", args=dict(args),
+                                            aux=dict(aux))
+    fold_s = time.monotonic() - t0
+    bns = [sum(n.op.name == "BatchNorm" for n in s._topo()
+               if not n.is_variable) for s in (symbol, fsym)]
+    x = mx.nd.array(np.random.RandomState(QUANT_SEED + 3).rand(
+        QUANT_BATCH, 3, QUANT_SIDE, QUANT_SIDE).astype(np.float32),
+        ctx=mx.gpu(0))
+    row = dict(fold_s=fold_s, bn_before=bns[0], bn_after=bns[1])
+    logits = []
+    for tag, s, a, b in (("unfolded", symbol, args, aux),
+                         ("folded", fsym, fargs, faux)):
+        exe = quant_bind(s, a, b, QUANT_BATCH, QUANT_SIDE)
+        _, row[tag] = quant_infer_row("quant_convbn_fold (%s, fp32)" % tag,
+                                      exe, x)
+        head = quant_bind(s.get_internals()[fc + "_output"], a, b,
+                          QUANT_BATCH, QUANT_SIDE)
+        logits.append(head.forward(is_train=False, data0=x)[0].asnumpy()
+                      .astype(np.float64))
+        del exe, head
+        free_card()
+    row["rel_l2"] = float(np.linalg.norm(logits[1] - logits[0])
+                          / np.linalg.norm(logits[0]))
+    log("[quant] %s: quant_convbn_fold: %d BatchNorms folded in %.2f s (%d "
+        "left); the logits' relative L2 against the unfolded graph %.3g "
+        "(bound %g); %.3f ms a batch against %.3f"
+        % (card(), bns[0] - bns[1], fold_s, bns[1], row["rel_l2"],
+           QUANT_FOLD_TOL, row["folded"]["ms"], row["unfolded"]["ms"]))
+    if bns[1] or not row["rel_l2"] <= QUANT_FOLD_TOL:
+        fail("quant: the fold left %d BatchNorms; logits %.3g from the "
+             "unfolded graph's" % (bns[1], row["rel_l2"]))
+    return row
+
+
+def quant_examples():
+    """Rows quant_example (examples/quantization/quantize_model.py in
+    both calibration modes, every executor's arrays on the card) and
+    custom_softmax (examples/numpy-ops/custom_softmax.py, ms a batch)."""
+    devices = set()
+    bind = mx.sym.Symbol.simple_bind
+
+    def bind_spy(self, *a, **kw):
+        exe = bind(self, *a, **kw)
+        devices.update(str(v.ctx) for v in exe.arg_arrays + exe.aux_arrays)
+        return exe
+
+    rows = {"quant_example": {}}
+    mx.sym.Symbol.simple_bind = bind_spy
+    try:
+        for mode in ("naive", "entropy"):
+            zero_launches()
+            out, lines, secs = example_run(QUANT_EXAMPLE,
+                                           ["--calib-mode", mode], "quant")
+            agree = [float(ln.rsplit(":", 1)[1]) for ln in lines
+                     if "top-1 agreement" in ln]
+            rows["quant_example"][mode] = dict(seconds=secs, agreement=agree,
+                                               launches=read_launches())
+    finally:
+        mx.sym.Symbol.simple_bind = bind
+    rows["quant_example"]["devices"] = sorted(devices)
+    rows["quant_example"]["launches"] = {
+        k: sum(r["launches"][k] for m, r in rows["quant_example"].items()
+               if m in ("naive", "entropy")) for k in KERNELS}
+    log("[quant] %s: quant_example (%s, 3 epochs): naive %.1f s, agreement "
+        "%s; entropy %.1f s, agreement %s; executors' arrays on %s"
+        % (card(), QUANT_EXAMPLE, rows["quant_example"]["naive"]["seconds"],
+           rows["quant_example"]["naive"]["agreement"],
+           rows["quant_example"]["entropy"]["seconds"],
+           rows["quant_example"]["entropy"]["agreement"], sorted(devices)))
+    if devices != {str(torch.device(mx.gpu(0)))}:
+        fail("quant: %s's executors held arrays on %s"
+             % (QUANT_EXAMPLE, sorted(devices)))
+    zero_launches()
+    out, lines, secs = example_run(CUSTOM_EXAMPLE, ["--epochs", "5"],
+                                   "quant")
+    costs = [float(ln.rsplit("=", 1)[1]) for ln in lines
+             if "Time cost=" in ln]
+    batches = 1024 // 64
+    rows["custom_softmax"] = dict(
+        seconds=secs, epoch_s=costs,
+        ms_a_batch=min(costs) / batches * 1e3 if costs else None,
+        launches=read_launches())
+    log("[quant] %s: custom_softmax (%s, 5 epochs): %.1f s; ms a batch "
+        "%.3f (the fastest epoch's time over its %d batches); epochs %s"
+        % (card(), CUSTOM_EXAMPLE, secs,
+           rows["custom_softmax"]["ms_a_batch"] or float("nan"), batches,
+           ["%.3f" % c for c in costs]))
+    if not costs:
+        fail("quant: %s printed no epoch" % CUSTOM_EXAMPLE)
+    return rows
+
+
+def custom_loop_check():
+    """A FusedTrainLoop (K = CUSTOM_K) over the custom softmax's network
+    on the card against K per-step steps from the same state: never
+    captured, the weights within CUSTOM_LOOP_TOL."""
+    example_module(CUSTOM_EXAMPLE, "quant")  # registers custom_softmax
+    gpu = mx.gpu(0)
+    s = mx.sym
+    h = s.FullyConnected(s.Variable("data"), num_hidden=64, name="fc1")
+    h = s.FullyConnected(s.Activation(h, act_type="relu"), num_hidden=10,
+                         name="fc2")
+    net = s.Custom(h, s.Variable("softmax_label"), op_type="custom_softmax",
+                   name="softmax")
+    rng = np.random.RandomState(QUANT_SEED)
+    init = {"fc1_weight": rng.normal(0, 0.1, (64, 64)),
+            "fc1_bias": np.zeros(64), "fc2_weight": rng.normal(0, 0.1,
+                                                             (10, 64)),
+            "fc2_bias": np.zeros(10)}
+    batches = [mx.io.DataBatch(
+        [mx.nd.array(rng.rand(64, 64).astype(np.float32), ctx=gpu)],
+        [mx.nd.array(rng.randint(0, 10, 64).astype(np.float32), ctx=gpu)])
+        for _ in range(CUSTOM_K)]
+    weights = []
+    for fused in (False, True):
+        mod = mx.mod.Module(net, context=gpu, label_names=("softmax_label",))
+        mod.bind(data_shapes=[("data", (64, 64))],
+                 label_shapes=[("softmax_label", (64,))])
+        mod.init_params(arg_params={k: mx.nd.array(v.astype(np.float32),
+                                                   ctx=gpu)
+                                    for k, v in init.items()})
+        mod.init_optimizer(optimizer="sgd", kvstore=None,
+                           optimizer_params={"learning_rate": 0.1})
+        if fused:
+            loop = mx.FusedTrainLoop(mod, steps_per_program=CUSTOM_K)
+            loop.run(batches)
+            torch.cuda.synchronize()
+        else:
+            for b in batches:
+                mod.forward(b, is_train=True)
+                mod.backward()
+                mod.update()
+        args, _ = mod.get_params()
+        weights.append(np.concatenate([args[k].asnumpy().ravel()
+                                       for k in sorted(init)]))
+    rel = float(np.linalg.norm(weights[1] - weights[0])
+                / np.linalg.norm(weights[0]))
+    moved = float(np.linalg.norm(weights[0] - np.concatenate(
+        [init[k].ravel() for k in sorted(init)])))
+    log("[quant] %s: custom_softmax: FusedTrainLoop K=%d over the Custom "
+        "graph: captured %s (capturable %s); weights against %d per-step "
+        "steps: relative L2 %.3g (bound %g), bitwise %s; the steps moved "
+        "them by %.4f" % (card(), CUSTOM_K, loop.captures, loop.capturable,
+                          CUSTOM_K, rel, CUSTOM_LOOP_TOL,
+                          bool(np.array_equal(weights[0], weights[1])),
+                          moved))
+    if loop.capturable or loop.captures or not rel <= CUSTOM_LOOP_TOL \
+            or not moved > 0:
+        fail("quant: the FusedTrainLoop over a Custom graph: captures %d, "
+             "weights %.3g from the per-step steps'" % (loop.captures, rel))
+    return dict(loop_rel_l2=rel, captures=loop.captures)
+
+
+def dgl_graph(seed=QUANT_SEED):
+    """A Pubmed-sized graph from ``seed``: DGL_EDGES distinct undirected
+    edges without self-loops, each stored both ways, as (src, dst) with
+    edge ids 0..2E-1 in that order."""
+    rng = np.random.RandomState(seed)
+    pairs = set()
+    while len(pairs) < DGL_EDGES:
+        u = rng.randint(0, DGL_V, 2 * DGL_EDGES)
+        v = rng.randint(0, DGL_V, 2 * DGL_EDGES)
+        for a, b in zip(u, v):
+            if a != b and len(pairs) < DGL_EDGES:
+                pairs.add((min(a, b), max(a, b)))
+    e = np.asarray(sorted(pairs), np.int64)
+    return np.concatenate([e[:, 0], e[:, 1]]), np.concatenate([e[:, 1],
+                                                               e[:, 0]])
+
+
+def dgl_time(fn):
+    """Host ms a call of fn, synchronised (its outputs stay on the card),
+    the best of DGL_REPEAT after a warm call."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(DGL_REPEAT):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def dgl_sample_pubmed():
+    """Row dgl_sample_pubmed: both neighbor samplers on the card at
+    Pubmed's size, their contracts, the induced subgraph against the
+    CPU's, and the sampler fed the card's draws against the CPU's."""
+    from mxtpu_torch.ops import dgl as tdgl
+
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    free_card()
+    src, dst = dgl_graph()
+    g = torch.zeros((DGL_V, DGL_V), dtype=torch.float32, device=gpu)
+    g[torch.as_tensor(src, device=gpu), torch.as_tensor(dst, device=gpu)] = \
+        torch.arange(1, len(src) + 1, dtype=torch.float32, device=gpu)
+    rng = np.random.RandomState(QUANT_SEED + 4)
+    prob = rng.uniform(0.1, 1.0, DGL_V).astype(np.float32)
+    seeds = rng.choice(DGL_V, DGL_SEEDS, replace=False).astype(np.int64)
+    G, S = mx.nd.NDArray(g), mx.nd.array(seeds, ctx=gpu, dtype=np.int64)
+    P = mx.nd.array(prob, ctx=gpu)
+    attrs = dict(num_hops=DGL_HOPS, num_neighbor=DGL_NEIGHBORS,
+                 max_num_vertices=DGL_MAX)
+    nd = mx.nd.contrib
+    row = {}
+    g_host = g.cpu().numpy()
+    for name, fn, extra in (
+            ("uniform", nd.dgl_csr_neighbor_uniform_sample, []),
+            ("non_uniform", nd.dgl_csr_neighbor_non_uniform_sample, [P])):
+        torch.cuda.reset_peak_memory_stats()
+        mx.random.seed(QUANT_SEED)
+        out = fn(G, *extra, S, **attrs)
+        res = [o.asnumpy() for o in out]
+        ms = dgl_time(lambda: fn(G, *extra, S, **attrs))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        verts, lay = res[0], res[2]
+        valid = verts >= 0
+        counts = [int((lay[valid] == h).sum()) for h in range(DGL_HOPS + 1)]
+        bad = []
+        if sorted(verts[valid][lay[valid] == 0]) != sorted(seeds):
+            bad.append("layer 0 is not the seeds")
+        for h in range(1, DGL_HOPS + 1):
+            prev = verts[valid & (lay == h - 1)]
+            cur = verts[valid & (lay == h)]
+            if len(cur) > DGL_NEIGHBORS * len(prev):
+                bad.append("hop %d added %d from %d" % (h, len(cur),
+                                                        len(prev)))
+            reach = (g_host[np.ix_(prev, cur)] != 0).any(0)
+            if not reach.all():
+                bad.append("%d vertices of hop %d without an edge from hop "
+                           "%d" % (int((~reach).sum()), h, h - 1))
+        if extra and not np.array_equal(
+                res[3], np.where(valid, prob[np.clip(verts, 0, None)], 0)):
+            bad.append("the weights are not the vertices' probabilities")
+        sub_card = nd.dgl_subgraph(G, out[0], num_args=2,
+                                   return_mapping=True)
+        sub_cpu = nd.dgl_subgraph(mx.nd.array(g_host, ctx=cpu),
+                                  mx.nd.array(verts, ctx=cpu,
+                                              dtype=np.int64),
+                                  num_args=2, return_mapping=True)
+        sub_equal = all(np.array_equal(a.asnumpy(), b.asnumpy())
+                        for a, b in zip(sub_card, sub_cpu))
+        # the sampler's subgraph holds the parent's edge ids: the mapping
+        if not sub_equal or not np.array_equal(sub_card[1].asnumpy(),
+                                               res[1]):
+            bad.append("the induced subgraph differs from the CPU's")
+        row[name] = dict(ms=ms, peak_gb=peak, sampled=int(valid.sum()),
+                         by_hop=counts, subgraph_equal=sub_equal)
+        log("[quant] %s: dgl_sample_pubmed %s (V %d, %d edges both ways, "
+            "%d seeds, %d hops x %d, max %d): %.2f ms a call (best of %d), "
+            "peak %.2f GB; %d vertices by hop %s; induced subgraph equal to "
+            "the CPU's: %s" % (card(), name, DGL_V, len(src), DGL_SEEDS,
+                               DGL_HOPS, DGL_NEIGHBORS, DGL_MAX, ms,
+                               DGL_REPEAT, peak, int(valid.sum()), counts,
+                               sub_equal))
+        if bad:
+            fail("quant: dgl_sample_pubmed %s: %s" % (name, bad))
+        del out, sub_card, sub_cpu
+    gen = mx.random.generator(gpu)
+    draws = tdgl.sample_draws(gen, DGL_HOPS, DGL_V, g.device)
+    st = torch.as_tensor(seeds, device=g.device)
+    pt = torch.as_tensor(prob, device=g.device)
+    card_out = tdgl.neighbor_sample(g, st, pt, draws, DGL_NEIGHBORS, DGL_MAX)
+    card_out = [o.cpu() for o in card_out]
+    draws = [d.cpu() for d in draws]
+    del g
+    free_card()
+    t0 = time.monotonic()
+    cpu_out = tdgl.neighbor_sample(torch.from_numpy(g_host), st.cpu(),
+                                   pt.cpu(), draws, DGL_NEIGHBORS, DGL_MAX)
+    row["cpu_sampler_s"] = time.monotonic() - t0
+    row["sampler_equal"] = all(torch.equal(a, b)
+                               for a, b in zip(card_out, cpu_out))
+    log("[quant] %s: dgl_sample_pubmed: the weighted sampler fed the card's "
+        "draws, on the card and on the CPU (%.1f s): vertices, subgraph and "
+        "layers equal: %s" % (card(), row["cpu_sampler_s"],
+                              row["sampler_equal"]))
+    if not row["sampler_equal"]:
+        fail("quant: the sampler on the card differs from the CPU's on the "
+             "same draws")
+    del draws, card_out, cpu_out, g_host
+    free_card()
+    return row
+
+
+def phase_quant():
+    """The INT8 ResNet-50 v1, the Conv+BN fold, the two examples of the
+    slice, a FusedTrainLoop over a Custom graph and dgl sampling at
+    Pubmed's size, on the card; returns the rows."""
+    t0 = time.monotonic()
+    free_card()
+    symbol = mx.sym.ZOO["resnet50_v1"]()
+    args, aux = quant_params(symbol, QUANT_SIDE)
+    rows = {}
+    zero_launches()
+    rows["quant_resnet50_int8"] = quant_resnet50(symbol, args, aux)
+    rows["quant_resnet50_int8"]["launches"] = read_launches()
+    zero_launches()
+    rows["quant_convbn_fold"] = quant_convbn_fold(symbol, args, aux)
+    rows["quant_convbn_fold"]["launches"] = read_launches()
+    del args, aux
+    free_card()
+    rows.update(quant_examples())
+    zero_launches()
+    rows["custom_softmax"]["loop"] = custom_loop_check()
+    rows["custom_softmax"]["launches"] = {
+        k: rows["custom_softmax"]["launches"][k] + v
+        for k, v in read_launches().items()}
+    zero_launches()
+    rows["dgl_sample_pubmed"] = dgl_sample_pubmed()
+    rows["dgl_sample_pubmed"]["launches"] = read_launches()
+    for name, r in rows.items():
+        if any(r["launches"].values()):
+            fail("quant: %s launched a flash-attention kernel: %s"
+                 % (name, r["launches"]))
+    log("[quant] %s: flash-attention launches by row %s; the phase took "
+        "%.1f s" % (card(), {k: r["launches"] for k, r in rows.items()},
+                    time.monotonic() - t0))
+    return rows
+
+
 # a process of the --parent comparison: the sparse and lm phases of the
 # checkout in its working directory, their rows printed as JSON
 PARENT_CODE = ("import json, sys; sys.argv = ['chip_smoke.py']; "
@@ -8388,6 +9018,7 @@ def main():
     cflow = phase_cflow()
     data = phase_data()
     det = phase_det()
+    quant = phase_quant()
     sources = {"flash_fwd": ("flash_fwd.cu", 149),
                "flash_bwd_dq": ("flash_bwd.cu", 277),
                "flash_bwd_dkv": ("flash_bwd.cu", 309)}
@@ -8410,7 +9041,7 @@ def main():
                         for row, r in mnist.items()})
         by_path.update({row: r["launches"][name]
                         for rows in (zoo, imagenet, optim, rand, gan, seq,
-                                     cflow, data, det)
+                                     cflow, data, det, quant)
                         for row, r in rows.items()})
         kernels.append(dict(
             name=name, route="cuda",

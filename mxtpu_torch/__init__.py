@@ -53,7 +53,11 @@ Ported so far:
   ``while_loop`` and ``cond`` (``control_flow``, over the ops of
   ``ops.control_flow``); the image ops; and gluon's ``data`` (datasets,
   samplers, the DataLoader, the vision datasets and transforms) and
-  ``contrib``.
+  ``contrib``;
+* the detection ops; INT8 post-training quantization
+  (``contrib.quantization``, on the ``subgraph`` framework, with its
+  Conv+BN fold backend ``"TPU"``), the dgl graph ops, and the user's
+  Python ops (``operator``, ``nd.Custom``/``sym.Custom``).
 
 Importing the package starts no parameter-server role, whatever
 ``MXTPU_ROLE`` says: a launched server or scheduler runs
@@ -85,6 +89,8 @@ for _ns in (ndarray.contrib, symbol.contrib):
 del _ns
 from . import executor
 from .executor import Executor
+from . import subgraph
+from . import operator
 from . import initializer
 from . import initializer as init
 from . import optimizer
@@ -103,13 +109,15 @@ from . import gluon
 from . import rnn
 from . import parallel
 from . import serve
+from . import contrib
 from .fused_train import FusedTrainLoop
 
 __all__ = ["base", "context", "cpu", "gpu", "num_gpus", "current_context",
            "ops",
            "amp", "autograd", "random", "seed", "ndarray", "nd", "NDArray",
            "symbol", "sym", "Symbol", "AttrScope", "name", "control_flow",
-           "executor", "Executor", "CachedOp", "initializer", "init",
+           "executor", "Executor", "subgraph", "operator", "contrib",
+           "CachedOp", "initializer", "init",
            "optimizer", "lr_scheduler",
            "model", "io", "kvstore", "kv", "metric", "callback",
            "module", "mod",

@@ -28,6 +28,11 @@ graph of one whole step, captured once and replayed K times a call:
   every call;
 * with random ops, the port's generator is registered with the graph,
   so each replay draws fresh numbers.
+* a graph that holds an op running Python on the host at each call
+  (``Custom``, ``ops.custom_op.HOST_OPS``, inside a ``_subgraph_exec``
+  or a control-flow subgraph too) is never captured: a CUDA graph
+  cannot call Python.  Its K steps run one by one on the card, with the
+  same semantics (``capturable`` is False).
 * the graph keeps the kernels chosen at capture: each float32
   convolution and product turns TF32 off before it runs
   (``ops.registry.float32_numerics``), in the warm-up steps and in the
@@ -62,7 +67,9 @@ import torch
 from . import random as _rnd
 from .base import MXNetError, getenv_int
 from .ndarray.ndarray import NDArray
+from .ops.custom_op import HOST_OPS
 from .optimizer.optimizer import lr_groups
+from .symbol.symbol import Symbol
 
 __all__ = ["FusedTrainLoop"]
 
@@ -73,6 +80,25 @@ _WARMUP_STEPS = 2
 # each stream it has run a product on, so a stream from torch's pool
 # per capture would hold one more each time, up to the pool's size
 _WARMUP_STREAMS = {}
+
+
+def _runs_host_ops(symbol) -> bool:
+    """Whether ``symbol`` holds an op of ``HOST_OPS``, looking inside
+    packed subgraphs and control-flow subgraphs."""
+    for node in symbol._topo():
+        if node.is_variable:
+            continue
+        if node.op.name in HOST_OPS:
+            return True
+        if node.op.name == "_subgraph_exec":
+            from .subgraph import _parse_subgraph
+
+            if _runs_host_ops(_parse_subgraph(node.attrs["subgraph_json"])):
+                return True
+        if any(isinstance(v, Symbol) and _runs_host_ops(v)
+               for v in node.attrs.values()):
+            return True
+    return False
 
 
 class FusedTrainLoop(object):
@@ -137,6 +163,9 @@ class FusedTrainLoop(object):
         self._bind_optimizer()
         self._lr_row = torch.zeros(len(self._diff_idx), dtype=torch.float32,
                                    device=ex._ctx)
+        #: False where the graph runs Python on the host (``Custom``):
+        #: the steps then run one by one, never captured
+        self.capturable = not _runs_host_ops(ex._symbol)
         self._graph = None
         self._graph_key = None
         self._static_outs: List[torch.Tensor] = []
@@ -296,8 +325,8 @@ class FusedTrainLoop(object):
         rows = self._scan_step.host_sched(K)
         groups = lr_groups(rows)
         lr_rows = torch.from_numpy(rows).to(ex._ctx)
-        on_card = ex._ctx.type == "cuda"
-        if on_card:
+        graphed = ex._ctx.type == "cuda" and self.capturable
+        if graphed:
             self._lr_row.copy_(lr_rows[0])
             self._ensure_graph(groups)
         collected = None
@@ -306,7 +335,7 @@ class FusedTrainLoop(object):
                 for slot, stack in zip(slots, stacks):
                     slot.copy_(stack[k])
                 self._lr_row.copy_(lr_rows[k])
-                if on_card:
+                if graphed:
                     self._graph.replay()
                     outs = self._static_outs
                 else:

@@ -11,8 +11,8 @@ hybridized or not, reaches it; everything that writes a Parameter
 so the leaf stays the one ``backward`` finds.  With
 ``grad_stype="row_sparse"`` the gradient is a ``RowSparseNDArray``
 (``nn.Embedding(sparse_grad=True)``), which the Trainer's optimizer
-updates lazily; the weight itself stays dense (``stype="row_sparse"``
-weights are not ported, ROADMAP A14).
+updates lazily.  ``stype`` is stored as given, and the weight itself
+stays dense whatever it says, as in the JAX package.
 
 :func:`load_numpy` copies ``{name: numpy array}`` into a block's
 parameters by name: the bridge from the JAX package's weights, whose
@@ -51,11 +51,9 @@ class Parameter(object):
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
-        if stype != "default":
-            raise MXNetError("row_sparse weights (stype=%r) are not ported "
-                             "(ROADMAP A14)" % stype)
         if grad_stype not in ("default", "row_sparse"):
             raise MXNetError("unknown grad_stype %r" % grad_stype)
+        self._stype = stype
         self._grad_stype = grad_stype
         self._var = None
         self._data: Optional[List[NDArray]] = None

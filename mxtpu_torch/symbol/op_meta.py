@@ -14,7 +14,14 @@ PS-ROI pooling's optional ``trans`` is an input only without
 free variables of the control-flow ops' subgraphs (solved by the
 subgraph's own partial inference, ``mxtpu_torch/control_flow.py``).  The
 loss heads' labels are plain inputs, not shaped.  Ops not listed take
-their input names from their function's signature.
+their input names from their function's signature.  ``forward`` gives
+the output shapes and dtypes of ops that cannot run on ``meta``
+tensors: ``Custom`` (its prop's ``infer_shape``/``infer_type``) and
+``_subgraph_exec`` (its subgraph's own inference, which reaches a
+``Custom`` inside it).  The quantized ops need no entry: their
+signatures give the JAX package's input names (``min_bias`` and
+``max_bias`` are optional, fed only by the quantization pass), and
+meta tensors their int8, int32 and float32 outputs.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ from ..ops.registry import OpDef
 
 class OpMeta(object):
     def __init__(self, input_names, aux_indices=(), param_shapes=None,
-                 variadic=False):
+                 variadic=False, forward=None):
         # input_names: list[str] | callable(attrs) -> list[str]
         self._input_names = input_names
         self.aux_indices = tuple(aux_indices)
@@ -34,6 +41,9 @@ class OpMeta(object):
         #               -> {input index: shape}
         self.param_shapes = param_shapes
         self.variadic = variadic
+        # forward: callable(in_shapes, in_dtypes, attrs)
+        #          -> (out shapes, out numpy dtypes)
+        self.forward = forward
 
     def input_names(self, attrs) -> List[str]:
         if callable(self._input_names):
@@ -264,3 +274,14 @@ register_meta("_contrib_DeformablePSROIPooling",
               OpMeta(lambda attrs: ["data", "rois"]
                      if attrs.get("no_trans", False)
                      else ["data", "rois", "trans"]))
+
+
+def _custom_metas():
+    from ..ops import custom_op as _co
+
+    register_meta("Custom", OpMeta(
+        lambda attrs: _co._get_prop(attrs).list_arguments(), variadic=True,
+        forward=_co.forward_meta))
+
+
+_custom_metas()

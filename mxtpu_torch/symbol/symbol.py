@@ -14,9 +14,10 @@ Shape inference solves parameter shapes backward from the data shape
 tensors, where the JAX package runs ``jax.eval_shape``; ``infer_type``
 rides on the same walk.  ``AttrScope`` sets attributes on the nodes
 made inside it (``attr``, ``list_attr``, ``attr_dict`` read them).
-The graph passes and subgraph backends (``optimize``,
-``optimize_for``) and ``group2ctx`` placement are not ported: they
-raise and name ROADMAP's A17.
+``optimize_for`` applies a subgraph backend (``mxtpu_torch.subgraph``),
+and ``bind``/``simple_bind`` the one ``MXTPU_SUBGRAPH_BACKEND`` names.
+The graph passes (``optimize``) and ``group2ctx`` placement are not
+ported: they raise and name ROADMAP's A17.
 """
 from __future__ import annotations
 
@@ -458,15 +459,18 @@ class Symbol(object):
         """Bind with arrays made from the shapes in ``kwargs`` on
         ``ctx`` (default: the card)."""
         from ..executor import Executor
+        from ..subgraph import apply_bind_hook
 
-        return Executor._simple_bind(self, ctx, grad_req, type_dict, kwargs)
+        return Executor._simple_bind(apply_bind_hook(self), ctx, grad_req,
+                                     type_dict, kwargs)
 
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
              aux_states=None):
         from ..executor import Executor
+        from ..subgraph import apply_bind_hook
 
-        return Executor._bind(self, ctx, args, args_grad, grad_req,
-                              aux_states)
+        return Executor._bind(apply_bind_hook(self), ctx, args, args_grad,
+                              grad_req, aux_states)
 
     def eval(self, ctx=None, **kwargs):
         """The outputs of one forward with the arrays ``kwargs`` bound
@@ -478,8 +482,19 @@ class Symbol(object):
                          "ported yet (ROADMAP A17)")
 
     def optimize_for(self, backend, args=None, aux=None, **kwargs):
-        raise MXNetError("Symbol.optimize_for: the subgraph backends are "
-                         "not ported yet (ROADMAP A17)")
+        """This graph partitioned by the registered subgraph backend
+        ``backend`` (``mxtpu_torch.subgraph``).  A parameter-free backend
+        returns the Symbol; one that rewrites parameter values (``"TPU"``,
+        the Conv+BN fold) needs ``args``/``aux`` and returns ``(symbol,
+        args, aux)``."""
+        from ..subgraph import partition
+
+        if kwargs:
+            raise TypeError(
+                "optimize_for: unsupported backend options %s (the "
+                "backends take their configuration when registered)"
+                % sorted(kwargs))
+        return partition(self, backend, arg_params=args, aux_params=aux)
 
 def _jsonable(v):
     if isinstance(v, np.dtype):
@@ -598,8 +613,11 @@ def _infer_graph(symbol: Symbol, known_shapes, partial=False,
                              % (missing, node.name))
         in_dtypes = [dtypes.get(key(i, idx), np.dtype(np.float32))
                      for i, idx in node.inputs]
-        for i, (shp, dt) in enumerate(zip(*_eval_node_shape(
-                node, in_shapes, in_dtypes))):
+        if meta.forward is not None:
+            evaluated = meta.forward(in_shapes, in_dtypes, node.attrs)
+        else:
+            evaluated = _eval_node_shape(node, in_shapes, in_dtypes)
+        for i, (shp, dt) in enumerate(zip(*evaluated)):
             shapes[("out", id(node), i)] = shp
             dtypes[("out", id(node), i)] = dt
     return shapes, dtypes

@@ -24,6 +24,9 @@ import pytest
 
 import mxtpu as jmx
 import mxtpu_torch as tmx
+import torch
+
+torch.set_num_threads(1)
 
 A0 = np.arange(24, dtype=np.float32).reshape(4, 6)
 

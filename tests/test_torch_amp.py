@@ -46,6 +46,8 @@ from mxtpu.gluon.model_zoo import vision
 import mxtpu_torch as tmx
 from mxtpu_torch import amp as tamp
 
+torch.set_num_threads(1)
+
 B, HW = 4, 64
 
 

@@ -21,6 +21,9 @@ import pytest
 import mxtpu as jmx
 import mxtpu_torch as tmx
 from mxtpu_torch.base import MXNetError
+import torch
+
+torch.set_num_threads(1)
 
 TOL = 1e-5
 BATCH, LENGTH, WIDTH = 2, 3, 4

@@ -27,6 +27,9 @@ from mxtpu_torch.base import MXNetError
 from mxtpu_torch.cached_op import CachedOp as TCachedOp
 from mxtpu_torch.gluon.model_zoo import vision as tvision
 from test_torch_gluon import _build, _rel, _x
+import torch
+
+torch.set_num_threads(1)
 
 TOL = 1e-5
 F32_TOL = dict(rtol=2e-4, atol=2e-5)

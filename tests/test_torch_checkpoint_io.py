@@ -25,6 +25,8 @@ import mxtpu_torch as tmx
 from mxtpu_torch import context as tcontext
 from mxtpu_torch.base import MXNetError
 
+torch.set_num_threads(1)
+
 
 def _mlp(mx):
     x = mx.sym.Variable("data")

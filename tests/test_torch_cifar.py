@@ -34,6 +34,8 @@ from test_torch_gluon import _rel
 from test_torch_gluon_data import LOADER_THREADS
 from test_torch_gluon_train import _from, _xavier
 
+torch.set_num_threads(1)
+
 BATCH, SEED, PER_FILE = 4, 5, 4
 # (loss, worst parameter, worst moving stat, whole update) for
 # iterations 1 and 2

@@ -20,6 +20,9 @@ import pytest
 import mxtpu as jmx
 import mxtpu_torch as tmx
 from mxtpu_torch.base import MXNetError
+import torch
+
+torch.set_num_threads(1)
 
 RTOL, ATOL = 1e-5, 1e-5
 

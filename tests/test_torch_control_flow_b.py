@@ -20,6 +20,9 @@ from mxtpu_torch.gluon.parameter import load_numpy
 from mxtpu_torch.ops import control_flow as tcf
 from test_torch_control_flow import (_close, _nd, rnn_batches, rnn_module,
                                      rnn_weights)
+import torch
+
+torch.set_num_threads(1)
 
 
 class _ForeachBN(object):

@@ -17,6 +17,9 @@ import pytest
 import mxtpu as jmx
 import mxtpu_torch as tmx
 from test_torch_control_flow_b import _eager_and_masked
+import torch
+
+torch.set_num_threads(1)
 
 X = np.array([0.0, -1.0, 4.0], np.float32)
 

@@ -19,6 +19,8 @@ from mxtpu_torch.ops import registry as treg
 from test_torch_nn_ops import check, port, reference
 from test_torch_op_cases import _a, _f
 
+torch.set_num_threads(1)
+
 INFEASIBLE_TOL = 2e-2
 
 # ---------------------------------------------------------------------------

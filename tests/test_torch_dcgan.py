@@ -21,6 +21,9 @@ from mxtpu_torch.gluon.parameter import load_numpy
 
 import test_torch_dcgan_net as dcgan
 from test_torch_gluon import _rel
+import torch
+
+torch.set_num_threads(1)
 
 TOL = 1e-4
 WIDTH, BATCH, ITERATIONS = 8, 4, 2

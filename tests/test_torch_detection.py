@@ -16,6 +16,9 @@ import pytest
 
 import mxtpu as jmx
 import mxtpu_torch as tmx
+import torch
+
+torch.set_num_threads(1)
 
 NAMES = {
     "nd": ("ROIPooling", "GridGenerator", "BilinearSampler",

@@ -21,6 +21,8 @@ import mxtpu_torch as tmx
 from mxtpu_torch.ops import rcnn as trcnn
 from test_torch_op_cases import ANCHORS, MB_LABELS, boxes_near, nms_rows
 
+torch.set_num_threads(1)
+
 
 def clustered(n, seed):
     """n boxes in pixels, clustered so that IoU chains are common."""

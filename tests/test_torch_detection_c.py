@@ -20,6 +20,8 @@ import mxtpu_torch as tmx
 from mxtpu_torch.ops import rcnn as trcnn
 from test_rcnn_dgl import _proposal_gold
 
+torch.set_num_threads(1)
+
 
 def _prop(mx, name, cls, bbox, info, **kw):
     out = getattr(mx.nd.contrib, name)(

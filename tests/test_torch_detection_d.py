@@ -17,6 +17,9 @@ import mxtpu as jmx
 import mxtpu_torch as tmx
 from mxtpu_torch.gluon.parameter import load_numpy
 import test_torch_detection_net as dn
+import torch
+
+torch.set_num_threads(1)
 
 SPEC = dn.frcnn_spec(layers=(1, 0, 0, 0, 0), filters=(8, 8, 8, 8, 8), rpn=8,
                      fc=16, rois=16, pool=2, pre_nms=300, post_nms=40,

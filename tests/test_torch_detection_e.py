@@ -12,6 +12,9 @@ import numpy as np
 
 import mxtpu_torch as tmx
 import test_torch_detection_net as dn
+import torch
+
+torch.set_num_threads(1)
 
 SPEC = dn.frcnn_spec(layers=(1, 1, 0, 0, 0), filters=(8, 8, 8, 8, 8), rpn=8,
                      fc=16, rois=16, pool=2, pre_nms=300, post_nms=40,

@@ -46,6 +46,8 @@ from test_torch_gluon_train import _from, _mlp, _xavier
 from test_torch_ps import (_within, join_new_threads,  # noqa: F401
                            ps_env)
 
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARAM_TOL = 1e-3
 

@@ -15,6 +15,8 @@ import torch
 
 from test_torch_examples import REPO, final_metric
 
+torch.set_num_threads(1)
+
 
 def _load(port):
     """dec_mini.py as a module of the JAX package or of the port."""

@@ -21,6 +21,8 @@ import mxtpu_torch as tmx
 from mxtpu_torch import sym as tsym
 from mxtpu_torch.base import MXNetError
 
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-4, 1e-5
 B = 4
 FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "nightly",

@@ -21,6 +21,8 @@ from mxtpu.ops import pallas_attention as jfa
 from mxtpu_torch.base import MXNetError
 from mxtpu_torch.ops import flash_attention as tfa
 
+torch.set_num_threads(1)
+
 F32_TOL = dict(rtol=2e-4, atol=2e-5)
 
 

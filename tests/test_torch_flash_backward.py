@@ -22,6 +22,8 @@ from mxtpu.ops import pallas_attention as jfa
 from mxtpu_torch.base import MXNetError
 from mxtpu_torch.ops import flash_attention as tfa
 
+torch.set_num_threads(1)
+
 F32_TOL = dict(rtol=2e-4, atol=2e-5)       # test_pallas_attention's sweeps
 MULTIBLOCK_TOL = dict(rtol=2e-3, atol=2e-4)  # its multiblock gradients
 

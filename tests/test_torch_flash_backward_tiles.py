@@ -36,6 +36,8 @@ import jax.numpy as jnp
 from mxtpu.ops import pallas_attention as jfa
 from mxtpu_torch.ops import flash_attention as tfa
 
+torch.set_num_threads(1)
+
 BR, BC, WG = 128, 64, 64   # rows an item, columns a tile, rows a warpgroup
 LOG2E = np.float32(math.log2(math.e))
 

@@ -27,6 +27,8 @@ import jax.numpy as jnp
 from mxtpu.ops import pallas_attention as jfa
 from mxtpu_torch.ops import flash_attention as tfa
 
+torch.set_num_threads(1)
+
 BQ = BK = 128
 LOG2E = np.float32(math.log2(math.e))
 LN2 = np.float32(math.log(2.0))

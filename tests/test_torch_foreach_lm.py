@@ -15,6 +15,9 @@ import pytest
 import mxtpu as jmx
 import mxtpu_torch as tmx
 import test_torch_foreach_lm_net as lm
+import torch
+
+torch.set_num_threads(1)
 
 VOCAB, WIDTH, LAYERS, BPTT, BATCH = 50, 16, 2, 5, 4
 TOL = 1e-5

@@ -29,6 +29,8 @@ import mxtpu_torch as tmx
 from mxtpu_torch.base import MXNetError
 from mxtpu_torch.optimizer.optimizer import lr_groups
 
+torch.set_num_threads(1)
+
 
 def _ctx(mx):
     return {"ctx": mx.cpu()} if mx is tmx else {}

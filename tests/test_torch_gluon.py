@@ -22,6 +22,9 @@ import mxtpu as jmx
 import mxtpu_torch as tmx
 from mxtpu_torch.base import MXNetError
 from mxtpu_torch.gluon.parameter import load_numpy
+import torch
+
+torch.set_num_threads(1)
 
 TOL = 1e-5
 

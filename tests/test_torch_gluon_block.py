@@ -15,6 +15,9 @@ import mxtpu_torch as tmx
 from mxtpu_torch.base import MXNetError
 from mxtpu_torch.gluon.parameter import load_numpy
 from test_torch_gluon import _build, _seq, _x
+import torch
+
+torch.set_num_threads(1)
 
 
 def test_deferred_initialisation_waits_for_the_first_forward():

@@ -29,6 +29,9 @@ from mxtpu_torch.gluon.parameter import load_numpy
 
 from test_torch_gluon import _rel, _x
 from test_torch_rnn_cell import T, _build, _unroll
+import torch
+
+torch.set_num_threads(1)
 
 TOL = 1e-5
 N = 2

@@ -30,6 +30,8 @@ from mxtpu_torch import context as tcontext
 from mxtpu_torch import telemetry as ttel
 from mxtpu_torch.base import MXNetError
 
+torch.set_num_threads(1)
+
 LOADER_THREADS = ("mxtpu-dataloader", "mxtpu-device-prefetch")
 
 

@@ -15,6 +15,9 @@ import mxtpu as jmx
 import mxtpu_torch as tmx
 from mxtpu_torch.base import MXNetError
 from test_torch_gluon import TOL, _build, _parity, _rel, _x
+import torch
+
+torch.set_num_threads(1)
 
 
 def _label(n, classes, seed=3):

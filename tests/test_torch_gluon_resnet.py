@@ -40,6 +40,9 @@ import mxtpu.ops.nn as jnn
 import mxtpu_torch as tmx
 from test_torch_gluon import _rel
 from test_torch_gluon_train import _from, _train, _xavier
+import torch
+
+torch.set_num_threads(1)
 
 B, HW = 4, 64
 # (loss, parameters, moving stats) bounds on the relative L2 from the

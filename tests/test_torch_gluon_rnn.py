@@ -22,6 +22,9 @@ from mxtpu_torch.base import MXNetError
 from mxtpu_torch.gluon.parameter import load_numpy
 
 from test_torch_gluon import _parity, _rel, _x
+import torch
+
+torch.set_num_threads(1)
 
 LM_TOL = 1e-5
 VOCAB, WIDTH, LAYERS, BPTT, BATCH = 50, 16, 2, 5, 4
@@ -114,7 +117,8 @@ def test_embedding_layer_matches_the_reference(hybridize):
 
 def test_embedding_layer_sparse_grad_raises():
     """A row-sparse gradient cannot accumulate (grad_req="add"), as in
-    the reference; a row-sparse weight (stype) is not ported."""
+    the reference; a row-sparse weight (stype) is stored and kept dense,
+    as in `mxtpu` (test_torch_gluon_stype.py trains one)."""
     layer = tmx.gluon.nn.Embedding(10, 4, sparse_grad=True)
     layer.initialize(ctx=tmx.cpu())
     layer.weight.grad_req = "add"
@@ -123,8 +127,10 @@ def test_embedding_layer_sparse_grad_raises():
         loss = layer(tmx.nd.array([[1.0, 2.0]], ctx=tmx.cpu())).sum()
     with pytest.raises(MXNetError, match="grad_req='add'"):
         loss.backward()
-    with pytest.raises(MXNetError, match="A14"):
-        tmx.gluon.Parameter("w", shape=(10, 4), stype="row_sparse")
+    for M in (jmx, tmx):
+        w = M.gluon.Parameter("w", shape=(10, 4), stype="row_sparse")
+        w.initialize(ctx=M.cpu())
+        assert w._stype == "row_sparse" and w.data().stype == "default"
 
 
 def _word_lm(mx, tied, dropout=0.0):

@@ -14,6 +14,9 @@ import mxtpu as jmx
 import mxtpu_torch as tmx
 from mxtpu_torch.base import MXNetError
 from test_torch_gluon import _build, _rel, _x
+import torch
+
+torch.set_num_threads(1)
 
 def _xavier(make, x, rng):
     """Xavier-uniform weights, zero biases and betas, unit gammas, zero

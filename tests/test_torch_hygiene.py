@@ -10,7 +10,12 @@
 * Importing the port in a process whose `MXTPU_ROLE` is `server`
   starts no role; a distributed store with no scheduler to reach
   raises a typed error within its connect budget, and does not hang.
+* Every port test file that imports torch or the port calls
+  `torch.set_num_threads(1)` at import: small ops on torch's default
+  intra-op threads, beside JAX's pool and other pytest workers, run
+  many times slower.
 """
+import ast
 import os
 import re
 import shutil
@@ -29,6 +34,8 @@ from mxtpu_torch import _ps, context
 from mxtpu_torch.base import MXNetError, PSConnectError
 from mxtpu_torch.parallel import mesh as tmesh
 from mxtpu_torch.parallel import transformer as ttf
+
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _FORBIDDEN = re.compile(
@@ -178,6 +185,69 @@ def test_the_import_check_covers_slice_15():
                 "gluon/contrib/nn/basic_layers", "gluon/contrib/rnn/rnn_cell",
                 "gluon/contrib/rnn/conv_rnn_cell"):
         assert os.path.join("mxtpu_torch", mod + ".py") in names, mod
+
+
+def test_the_import_check_covers_slice_17():
+    names = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for mod in ("ops/quantization", "ops/dgl", "ops/custom_op", "operator",
+                "subgraph", "contrib/__init__", "contrib/quantization"):
+        assert os.path.join("mxtpu_torch", mod + ".py") in names, mod
+
+
+def _imports_torch(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        else:
+            continue
+        if any(m.split(".")[0] in ("torch", "mxtpu_torch") for m in mods):
+            return True
+    return False
+
+
+def _sets_one_thread(tree):
+    """A module-level ``torch.set_num_threads(1)`` statement."""
+    for node in tree.body:
+        call = node.value if isinstance(node, ast.Expr) else None
+        if isinstance(call, ast.Call) \
+                and isinstance(call.func, ast.Attribute) \
+                and call.func.attr == "set_num_threads" \
+                and isinstance(call.func.value, ast.Name) \
+                and call.func.value.id == "torch" \
+                and [getattr(a, "value", None) for a in call.args] == [1]:
+            return True
+    return False
+
+
+def test_every_port_test_file_sets_one_torch_thread():
+    files = sorted(f for f in os.listdir(os.path.join(REPO, "tests"))
+                   if f.startswith("test_torch_") and f.endswith(".py"))
+    assert len(files) > 80
+    bad = []
+    for f in files:
+        with open(os.path.join(REPO, "tests", f)) as fh:
+            tree = ast.parse(fh.read())
+        if _imports_torch(tree) and not _sets_one_thread(tree):
+            bad.append(f)
+    assert not bad, bad
+
+
+def test_the_thread_check_catches_what_it_should():
+    for src, want in (("import torch\n", True),
+                      ("from mxtpu_torch import nd\n", True),
+                      ("def f():\n    import torch\n", True),
+                      ("import numpy\n", False),
+                      ("X = 'import torch'\n", False)):
+        assert _imports_torch(ast.parse(src)) == want, src
+    assert _sets_one_thread(ast.parse("import torch\n"
+                                      "torch.set_num_threads(1)\n"))
+    for src in ("import torch\n",
+                "import torch\ndef f():\n    torch.set_num_threads(1)\n",
+                "import torch\ntorch.set_num_threads(8)\n",
+                'W = """\ntorch.set_num_threads(1)\n"""\n'):
+        assert not _sets_one_thread(ast.parse(src)), src
 
 
 def _names_reached(fn, module, seen=None):

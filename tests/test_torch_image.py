@@ -19,6 +19,9 @@ import pytest
 
 import mxtpu as jmx
 import mxtpu_torch as tmx
+import torch
+
+torch.set_num_threads(1)
 
 
 def _u8(*shape, seed=0):

@@ -44,6 +44,8 @@ import mxtpu_torch as tmx
 from mxtpu_torch import context as tcontext
 from test_torch_example_port import imagenet_helpers, run_train_imagenet
 
+torch.set_num_threads(1)
+
 # the first update's bounds on the relative L2 from the reference (all
 # parameters, the worst parameter, all moving statistics); the later
 # updates' in units of the reference's own spread

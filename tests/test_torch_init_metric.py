@@ -21,6 +21,9 @@ from scipy import stats
 
 import mxtpu as jmx
 import mxtpu_torch as tmx
+import torch
+
+torch.set_num_threads(1)
 
 
 def _filled(mx, init, name, shape):

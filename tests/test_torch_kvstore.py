@@ -17,6 +17,9 @@ import mxtpu as jmx
 import mxtpu_torch as tmx
 from mxtpu_torch.base import MXNetError
 from mxtpu_torch.ndarray import sparse as tsp
+import torch
+
+torch.set_num_threads(1)
 
 CPU = tmx.cpu()
 SHAPE = (4, 4)

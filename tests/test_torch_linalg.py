@@ -28,6 +28,8 @@ from mxtpu_torch.ops import registry as treg
 from test_torch_nn_ops import check
 from test_torch_op_cases import INVERTIBLE, _a, _spd, _tri, error_units
 
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6
 
 CASES = {

@@ -8,6 +8,9 @@ import pytest
 import mxtpu as jmx
 import mxtpu_torch as tmx
 from mxtpu_torch.base import MXNetError
+import torch
+
+torch.set_num_threads(1)
 
 _SCHEDULERS = [
     ("FactorScheduler", dict(step=7, factor=0.5)),

@@ -31,6 +31,8 @@ from mxtpu.io.io import MNISTIter as JMNISTIter
 from mxtpu_torch import context as tcontext
 from mxtpu_torch.io import MNISTIter as TMNISTIter
 
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLE = os.path.join(REPO, "examples", "image-classification",
                        "train_mnist.py")

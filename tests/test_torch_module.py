@@ -30,6 +30,9 @@ from mxtpu import sym as jsym
 from mxtpu.gluon.model_zoo import vision
 import mxtpu_torch as tmx
 from mxtpu_torch.base import MXNetError
+import torch
+
+torch.set_num_threads(1)
 
 B, HW = 4, 64
 OUT_TOL, PARAM_TOL, AUX_TOL = 1e-4, 1e-3, 1e-4

@@ -25,6 +25,8 @@ import mxtpu_torch as tmx
 from mxtpu_torch.base import MXNetError
 from mxtpu_torch.ops import registry as treg
 
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-4, 1e-5
 
 

@@ -29,6 +29,8 @@ from mxtpu.ops import registry as jreg
 from mxtpu_torch.ops import registry as treg
 from test_torch_op_cases import _a, _away, _f, error_units
 
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

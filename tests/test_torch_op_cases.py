@@ -928,7 +928,9 @@ MOMENTS.update({
     "_sample_generalized_negative_binomial": ({}, 2.0, 2.0, ([2.0],
                                                               [0.5]))})
 # draws held by their contracts (random_contracts), not by moments
-CONTRACTS = ("_sample_multinomial", "_sample_unique_zipfian", "_shuffle")
+CONTRACTS = ("_sample_multinomial", "_sample_unique_zipfian", "_shuffle",
+             "_contrib_dgl_csr_neighbor_uniform_sample",
+             "_contrib_dgl_csr_neighbor_non_uniform_sample")
 for _n in list(MOMENTS) + list(CONTRACTS):
     case(_n)
 
@@ -1009,9 +1011,238 @@ def random_contracts(mx, ctx):
     elif np.array_equal(s, x):
         bad = "the rows stayed in order"
     out.append(("_shuffle", bad))
-    return out
+    return out + dgl_contracts(mx, ctx)
 
 
 # outside training Dropout is the identity; its draws are held by
 # moments where it trains
 case("Dropout", Call(_a(3, 4), p=0.5, grad=()))
+
+
+# ---------------------------------------------------------------------------
+# INT8 quantization: int8 data and weights, the (1,) ranges the
+# quantization pass feeds; every integer result is held equal (K = 27
+# is not a multiple of 8: the card pads it)
+# ---------------------------------------------------------------------------
+
+def _i8(*shape, seed=0):
+    return np.random.RandomState(seed).randint(-127, 128, shape) \
+        .astype(np.int8)
+
+
+def _ranges(*pairs):
+    return [_f([v]) for pair in pairs for v in pair]
+
+
+QD, QW, QB = (-0.9, 1.1), (-0.4, 0.3), (-0.2, 0.25)
+
+case("_contrib_quantize",
+     Call(_a(3, 4), _f([-0.7]), _f([0.9])),
+     Call(_a(3, 4, seed=1), _f([0.1]), _f([0.9]), out_type="uint8"))
+case("_contrib_quantize_v2",
+     Call(_a(3, 4)),
+     Call(_a(3, 5, seed=1), min_calib_range=-0.5, max_calib_range=0.6),
+     Call(_a(2, 5, seed=2), out_type="uint8"))
+case("_contrib_dequantize",
+     Call(_i8(3, 4), _f([-0.7]), _f([0.9])),
+     Call(np.random.RandomState(1).randint(-2 ** 31 + 1, 2 ** 31 - 1, (3, 4))
+          .astype(np.int32), _f([-3.0]), _f([3.0])),
+     Call(np.random.RandomState(2).randint(0, 256, (3, 4)).astype(np.uint8),
+          _f([0.1]), _f([2.0])))
+case("_contrib_requantize",
+     Call(np.random.RandomState(3).randint(-2 ** 30, 2 ** 30, (3, 4))
+          .astype(np.int32), _f([-50.0]), _f([50.0])),
+     Call(np.random.RandomState(4).randint(-2 ** 30, 2 ** 30, (2, 5))
+          .astype(np.int32), _f([-50.0]), _f([50.0]),
+          min_calib_range=-20.0, max_calib_range=25.0))
+case("_contrib_quantized_fully_connected",
+     Call(_i8(5, 3, 9), _i8(7, 27, seed=1), _i8(7, seed=2),
+          *_ranges(QD, QW), num_hidden=7),
+     Call(_i8(20, 27, seed=3), _i8(16, 27, seed=4), _i8(16, seed=5),
+          *_ranges(QD, QW, QB), num_hidden=16),
+     Call(_i8(2, 4, 8, seed=6), _i8(3, 8, seed=7), _i8(3, seed=8),
+          *_ranges(QD, QW), num_hidden=3, flatten=False, no_bias=True))
+case("_contrib_quantized_conv",
+     Call(_i8(2, 3, 6, 6), _i8(4, 3, 3, 3, seed=1), _i8(4, seed=2),
+          *_ranges(QD, QW), kernel=(3, 3), pad=(1, 1), num_filter=4),
+     Call(_i8(2, 4, 7, 7, seed=3), _i8(6, 2, 3, 3, seed=4), _i8(6, seed=5),
+          *_ranges(QD, QW, QB), kernel=(3, 3), stride=(2, 2),
+          dilate=(2, 2), pad=(2, 2), num_filter=6, num_group=2),
+     Call(_i8(2, 8, 4, 4, seed=6), _i8(8, 8, 1, 1, seed=7), _i8(8, seed=8),
+          *_ranges(QD, QW), kernel=(1, 1), num_filter=8, no_bias=True),
+     Call(_i8(2, 3, 10, seed=9), _i8(5, 3, 3, seed=10), _i8(5, seed=11),
+          *_ranges(QD, QW), kernel=(3,), stride=(2,), num_filter=5))
+case("_contrib_quantized_pooling",
+     Call(_i8(2, 3, 6, 6), *_ranges(QD), kernel=(2, 2), stride=(2, 2),
+          pool_type="max"),
+     Call(_i8(2, 3, 7, 7, seed=1), *_ranges(QD), kernel=(3, 3),
+          stride=(2, 2), pad=(1, 1), pool_type="avg"),
+     Call(_i8(2, 3, 5, 5, seed=2), *_ranges(QD), kernel=(1, 1),
+          global_pool=True, pool_type="avg"))
+case("_contrib_quantized_flatten", Call(_i8(2, 3, 4), *_ranges(QD)))
+case("_contrib_quantized_concat",
+     Call(_i8(2, 3, 4), _i8(2, 2, 4, seed=1), _f([-0.5]), _f([-0.9]),
+          _f([0.7]), _f([0.4]), dim=1, num_args=2))
+
+# ---------------------------------------------------------------------------
+# dgl: a dense edge-id graph (A[u, v] = edge id + 1), -1-padded vertex
+# lists; the samplers' draws are held by their contracts (dgl_contracts)
+# ---------------------------------------------------------------------------
+
+def edge_id_graph(v, p, seed=0):
+    """A (v, v) float32 edge-id graph without self-loops, ids in row
+    order."""
+    rng = np.random.RandomState(seed)
+    adj = (rng.uniform(size=(v, v)) < p) & ~np.eye(v, dtype=bool)
+    g = np.zeros((v, v), np.float32)
+    g[adj] = np.arange(1, adj.sum() + 1)
+    return g
+
+
+GRAPH = edge_id_graph(6, 0.4)
+
+
+def _ids(values):
+    return np.asarray(values, np.int32)
+
+
+case("_contrib_edge_id",
+     Call(GRAPH, _ids([0, 1, 2, 5, 3]), _ids([1, 3, 0, 5, 4])))
+case("_contrib_dgl_adjacency", Call(GRAPH))
+case("_contrib_dgl_subgraph",
+     Call(GRAPH, _ids([0, 2, 3, -1]), _ids([1, 4, -1, -1]), num_args=3,
+          return_mapping=True),
+     Call(GRAPH, _ids([5, 0, 1]), num_args=2))
+case("_contrib_dgl_graph_compact",
+     Call(GRAPH, edge_id_graph(6, 0.5, seed=1), num_args=3,
+          return_mapping=True, graph_sizes=(4, 6)))
+case("_copyto", Call(_a(3, 4)))
+case("_scatter_elemwise_div", Call(_a(3, 4), _away(3, 4, seed=1)))
+
+
+def _sampler_bad(g, seeds, out, hops, k):
+    """What breaks the sampler's contract in ``out`` (vertices, subgraph,
+    layers[, weights]), or None."""
+    verts, sub, lay = (np.asarray(o) for o in out[:3])
+    valid = verts >= 0
+    n = int(valid.sum())
+    if not valid[:n].all() or len(set(verts[:n])) != n:
+        return "the vertices are not distinct ids followed by -1s"
+    vs, ls = verts[:n], lay[:n]
+    if (lay[n:] != -1).any() or (np.diff(ls) < 0).any():
+        return "the layers do not rise"
+    real = [s for s in seeds if s >= 0]
+    if sorted(vs[ls == 0]) != sorted(set(real)):
+        return "layer 0 is not the seeds"
+    for h in range(1, hops + 1):
+        prev, cur = vs[ls == h - 1], vs[ls == h]
+        if len(cur) > k * len(prev):
+            return "hop %d added %d vertices from %d" % (h, len(cur),
+                                                          len(prev))
+        if any(not (g[prev, v] != 0).any() for v in cur):
+            return "a vertex of hop %d has no edge from hop %d" % (h, h - 1)
+    vc = np.clip(verts, 0, len(g) - 1)
+    want = (g[vc][:, vc] != 0) & valid[:, None] & valid[None, :]
+    if not np.array_equal(sub != 0, want):
+        return "the subgraph is not the one the vertices induce"
+    return None
+
+
+def dgl_contracts(mx, ctx):
+    """The neighbor samplers' contracts: each sampled vertex reached by an
+    edge from the hop before, at most ``num_neighbor`` new vertices a
+    frontier vertex, the induced subgraph, the weights of the vertices;
+    and their draws: on a star of 10 neighbors, each picked 2 times in
+    10 by the uniform sampler, and with one pick its weight's share by
+    the weighted one (the exponential race), within 5 standard errors
+    over 300 calls."""
+    out = []
+    g = edge_id_graph(40, 0.15, seed=5)
+    prob = np.random.RandomState(6).uniform(0.1, 1.0, 40).astype(np.float32)
+    seeds = _ids([0, 5, -1])
+    G = mx.nd.array(g, ctx=ctx)
+    S = mx.nd.array(seeds, ctx=ctx, dtype=np.int32)
+    P = mx.nd.array(prob, ctx=ctx)
+    nd = mx.nd.contrib
+    star = np.zeros((11, 11), np.float32)
+    star[0, 1:] = np.arange(1, 11)
+    weights = np.concatenate([[1.0], np.arange(1, 11)]).astype(np.float32)
+    Gs, W = mx.nd.array(star, ctx=ctx), mx.nd.array(weights, ctx=ctx)
+    S0 = mx.nd.array(_ids([0]), ctx=ctx, dtype=np.int32)
+    calls = 300
+    for name, fn, extra, k in (
+            ("_contrib_dgl_csr_neighbor_uniform_sample",
+             nd.dgl_csr_neighbor_uniform_sample, [], 2),
+            ("_contrib_dgl_csr_neighbor_non_uniform_sample",
+             nd.dgl_csr_neighbor_non_uniform_sample, [P], 1)):
+        res = [o.asnumpy() for o in fn(G, *extra, S, num_hops=2,
+                                      num_neighbor=3, max_num_vertices=30)]
+        bad = _sampler_bad(g, seeds, res, 2, 3)
+        if bad is None and extra:
+            v = res[0]
+            want = np.where(v >= 0, prob[np.clip(v, 0, 39)], 0.0)
+            if not np.array_equal(res[3], want):
+                bad = "the weights are not the vertices' probabilities"
+        if bad is None:
+            counts = np.zeros(11)
+            for _ in range(calls):
+                v = fn(Gs, *([W] if extra else []), S0, num_hops=1,
+                       num_neighbor=k, max_num_vertices=11)[0].asnumpy()
+                counts[v[v > 0]] += 1
+            share = np.full(10, 0.2) if not extra else \
+                weights[1:] / weights[1:].sum()
+            se = np.sqrt(calls * share * (1 - share))
+            if (np.abs(counts[1:] - calls * share) > 5 * se).any():
+                bad = "picks %s, expected %s" % (counts[1:].tolist(),
+                                                 (calls * share).tolist())
+        out.append((name, bad))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Custom and _subgraph_exec: the prop and the subgraph made by each
+# package
+# ---------------------------------------------------------------------------
+
+def _custom_attrs(mx):
+    """Register (once) a two-input, two-output Python op in ``mx``."""
+    name = "op_cases_square_shift"
+    if name not in mx.operator.get_all_registered_operators():
+        class Op(mx.operator.CustomOp):
+            def forward(self, is_train, req, in_data, out_data, aux):
+                x, y = in_data
+                self.assign(out_data[0], req[0], x * x * 0.5 + y)
+                self.assign(out_data[1], req[1], x * 3)
+
+            def backward(self, req, out_grad, in_data, out_data, in_grad,
+                         aux):
+                self.assign(in_grad[0], req[0],
+                            out_grad[0] * in_data[0] + out_grad[1] * 3)
+                self.assign(in_grad[1], req[1], out_grad[0])
+
+        @mx.operator.register(name)
+        class Prop(mx.operator.CustomOpProp):
+            def list_arguments(self):
+                return ["data", "shift"]
+
+            def list_outputs(self):
+                return ["out", "triple"]
+
+            def infer_shape(self, in_shape):
+                return in_shape, [in_shape[0], in_shape[0]], []
+
+            def create_operator(self, ctx, shapes, dtypes):
+                return Op()
+    return {"op_type": name}
+
+
+def _subgraph_attrs(mx):
+    s = mx.sym
+    x, y = s.var("x"), s.var("y")
+    g = s.Group([s.tanh(x) * y, s.relu(x) + y])
+    return {"subgraph_json": g.tojson(), "n_out": 2}
+
+
+case("Custom", Call(_a(3, 4), _a(3, 4, seed=1), build=_custom_attrs))
+case("_subgraph_exec", Call(_a(3, 4), _a(3, 4, seed=1),
+                            build=_subgraph_attrs))

@@ -20,8 +20,8 @@ the distribution's), and the multinomial, unique-zipfian and shuffle
 samplers by their contracts (`random_contracts`).
 
 The sweep is one parametrised test, split over this file and
-`test_torch_ops_b.py`/`_c.py`/`_d.py` (`SHARDS`) to keep each file
-under 30 s.  A registered op without a case fails, and so does a case
+`test_torch_ops_b.py` to `_h.py` (`SHARDS`) to keep each file under
+30 s.  A registered op without a case fails, and so does a case
 without an op.
 """
 import numpy as np
@@ -33,9 +33,12 @@ from mxtpu_torch.ops import registry as treg
 from test_torch_op_cases import (CASES, CONTRACTS, MOMENTS, _a, _f, draw,
                                  error_units, grad_inputs, moment_errors,
                                  random_contracts, run_call)
+import torch
+
+torch.set_num_threads(1)
 
 RTOL, ATOL = 1e-5, 1e-6
-SHARDS = 4
+SHARDS = 8
 
 
 def _canonical_ops():

@@ -33,6 +33,9 @@ from scipy import stats
 import mxtpu as jmx
 import mxtpu_torch as tmx
 from test_torch_op_cases import moment_errors
+import torch
+
+torch.set_num_threads(1)
 
 TOL = 5e-5
 SHAPES = [(4, 3), (5,), (2, 3, 2)]

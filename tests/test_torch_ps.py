@@ -34,6 +34,9 @@ import mxtpu as jmx
 from mxtpu import _ps as J
 import mxtpu_torch as tmx
 from mxtpu_torch import _ps as T
+import torch
+
+torch.set_num_threads(1)
 
 PARITY = dict(rtol=0, atol=1e-6)
 

@@ -22,6 +22,9 @@ from scipy import stats
 import mxtpu as jmx
 import mxtpu_torch as tmx
 from test_torch_op_cases import MOMENTS, draw
+import torch
+
+torch.set_num_threads(1)
 
 N = 20000
 P_MIN = 1e-4

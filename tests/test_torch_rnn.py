@@ -31,6 +31,8 @@ from mxtpu_torch.base import MXNetError
 from mxtpu_torch.ops import nn as tnn
 from mxtpu_torch.ops import rnn_op as trnn
 
+torch.set_num_threads(1)
+
 TOL = 1e-5
 T, N, C, H = 4, 3, 5, 6
 

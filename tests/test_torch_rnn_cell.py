@@ -24,6 +24,9 @@ from mxtpu_torch.base import MXNetError
 from mxtpu_torch.gluon.parameter import load_numpy
 
 from test_torch_gluon import _rel, _x
+import torch
+
+torch.set_num_threads(1)
 
 TOL = 1e-5
 T, N, C = 4, 3, 5

@@ -26,6 +26,8 @@ from mxtpu_torch.base import (MemoryExhaustedError, MXNetError,
                               RequestShedError)
 from mxtpu_torch.parallel import transformer as ttf
 
+torch.set_num_threads(1)
+
 SMALL = dict(vocab=64, d_model=64, n_heads=4, n_layers=2, d_ff=128,
              max_len=32, dtype="float32")
 T = 32

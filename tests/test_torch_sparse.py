@@ -31,6 +31,8 @@ import mxtpu_torch as tmx
 from mxtpu_torch.base import MXNetError
 from mxtpu_torch.ndarray import sparse as tsp
 
+torch.set_num_threads(1)
+
 jsp = jmx.nd.sparse
 CPU = tmx.cpu()
 EXACT = dict(rtol=0, atol=1e-6)

@@ -41,6 +41,8 @@ from mxtpu_torch import context as tcontext
 from mxtpu_torch.io import LibSVMIter as TLibSVMIter
 from mxtpu_torch.ndarray import sparse as tsp
 
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLE = os.path.join(REPO, "examples", "sparse", "linear_classification.py")
 FM_EXAMPLE = os.path.join(REPO, "examples", "sparse",

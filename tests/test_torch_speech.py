@@ -25,6 +25,9 @@ import numpy as np
 import mxtpu as jmx
 import mxtpu_torch as tmx
 from mxtpu_torch.gluon.parameter import load_numpy
+import torch
+
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(REPO, "examples", "speech_recognition",

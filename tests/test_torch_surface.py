@@ -5,8 +5,8 @@ CPU.
 
 Values must agree within 1e-5 relative (plus 1e-6 of the output's
 largest magnitude: `test_torch_ops.close`), integer and ordering
-results exactly.  Where the port deliberately differs (`optimize` and
-`optimize_for`, which wait for ROADMAP A17), the test says so.
+results exactly.  Where the port deliberately differs (`optimize`,
+which waits for ROADMAP A17), the test says so.
 """
 import numpy as np
 import pytest
@@ -16,6 +16,8 @@ import mxtpu as jmx
 import mxtpu_torch as tmx
 from mxtpu_torch.base import MXNetError
 from test_torch_ops import close
+
+torch.set_num_threads(1)
 
 X = np.random.RandomState(0).uniform(-2, 2, (3, 4)).astype(np.float32)
 X[1, 2] = X[1, 0]  # a tie in row 1
@@ -283,8 +285,11 @@ def test_symbol_has_its_methods_and_the_passes_raise_naming_a17():
     s = tmx.sym.relu(tmx.sym.Variable("x"))
     with pytest.raises(MXNetError, match="A17"):
         s.optimize()
-    with pytest.raises(MXNetError, match="A17"):
-        s.optimize_for("TPU")
+    # optimize_for is ported: "TPU" rewrites parameters, so without them
+    # it raises in both packages
+    for M in (jmx, tmx):
+        with pytest.raises(M.MXNetError, match="arg_params"):
+            M.sym.relu(M.sym.Variable("x")).optimize_for("TPU")
 
 
 def test_name_prefix_matches_mxtpu():

@@ -20,6 +20,9 @@ from mxtpu.gluon.model_zoo import vision
 import mxtpu_torch as tmx
 from mxtpu_torch import sym as tsym
 from mxtpu_torch.base import MXNetError
+import torch
+
+torch.set_num_threads(1)
 
 
 def _trace(name, batch=1, hw=224, classes=1000):

@@ -29,6 +29,8 @@ from mxtpu_torch.base import MXNetError
 from mxtpu_torch.ops import flash_attention as tfa
 from mxtpu_torch.parallel import transformer as ttf
 
+torch.set_num_threads(1)
+
 B, T = 2, 64
 SMALL = dict(vocab=64, d_model=64, n_heads=4, n_layers=2, d_ff=128,
              max_len=T)

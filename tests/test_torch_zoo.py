@@ -56,6 +56,8 @@ import mxtpu_torch as tmx
 from test_torch_gluon import _build, _rel, _x
 from test_torch_gluon_train import _xavier
 
+torch.set_num_threads(1)
+
 ZOO_TOL = 1e-5
 # the port's float64 against the reference's (`reference_float64`)
 F64_TOL = 1e-8

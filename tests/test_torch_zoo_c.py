@@ -26,6 +26,9 @@ from test_torch_gluon import _x
 from test_torch_zoo import (F64_TOL, ZOO_TOL, Reference64, _zoo,
                             one_torch_thread, pass_distances,
                             two_pass_batch_norm, zoo_draws, zoo_pass)
+import torch
+
+torch.set_num_threads(1)
 
 VALUE_FLOOR = 1e-2
 

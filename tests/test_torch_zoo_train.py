@@ -46,6 +46,9 @@ import mxtpu_torch as tmx
 from test_torch_gluon_train import _from, _train, _xavier
 from test_torch_zoo import (F64_TOL, Reference64, one_torch_thread,
                             two_pass_batch_norm)
+import torch
+
+torch.set_num_threads(1)
 
 STEPS = 3
 
