@@ -473,6 +473,36 @@ Phases, each of which fails the run (non-zero exit) on any error:
    at most 10 new a frontier vertex, the induced subgraph equal to the
    CPU's, and the sampler fed the card's draws equal to the CPU's.  No
    flash kernel may launch.
+23. a10c   -- A10c's leftovers.  Row ``ctx_engine``: ``with mx.gpu(0):``
+   and ``with mx.cpu():`` (nested) placing arrays, a gluon
+   ``initialize()`` and a Module bind; a 256 MB ``cpu_pinned`` array
+   (``is_pinned()``, its ``non_blocking`` copy to the card equal, timed
+   beside a pageable one) and a ``cpu_shared`` one; the threaded engine
+   built from ``src/engine.cc`` on this host, an error pushed on it
+   raised at the wait; ``model.FeedForward`` fitting LeNet for one epoch
+   of 6,000 synthetic MNIST images on the card, its ``predict`` against
+   a Module's on the same parameters (relative L2 1e-6).  Row
+   ``imagenet_monitor``: ``train_imagenet.py`` with the imagenet
+   phase's arguments and ``--monitor 10 --max-batches 30 --num-epochs
+   1``: the Monitor must print at batches 0, 10 and 20, each value
+   within ``A10C_MONITOR_TOL`` of |x|'s mean recomputed in float64 from
+   the same executor outputs; ms a step of the monitored batches and of
+   the others.  Rows ``resnet50_nhwc_fp32`` and ``resnet50_nhwc_bf16``:
+   the resnet phase's graph channels-last (``resnet50_nhwc``: layout
+   NHWC on every Convolution and Pooling, BatchNorm on axis 3, one
+   transpose at the input) and the NCHW graph, each through Module at
+   batch 128, 224², fp32 with TF32 off or bf16 through ``amp``, SGD
+   momentum 0.9, fed from the host by a ``PrefetchingIter`` on the
+   engine: ms a step, busy, idle, operations, device ms by kind and the
+   layout-copy kernels of a step (``LAYOUT_COPY_KEYS``), side by side;
+   then ``nhwc_step_check`` at batch 8: the float64 step of both graphs
+   from the same weights within ``NHWC_LAYOUT_TOL``, and the float32
+   step layer by layer (``nhwc_layers``) within ``RESNET_OUT_TOL``.
+   Row ``ragged_serve``: ResNet-50 bound for inference at batch 128
+   under the pow2 bucket policy: a cold first call, ``warmup`` and the
+   first call after it, then batches of 1, 37, 64, 100 and 128, each
+   against an exact forward of that batch (``RAGGED_TOL``), with no
+   bind while serving.  No flash kernel may launch.
 
 The line before the last is the card's name and power limit, the line
 before that the kernels' JSON record; the last line is
@@ -5665,11 +5695,12 @@ class host_split:
         mx.optimizer.Updater.__call__ = self.saved_call
 
 
-def imagenet_run(prefix):
-    """train_imagenet.py with IMAGENET_ARGS on the card: the Module it
-    trained, the batch-end times of each epoch (Speedometer's calls,
-    each after the metrics read the batch's outputs), the host split,
-    the per-parameter updates and the script's log lines."""
+def imagenet_run(prefix, extra=()):
+    """train_imagenet.py with IMAGENET_ARGS (then ``extra``, whose
+    options win) on the card: the Module it trained, the batch-end
+    times of each epoch (Speedometer's calls, each after the metrics
+    read the batch's outputs), the host split, the per-parameter updates
+    and the script's log lines."""
     ep = tests_module("test_torch_example_port")
     ends = []
     speedometer = mx.callback.Speedometer.__call__
@@ -5685,7 +5716,7 @@ def imagenet_run(prefix):
     mx.callback.Speedometer.__call__ = stamp
     try:
         with host_split() as split:
-            mod = ep.run_train_imagenet(IMAGENET_ARGS
+            mod = ep.run_train_imagenet(IMAGENET_ARGS + list(extra)
                                         + ["--model-prefix", prefix])
         torch.cuda.synchronize()
     finally:
@@ -6666,9 +6697,10 @@ def ctc_case(blank, label_lengths, seed, infeasible=True):
             llen.astype(np.float32), attrs)
 
 
-def ctc_run(case, device):
-    """(the costs, the data's gradient of their sum) on ``device``."""
+def ctc_run(case, ctx):
+    """(the costs, the data's gradient of their sum) on ``ctx``."""
     data, label, dlen, llen, attrs = case
+    device = ctx.torch_device
     x = torch.tensor(data, device=device, requires_grad=True)
     extra = [torch.tensor(dlen, device=device)]
     if attrs["use_label_lengths"]:
@@ -6830,7 +6862,7 @@ def linalg_check():
     worst, by_op = 0.0, {}
     for name, inputs, attrs, canon in linalg_inputs():
         res = []
-        for device in (mx.gpu(0), mx.cpu()):
+        for device in (mx.gpu(0).torch_device, torch.device("cpu")):
             xs = [torch.tensor(x, device=device, requires_grad=canon is None)
                   for x in inputs]
             out = reg.get_op(name).fn(*xs, **attrs)
@@ -7336,7 +7368,7 @@ def cflow_capture_case():
     fused = module()
     loop = mx.FusedTrainLoop(fused, steps_per_program=4)
     loop.run(batches)
-    if loop.captures != (torch.device(gpu).type == "cuda"):
+    if loop.captures != (gpu.torch_device.type == "cuda"):
         fail("cflow: the control-flow graph was captured %d times"
              % loop.captures)
     want, got = per.get_params()[0], fused.get_params()[0]
@@ -7402,7 +7434,7 @@ def cflow_singular_case():
     fused = module(mx.gpu(0))
     loop = mx.FusedTrainLoop(fused, steps_per_program=4)
     loop.run(batches(mx.gpu(0)))
-    if loop.captures != (torch.device(mx.gpu(0)).type == "cuda"):
+    if loop.captures != (mx.gpu(0).torch_device.type == "cuda"):
         fail("cflow: the singular cond graph was captured %d times"
              % loop.captures)
     weights["captured"] = {k: v.asnumpy() for k, v in
@@ -7976,7 +8008,7 @@ def det_examples():
     if frcnn["accuracy"] is None or not frcnn["accuracy"] > DET_FRCNN_GATE:
         fail("det: %s's FINAL_ROI_ACCURACY %s, not above %g"
              % (DET_FRCNN, acc, DET_FRCNN_GATE))
-    card_dev = str(torch.device(mx.gpu(0)))
+    card_dev = str(mx.gpu(0))
     for what, devs in devices.items():
         if devs != {card_dev}:
             fail("det: %s's %s were on %s, not the card"
@@ -8520,7 +8552,7 @@ def quant_resnet50(symbol, args, aux):
            row["calib_naive_s"], row["calib_entropy_s"],
            row["quantized_nodes"], ops.count(QUANT_OPS[0]),
            ops.count(QUANT_OPS[1]), sorted(devices)))
-    if devices != {str(torch.device(gpu))} or not row["quantized_nodes"]:
+    if devices != {str(gpu)} or not row["quantized_nodes"]:
         fail("quant: the quantized parameters on %s, %d quantized nodes"
              % (sorted(devices), row["quantized_nodes"]))
     x = mx.nd.array(np.random.RandomState(QUANT_SEED + 2).rand(
@@ -8656,7 +8688,7 @@ def quant_examples():
            rows["quant_example"]["naive"]["agreement"],
            rows["quant_example"]["entropy"]["seconds"],
            rows["quant_example"]["entropy"]["agreement"], sorted(devices)))
-    if devices != {str(torch.device(mx.gpu(0)))}:
+    if devices != {str(mx.gpu(0))}:
         fail("quant: %s's executors held arrays on %s"
              % (QUANT_EXAMPLE, sorted(devices)))
     zero_launches()
@@ -8778,11 +8810,12 @@ def dgl_sample_pubmed():
     from mxtpu_torch.ops import dgl as tdgl
 
     gpu, cpu = mx.gpu(0), mx.cpu()
+    dev = gpu.torch_device
     free_card()
     src, dst = dgl_graph()
-    g = torch.zeros((DGL_V, DGL_V), dtype=torch.float32, device=gpu)
-    g[torch.as_tensor(src, device=gpu), torch.as_tensor(dst, device=gpu)] = \
-        torch.arange(1, len(src) + 1, dtype=torch.float32, device=gpu)
+    g = torch.zeros((DGL_V, DGL_V), dtype=torch.float32, device=dev)
+    g[torch.as_tensor(src, device=dev), torch.as_tensor(dst, device=dev)] = \
+        torch.arange(1, len(src) + 1, dtype=torch.float32, device=dev)
     rng = np.random.RandomState(QUANT_SEED + 4)
     prob = rng.uniform(0.1, 1.0, DGL_V).astype(np.float32)
     seeds = rng.choice(DGL_V, DGL_SEEDS, replace=False).astype(np.int64)
@@ -8908,6 +8941,667 @@ def phase_quant():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# a10c: the Monitor in train_imagenet.py, a channels-last ResNet-50,
+# ragged serving after warmup, contexts and the dependency engine
+# ---------------------------------------------------------------------------
+
+# train_imagenet.py's --monitor over one epoch of 30 batches: the
+# monitor arms at batches 0, 10 and 20
+A10C_MONITOR_ARGS = ["--monitor", "10", "--max-batches", "30",
+                     "--num-epochs", "1"]
+A10C_MONITOR_AT = (0, 10, 20)
+A10C_MONITOR_TOL = 1e-5      # a printed |x| mean against float64's, relative
+NHWC_BATCH, NHWC_WARM, NHWC_STEPS = 128, 2, 8
+NHWC_POOL = 3                # host batches the PrefetchingIter cycles through
+NHWC_CHECK_BATCH = 8
+NHWC_LAYOUT_TOL = 1e-9       # float64 NHWC against NCHW, relative L2
+# the kernels of a layout copy: cuDNN's own conversions and torch's copies
+LAYOUT_COPY_KEYS = ("nchwToNhwc", "nhwcToNchw", "direct_copy", "copy_kernel",
+                    "transpose")
+RAGGED_BATCH = 128
+RAGGED_SIZES = (1, 37, 64, 100, 128)
+RAGGED_TOL = RESNET_OUT_TOL  # a padded forward against the exact one
+LENET_TRAIN, LENET_TEST, LENET_BATCH = 6000, 1000, 64
+PIN_MB = 256
+
+
+def a10c_imagenet_monitor():
+    """Row imagenet_monitor: train_imagenet.py with --monitor 10 over 30
+    batches; every value the Monitor prints against |x|'s mean in
+    float64 of the same executor outputs on the card; ms a step of the
+    monitored batches and of the others (Speedometer's batch ends)."""
+    free_card()
+    tmp = tempfile.mkdtemp(prefix="a10c_imagenet_")
+    checks = []
+    real_toc = mx.monitor.Monitor.toc
+
+    def checked_toc(mon):
+        want = {}
+        if mon.activated:
+            for exe in mon.exes:
+                for name, arr in zip(exe._symbol.list_outputs(),
+                                     exe.outputs):
+                    if mon.re_prog.match(name):
+                        want[(mon.step, name)] = float(
+                            arr._data.double().abs().mean())
+        res = real_toc(mon)
+        checks.extend((n - 1, k, float(v), want.get((n, k)))
+                      for n, k, v in res)
+        return res
+
+    mx.random.seed(0)
+    mx.monitor.Monitor.toc = checked_toc
+    t0 = time.monotonic()
+    try:
+        mod, ends, _, lines = imagenet_run(os.path.join(tmp, "resnet50"),
+                                           A10C_MONITOR_ARGS)
+    finally:
+        mx.monitor.Monitor.toc = real_toc
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.monotonic() - t0
+    printed = [ln for ln in lines if ln.startswith("Batch:")]
+    t = {nbatch: at for _, nbatch, at in ends}
+    step_ms = {n: (t[n] - t[n - 1]) * 1e3 for n in t if n - 1 in t}
+    mon_ms = [step_ms[n] for n in A10C_MONITOR_AT if n in step_ms]
+    plain_ms = [v for n, v in step_ms.items() if n not in A10C_MONITOR_AT]
+    worst = max((abs(v - w) / max(abs(w), 1e-30) for _, _, v, w in checks
+                 if w is not None), default=float("inf"))
+    row = dict(seconds=secs, printed=len(printed),
+               at=sorted({n for n, _, _, _ in checks}),
+               worst_rel=worst, monitored_ms=float(np.median(mon_ms)),
+               plain_ms=float(np.median(plain_ms)))
+    log("[a10c] %s: imagenet_monitor: train_imagenet.py %s (ResNet-50 v1, "
+        "batch %d, fp32 with TF32 off): %.1f s; the Monitor printed %d "
+        "lines at batches %s, e.g. %s; each value against |x|'s mean in "
+        "float64 of the same outputs on the card: worst relative %.3g "
+        "(bound %g); ms a step (host clock, median): monitored %.3f, "
+        "others %.3f" % (card(), " ".join(A10C_MONITOR_ARGS), IMAGENET_BATCH,
+                         secs, len(printed), row["at"],
+                         printed[:1], worst, A10C_MONITOR_TOL,
+                         row["monitored_ms"], row["plain_ms"]))
+    if row["at"] != list(A10C_MONITOR_AT) or \
+            len(printed) != len(checks) or not checks:
+        fail("a10c: the Monitor printed at batches %s (%d lines, %d "
+             "values), not at %s" % (row["at"], len(printed), len(checks),
+                                     A10C_MONITOR_AT))
+    if any(w is None for _, _, _, w in checks) or \
+            not worst <= A10C_MONITOR_TOL:
+        fail("a10c: the Monitor's values are off the recomputed ones by "
+             "%.3g: %s" % (worst, checks))
+    del mod
+    free_card()
+    return row
+
+
+def resnet50_nhwc():
+    """The resnet phase's graph channels-last: layout NHWC on every
+    Convolution and Pooling, axis 3 on every BatchNorm, and one
+    transpose of the NCHW input ``data0`` at its start; the parameters
+    keep their names and shapes."""
+    graph = json.loads(mx.sym.ZOO["resnet50_v1"]().tojson())
+    for node in graph["nodes"]:
+        if node["op"] in ("Convolution", "Pooling"):
+            node["attrs"]["layout"] = json.dumps("NHWC")
+        elif node["op"] == "BatchNorm":
+            node["attrs"]["axis"] = json.dumps(3)
+    cl = mx.sym.load_json(json.dumps(graph))
+    return cl(data0=mx.sym.transpose(mx.sym.var("data0"), axes=(0, 2, 3, 1),
+                                     name="nhwc_input"))
+
+
+def resnet_weights():
+    """ResNet-50 v1's parameters and aux states, Xavier after
+    ``random.seed(0)``, on the card."""
+    mod = resnet_module(2, mx.gpu(0))
+    mx.random.seed(0)
+    mod.init_params(initializer=mx.initializer.Xavier())
+    return mod.get_params()
+
+
+def host_batches(batch, n, seed):
+    """A PrefetchingIter (on the process's engine) over ``n`` host
+    batches of bench.py's synthetic images, cycled."""
+    rng = np.random.RandomState(seed)
+    data = rng.rand(n * batch, 3, 224, 224).astype(np.float32)
+    label = rng.randint(0, 1000, n * batch).astype(np.float32)
+    return mx.io.PrefetchingIter(mx.io.NDArrayIter(
+        data, label, batch_size=batch, data_name="data0", ctx=mx.cpu()))
+
+
+def next_batch(it):
+    try:
+        return it.next()
+    except StopIteration:
+        it.reset()
+        return it.next()
+
+
+def nhwc_layout_row(symbol, dtype, params, aux, it):
+    """One layout's row: ResNet-50 trained through Module at NHWC_BATCH
+    under the policy ``dtype`` (SGD momentum 0.9), its batches from the
+    host through ``it``; NHWC_WARM warm and NHWC_STEPS timed steps (host
+    clock, synchronised at the end), then one profiled step."""
+    free_card()
+    with mx.amp.scope(dtype):
+        mod = mx.mod.Module(symbol, data_names=("data0",),
+                            label_names=("softmax_label",),
+                            context=mx.gpu(0))
+        mod.bind(data_shapes=[("data0", (NHWC_BATCH, 3, 224, 224))],
+                 label_shapes=[("softmax_label", (NHWC_BATCH,))])
+    mod.init_params(arg_params=params, aux_params=aux)
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.01, "momentum": 0.9})
+
+    def step():
+        mod.forward_backward(next_batch(it))
+        mod.update()
+
+    for _ in range(NHWC_WARM):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(NHWC_STEPS):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / NHWC_STEPS * 1e3
+    spans, host_calls = profile_call(step)
+    busy = busy_us([(a, b) for a, b, _ in spans]) / 1e3
+    window = (max(b for _, b, _ in spans) - min(a for a, _, _ in spans)) / 1e3
+    copies = [(b - a) for a, b, n in spans
+              if any(k in n for k in LAYOUT_COPY_KEYS)]
+    out = mod.get_outputs()[0]._data
+    row = dict(ms=ms, imgs_per_sec=NHWC_BATCH / ms * 1e3, busy_ms=busy,
+               idle=1 - busy / window, ops=len(spans),
+               host_calls=host_calls,
+               kinds={k: v / 1e3 for k, v in by_kind(spans).items()},
+               layout_copies=len(copies),
+               layout_copy_ms=sum(copies) / 1e3,
+               finite=bool(torch.isfinite(out.float()).all()))
+    del mod, out
+    free_card()
+    return row
+
+
+def nhwc_layers(nchw, nhwc, params, aux, x, y):
+    """The float32 step layer by layer (as ``staged_grads`` does): each
+    node of the NCHW graph in training mode gets the NCHW forward's
+    inputs, and its NHWC twin (the node of the same name) the same
+    values, channels-last where they are activations; each output, and
+    each input's gradient under one random head gradient, held NHWC
+    against NCHW.  So a ReLU or a max decides alike in both, where whole
+    steps round apart.  Returns the worst relative L2 forward and
+    backward, each with its node."""
+    from mxtpu_torch.symbol.symbol import _topo_order
+
+    dev = mx.gpu(0).torch_device
+    twins = {n.name: n for n in _topo_order(nhwc._outputs)
+             if not n.is_variable}
+    values = dict({k: v._data for k, v in params.items()},
+                  **{k: v._data for k, v in aux.items()},
+                  data0=torch.as_tensor(x), softmax_label=torch.as_tensor(y))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    env, worst = {}, {"forward": (0.0, None), "backward": (0.0, None)}
+
+    def to_h(t):
+        return t.permute(0, 2, 3, 1)
+
+    def to_c(t):
+        return t.permute(0, 3, 1, 2)
+
+    def run(node, vals):
+        attrs = dict(node.attrs)
+        if node.op.train_aware:
+            attrs["is_train"] = True
+        with torch.enable_grad():
+            return list(mx.ops.registry.invoke(node.op, vals, attrs))
+
+    def note(kind, name, got, want):
+        got, want = got.detach().double(), want.detach().double()
+        err = float((got - want).norm() / max(float(want.norm()), 1e-30))
+        if err > worst[kind][0]:
+            worst[kind] = (err, name)
+
+    for node in _topo_order(nchw._outputs):
+        if node.is_variable:
+            env[(id(node), 0)] = values[node.name].to(dev, torch.float32)
+            continue
+        ins = [env[(id(i), k)] for i, k in node.inputs]
+        act = [t.dim() == 4 and (not i.is_variable or i.name == "data0")
+               for (i, _), t in zip(node.inputs, ins)]
+        xc = [t.detach().requires_grad_(t.is_floating_point()) for t in ins]
+        xh = [(to_h(t) if a else t).detach().requires_grad_(
+            t.is_floating_point()) for t, a in zip(ins, act)]
+        out_c, out_h = run(node, xc), run(twins[node.name], xh)
+        for j, (oc, oh) in enumerate(zip(out_c, out_h)):
+            note("forward", "%s output %d" % (node.name, j), to_c(oh)
+                 if oc.dim() == 4 and oc.shape != oh.shape else oh, oc)
+            env[(id(node), j)] = oc.detach()
+        wrt = [i for i, t in enumerate(xc) if t.requires_grad]
+        if out_c[0].requires_grad and wrt:
+            head = torch.randn(out_c[0].shape, generator=gen, device=dev)
+            gc = torch.autograd.grad(out_c[0], [xc[i] for i in wrt], head,
+                                     allow_unused=True)
+            gh = torch.autograd.grad(
+                out_h[0], [xh[i] for i in wrt],
+                to_h(head) if out_h[0].shape != head.shape else head,
+                allow_unused=True)
+            for i, a, b in zip(wrt, gc, gh):
+                if a is not None and b is not None:
+                    note("backward", "%s input %d" % (node.name, i),
+                         to_c(b) if act[i] else b, a)
+    return worst
+
+
+def nhwc_step_check(nchw, nhwc, params, aux):
+    """One training step of both graphs from the same weights and batch
+    at NHWC_CHECK_BATCH on the card (TF32 off).  In float64 the whole
+    step of each layout, held together to NHWC_LAYOUT_TOL: at that
+    precision no ReLU flips.  In float32, layer by layer
+    (``nhwc_layers``), each output and input gradient within
+    RESNET_OUT_TOL; the whole float32 steps against float64 are printed
+    beside, not gated (a ReLU whose input lies within rounding of 0
+    flips in one layout and not in the other)."""
+    rng = np.random.RandomState(2)
+    x = rng.rand(NHWC_CHECK_BATCH, 3, 224, 224)
+    y = rng.randint(0, 1000, NHWC_CHECK_BATCH).astype(np.float64)
+
+    def step(symbol, dtype):
+        gpu = mx.gpu(0)
+        ex = symbol.simple_bind(
+            ctx=gpu, type_dict={n: dtype for n in symbol.list_arguments()},
+            data0=x.shape, softmax_label=y.shape)
+        ex.copy_params_from(params, aux)
+        ex.forward(is_train=True, data0=mx.nd.array(x, ctx=gpu, dtype=dtype),
+                   softmax_label=mx.nd.array(y, ctx=gpu, dtype=dtype))
+        ex.backward()
+        grads = {n: g._data.double() for n, g in ex.grad_dict.items()
+                 if g is not None and n in params}
+        return ex.outputs[0]._data.double(), grads
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    def rel_all(ga, gb):
+        num = sum(float((ga[k] - gb[k]).norm()) ** 2 for k in gb)
+        den = sum(float(gb[k].norm()) ** 2 for k in gb)
+        return (num / den) ** 0.5
+
+    t0 = time.monotonic()
+    ref_out, ref_g = step(nchw, "float64")
+    out64, g64 = step(nhwc, "float64")
+    out_c, g_c = step(nchw, "float32")
+    out_h, g_h = step(nhwc, "float32")
+    # a parameter's error against the whole gradient's scale: the conv
+    # biases a BatchNorm follows have exact gradient 0, so their own
+    # relative error is rounding over rounding
+    floor = 1e-6 * max(float(g.norm()) for g in ref_g.values())
+
+    def rel_floor(a, b):
+        return float((a - b).norm()) / max(float(b.norm()), floor)
+
+    worst = max(ref_g, key=lambda k: rel_floor(g64[k], ref_g[k]))
+    layers = nhwc_layers(nchw, nhwc, params, aux, x.astype(np.float32),
+                         y.astype(np.float32))
+    res = dict(f64_out=rel(out64, ref_out), f64_grads=rel_all(g64, ref_g),
+               f64_worst=(worst, rel_floor(g64[worst], ref_g[worst])),
+               f32_out_nchw=rel(out_c, ref_out),
+               f32_out_nhwc=rel(out_h, ref_out),
+               f32_grads_nchw=rel_all(g_c, ref_g),
+               f32_grads_nhwc=rel_all(g_h, ref_g), layers=layers)
+    log("[a10c] %s: resnet50_nhwc step check at batch %d, %d parameters "
+        "(relative L2): float64 whole step, NHWC against NCHW: output "
+        "%.3g, all gradients %.3g, worst parameter %s %.3g (over the "
+        "larger of its norm and 1e-6 of the largest; bound %g); "
+        "float32 (TF32 off) layer by layer, NHWC against NCHW on the same "
+        "inputs: worst output %.3g (%s), worst input gradient %.3g (%s) "
+        "(bound %g); float32 whole steps against NCHW float64, not gated: "
+        "output NCHW %.3g, NHWC %.3g; all gradients NCHW %.3g, NHWC %.3g; "
+        "%.1f s" % (card(), NHWC_CHECK_BATCH, len(ref_g), res["f64_out"],
+                    res["f64_grads"], worst, res["f64_worst"][1],
+                    NHWC_LAYOUT_TOL, layers["forward"][0],
+                    layers["forward"][1], layers["backward"][0],
+                    layers["backward"][1], RESNET_OUT_TOL,
+                    res["f32_out_nchw"], res["f32_out_nhwc"],
+                    res["f32_grads_nchw"], res["f32_grads_nhwc"],
+                    time.monotonic() - t0))
+    if not (res["f64_out"] <= NHWC_LAYOUT_TOL
+            and res["f64_grads"] <= NHWC_LAYOUT_TOL):
+        fail("a10c: the NHWC ResNet-50's float64 step differs from the "
+             "NCHW one: %s" % res)
+    if not (layers["forward"][0] <= RESNET_OUT_TOL
+            and layers["backward"][0] <= RESNET_OUT_TOL):
+        fail("a10c: an NHWC layer differs from its NCHW twin: %s" % layers)
+    free_card()
+    return res
+
+
+def a10c_nhwc_rows(params, aux):
+    """Rows resnet50_nhwc_fp32 and resnet50_nhwc_bf16: the channels-last
+    ResNet-50 beside the NCHW graph in the same run, each fed by a
+    PrefetchingIter on the threaded engine; then the step check."""
+    nchw, nhwc = mx.sym.ZOO["resnet50_v1"](), resnet50_nhwc()
+    it = host_batches(NHWC_BATCH, NHWC_POOL, seed=0)
+    rows = {}
+    for name, dtype in (("resnet50_nhwc_fp32", None),
+                        ("resnet50_nhwc_bf16", "bfloat16")):
+        zero_launches()
+        row = {"nhwc": nhwc_layout_row(nhwc, dtype, params, aux, it),
+               "nchw": nhwc_layout_row(nchw, dtype, params, aux, it)}
+        row["launches"] = read_launches()
+        for layout in ("nhwc", "nchw"):
+            r = row[layout]
+            log("[a10c] %s: %s %s (batch %d, 224², %s, SGD momentum 0.9, "
+                "batches from the host through PrefetchingIter): %.3f ms a "
+                "step, %.2f images/s (host clock, %d steps); one profiled "
+                "step: busy %.3f ms, idle share %.3f, %d device operations, "
+                "%d launch calls; layout copies %d kernels, %.3f ms; device "
+                "ms by kind %s" % (
+                    card(), name, layout.upper(), NHWC_BATCH,
+                    "bf16 through amp" if dtype else "fp32 with TF32 off",
+                    r["ms"], r["imgs_per_sec"], NHWC_STEPS, r["busy_ms"],
+                    r["idle"], r["ops"], r["host_calls"],
+                    r["layout_copies"], r["layout_copy_ms"], ", ".join(
+                        "%s %.3f" % kv for kv in sorted(r["kinds"].items()))))
+            if not r["finite"]:
+                fail("a10c: %s %s gave non-finite outputs" % (name, layout))
+        rows[name] = row
+    it.close()
+    zero_launches()
+    rows["resnet50_nhwc_fp32"]["check"] = nhwc_step_check(nchw, nhwc,
+                                                         params, aux)
+    rows["resnet50_nhwc_fp32"]["launches"] = {
+        k: v + rows["resnet50_nhwc_fp32"]["launches"][k]
+        for k, v in read_launches().items()}
+    return rows
+
+
+def a10c_ragged_serve(params, aux):
+    """Row ragged_serve: a ResNet-50 Module bound for inference at
+    RAGGED_BATCH under the pow2 bucket policy: a cold first call, then
+    ``warmup`` and the first call after it, then batches of
+    RAGGED_SIZES; each against an exact forward of that batch (an
+    executor bound at its size), and no bind while the Module serves
+    them."""
+    free_card()
+    saved = os.environ.get("MXTPU_SHAPE_BUCKETS")
+    os.environ["MXTPU_SHAPE_BUCKETS"] = "pow2"
+    gpu = mx.gpu(0)
+    symbol = mx.sym.ZOO["resnet50_v1"]()
+    gen = torch.Generator(device=gpu.torch_device).manual_seed(3)
+    xs = {b: torch.rand((b, 3, 224, 224), generator=gen,
+                        device=gpu.torch_device) for b in RAGGED_SIZES}
+
+    def serving_module():
+        mod = mx.mod.Module(symbol, data_names=("data0",),
+                            label_names=("softmax_label",), context=gpu)
+        mod.bind(data_shapes=[("data0", (RAGGED_BATCH, 3, 224, 224))],
+                 label_shapes=[("softmax_label", (RAGGED_BATCH,))],
+                 for_training=False)
+        mod.init_params(arg_params=params, aux_params=aux)
+        return mod
+
+    def call(mod, b):
+        t0 = time.perf_counter()
+        mod.forward(mx.io.DataBatch([mx.nd.NDArray(xs[b])], None),
+                    is_train=False)
+        out = mod.get_outputs()[0]._data.clone()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    binds = []
+    real_bind = mx.sym.Symbol.simple_bind
+
+    def counted(self, *a, **kw):
+        binds.append(kw.get("data0"))
+        return real_bind(self, *a, **kw)
+
+    try:
+        _, cold_ms = call(serving_module(), RAGGED_BATCH)
+        mod = serving_module()
+        t0 = time.perf_counter()
+        mod.warmup()
+        torch.cuda.synchronize()
+        warmup_ms = (time.perf_counter() - t0) * 1e3
+        _, warm_ms = call(mod, RAGGED_BATCH)
+        group = mod._exec_group
+        mx.sym.Symbol.simple_bind = counted
+        try:
+            got = {b: call(mod, b) for b in RAGGED_SIZES}
+            again = {b: call(mod, b)[1] for b in RAGGED_SIZES}
+        finally:
+            mx.sym.Symbol.simple_bind = real_bind
+        errs = {}
+        for b in RAGGED_SIZES:
+            ex = symbol.simple_bind(ctx=gpu, grad_req="null",
+                                    data0=(b, 3, 224, 224),
+                                    softmax_label=(b,))
+            ex.copy_params_from(params, aux)
+            want = ex.forward(is_train=False,
+                              data0=mx.nd.NDArray(xs[b]))[0]._data
+            out = got[b][0]
+            errs[b] = float((out.double() - want.double()).norm()
+                            / want.double().norm()) \
+                if out.shape == want.shape else float("inf")
+            del ex
+    finally:
+        if saved is None:
+            os.environ.pop("MXTPU_SHAPE_BUCKETS", None)
+        else:
+            os.environ["MXTPU_SHAPE_BUCKETS"] = saved
+    row = dict(cold_ms=cold_ms, warmup_ms=warmup_ms, warm_ms=warm_ms,
+               ms={b: got[b][1] for b in RAGGED_SIZES}, again_ms=again,
+               rel=errs,
+               binds=len(binds), rebound=mod._exec_group is not group)
+    log("[a10c] %s: ragged_serve: ResNet-50 v1 bound for inference at "
+        "batch %d, pow2 buckets (fp32, TF32 off): the first call of a "
+        "module without warmup %.3f ms; warmup %.3f ms, then the first "
+        "call %.3f ms (host clock, to the outputs on the card); batches "
+        "%s: ms of the first call of each size (which pays two shape "
+        "inferences of the graph for its padding mask) %s, of the second "
+        "%s; against the exact forward (relative L2) %s (bound %g); "
+        "binds while serving %d" % (
+            card(), RAGGED_BATCH, cold_ms, warmup_ms, warm_ms,
+            list(RAGGED_SIZES), ", ".join("%d: %.3f" % (b, v) for b, v
+                                          in row["ms"].items()),
+            ", ".join("%d: %.3f" % kv for kv in again.items()),
+            ", ".join("%d: %.3g" % kv for kv in errs.items()), RAGGED_TOL,
+            len(binds)))
+    if binds or row["rebound"]:
+        fail("a10c: the serving Module bound again (%s)" % binds)
+    if not all(e <= RAGGED_TOL for e in errs.values()):
+        fail("a10c: a ragged batch differs from its exact forward: %s"
+             % errs)
+    del mod, xs, got
+    free_card()
+    return row
+
+
+def lenet(sym):
+    """MXNet's LeNet (examples/image-classification/symbols/lenet.py)."""
+    data = sym.Variable("data")
+    c1 = sym.Convolution(data, kernel=(5, 5), num_filter=20, name="conv1")
+    p1 = sym.Pooling(sym.Activation(c1, act_type="tanh"), pool_type="max",
+                     kernel=(2, 2), stride=(2, 2))
+    c2 = sym.Convolution(p1, kernel=(5, 5), num_filter=50, name="conv2")
+    p2 = sym.Pooling(sym.Activation(c2, act_type="tanh"), pool_type="max",
+                     kernel=(2, 2), stride=(2, 2))
+    f1 = sym.FullyConnected(sym.Flatten(p2), num_hidden=500, name="fc1")
+    f2 = sym.FullyConnected(sym.Activation(f1, act_type="tanh"),
+                            num_hidden=10, name="fc2")
+    return sym.SoftmaxOutput(f2, name="softmax")
+
+
+def synthetic_mnist(n, seed):
+    """``n`` 28x28 images, each its class's fixed pattern plus noise."""
+    rng = np.random.RandomState(seed)
+    label = rng.randint(0, 10, n)
+    proto = np.random.RandomState(99).rand(10, 1, 28, 28)
+    data = 0.7 * proto[label] + 0.3 * rng.rand(n, 1, 28, 28)
+    return data.astype(np.float32), label.astype(np.float32)
+
+
+def a10c_ctx_engine():
+    """Row ctx_engine: the ``with`` scopes placing arrays, a gluon
+    ``initialize()`` and a Module bind; cpu_pinned and cpu_shared
+    arrays; the threaded engine built on this host and an error pushed
+    on it raised at the wait; FeedForward fitting LeNet for an epoch on
+    the card, its predict against Module's."""
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    row = {}
+    bad = []
+    with gpu:
+        a = mx.nd.zeros((2, 3))
+        with cpu:
+            b = mx.nd.ones((2, 3))
+        c = mx.nd.array(np.arange(6, dtype=np.float32))
+        net = mx.gluon.nn.Dense(4, in_units=3)
+        net.initialize()
+        fc = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=4,
+                                   name="fc")
+        mod = mx.mod.Module(fc, label_names=None)
+        mod.bind(data_shapes=[("data", (2, 3))], for_training=False)
+        mod.init_params()
+    with cpu:
+        net_cpu = mx.gluon.nn.Dense(4, in_units=3)
+        net_cpu.initialize()
+    placed = {"array": a.ctx, "nested cpu": b.ctx, "after nesting": c.ctx,
+              "gluon": net.weight.data().ctx,
+              "gluon under cpu": net_cpu.weight.data().ctx,
+              "module": mod.get_params()[0]["fc_weight"].ctx,
+              "no scope": mx.current_context()}
+    want = {"array": gpu, "nested cpu": cpu, "after nesting": gpu,
+            "gluon": gpu, "gluon under cpu": cpu, "module": gpu,
+            "no scope": gpu}
+    bad += ["%s on %s" % (k, v) for k, v in placed.items() if v != want[k]]
+    if not (a._data.device == gpu.torch_device
+            and b._data.device.type == "cpu"):
+        bad.append("the tensors' devices")
+    # page-locked and shared host arrays
+    x = np.random.RandomState(0).rand(PIN_MB << 18).astype(np.float32)
+    pinned = mx.nd.array(x, ctx=mx.cpu_pinned())
+    plain = mx.nd.array(x, ctx=cpu)
+    on_card = torch.empty(x.shape, device=gpu.torch_device)
+
+    def copy_ms(src, non_blocking):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card.copy_(src._data, non_blocking=non_blocking)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    copy_ms(pinned, True)
+    row["pinned_ms"] = min(copy_ms(pinned, True) for _ in range(3))
+    row["pinned_equal"] = bool(torch.equal(on_card.cpu(), plain._data))
+    row["pageable_ms"] = min(copy_ms(plain, False) for _ in range(3))
+    if not (pinned._data.is_pinned() and pinned.ctx == mx.cpu_pinned()
+            and row["pinned_equal"]):
+        bad.append("cpu_pinned: pinned %s, ctx %s, copy equal %s" % (
+            pinned._data.is_pinned(), pinned.ctx, row["pinned_equal"]))
+    shared = mx.nd.array(x[:1024], ctx=mx.cpu_shared())
+    if not (shared._data.is_shared() and shared.ctx == mx.cpu_shared()
+            and np.array_equal(shared.copyto(gpu).asnumpy(), x[:1024])):
+        bad.append("cpu_shared")
+    del pinned, plain, on_card, shared
+    # the engine: built here (once more into a temporary directory, to
+    # time g++ on this host), an error raised at the wait
+    lib = mx.engine.get_lib()
+    tmp = tempfile.mkdtemp(prefix="a10c_engine_")
+    t0 = time.monotonic()
+    mx.engine.build(tmp)
+    row["engine_build_s"] = time.monotonic() - t0
+    shutil.rmtree(tmp, ignore_errors=True)
+    eng = mx.engine.get_engine()
+    var = eng.new_var()
+
+    def boom():
+        raise ValueError("raised on a worker thread")
+
+    eng.push(boom, mutable_vars=[var])
+    try:
+        eng.wait_for_var(var)
+        row["error_at_wait"] = None
+    except mx.MXNetError as e:
+        row["error_at_wait"] = str(e)
+    if not isinstance(eng, mx.engine.ThreadedEngine) or \
+            "raised on a worker thread" not in (row["error_at_wait"] or ""):
+        bad.append("the engine: %s, error at the wait %r"
+                   % (type(eng).__name__, row["error_at_wait"]))
+    # FeedForward: LeNet for an epoch on the card
+    xtr, ytr = synthetic_mnist(LENET_TRAIN, 1)
+    xte, yte = synthetic_mnist(LENET_TEST, 2)
+    symbol = lenet(mx.sym)
+    mx.random.seed(0)
+    ff = mx.model.FeedForward(symbol, ctx=gpu, num_epoch=1,
+                              optimizer="sgd",
+                              initializer=mx.initializer.Xavier())
+    t0 = time.monotonic()
+    ff.fit(mx.io.NDArrayIter(xtr, ytr, batch_size=LENET_BATCH, ctx=gpu),
+           optimizer_params={"learning_rate": 0.1})
+    row["fit_s"] = time.monotonic() - t0
+    test = mx.io.NDArrayIter(xte, yte, batch_size=LENET_BATCH, ctx=gpu)
+    pred = ff.predict(test)
+    row["accuracy"] = ff.score(test)
+    lmod = mx.mod.Module(symbol, context=gpu)
+    lmod.bind(data_shapes=test.provide_data,
+              label_shapes=test.provide_label, for_training=False)
+    lmod.set_params(ff.arg_params, ff.aux_params)
+    mpred = lmod.predict(test).asnumpy()
+    row["predict_rel"] = float(np.linalg.norm(pred - mpred)
+                               / np.linalg.norm(mpred))
+    row["predict_bitwise"] = bool(np.array_equal(pred, mpred))
+    row["bad"] = bad
+    log("[a10c] %s: ctx_engine: placed by the scopes %s; a %d MB host "
+        "array to the card: pinned, non_blocking %.3f ms (%.2f GB/s, "
+        "equal %s), pageable %.3f ms (%.2f GB/s); the engine built from "
+        "src/engine.cc in %.1f s (%s), %s, an error pushed on it raised "
+        "at the wait: %r; FeedForward LeNet, one epoch of %d synthetic "
+        "MNIST images at batch %d on the card in %.1f s, accuracy %.4f on "
+        "%d more; its predict against Module's: relative L2 %.3g, bitwise "
+        "%s" % (card(), {k: str(v) for k, v in placed.items()}, PIN_MB,
+                row["pinned_ms"], x.nbytes / row["pinned_ms"] / 1e6,
+                row["pinned_equal"], row["pageable_ms"],
+                x.nbytes / row["pageable_ms"] / 1e6, row["engine_build_s"],
+                lib._name, type(eng).__name__, row["error_at_wait"],
+                LENET_TRAIN, LENET_BATCH, row["fit_s"], row["accuracy"],
+                LENET_TEST, row["predict_rel"], row["predict_bitwise"]))
+    if not row["predict_rel"] <= 1e-6:
+        bad.append("FeedForward's predict differs from Module's by %.3g"
+                   % row["predict_rel"])
+    if bad:
+        fail("a10c: ctx_engine: %s" % "; ".join(bad))
+    return row
+
+
+def phase_a10c():
+    """A10c's leftovers on the card: the rows ctx_engine,
+    imagenet_monitor, resnet50_nhwc_fp32, resnet50_nhwc_bf16 (with the
+    step check) and ragged_serve; returns the rows."""
+    t0 = time.monotonic()
+    rows = {}
+    zero_launches()
+    rows["ctx_engine"] = a10c_ctx_engine()
+    rows["ctx_engine"]["launches"] = read_launches()
+    zero_launches()
+    rows["imagenet_monitor"] = a10c_imagenet_monitor()
+    rows["imagenet_monitor"]["launches"] = read_launches()
+    params, aux = resnet_weights()
+    rows.update(a10c_nhwc_rows(params, aux))
+    zero_launches()
+    rows["ragged_serve"] = a10c_ragged_serve(params, aux)
+    rows["ragged_serve"]["launches"] = read_launches()
+    for name, r in rows.items():
+        if any(r["launches"].values()):
+            fail("a10c: %s launched a flash-attention kernel: %s"
+                 % (name, r["launches"]))
+    log("[a10c] %s: flash-attention launches by row %s; the phase took "
+        "%.1f s" % (card(), {k: r["launches"] for k, r in rows.items()},
+                    time.monotonic() - t0))
+    del params, aux
+    free_card()
+    return rows
+
+
 # a process of the --parent comparison: the sparse and lm phases of the
 # checkout in its working directory, their rows printed as JSON
 PARENT_CODE = ("import json, sys; sys.argv = ['chip_smoke.py']; "
@@ -9019,6 +9713,7 @@ def main():
     data = phase_data()
     det = phase_det()
     quant = phase_quant()
+    a10c = phase_a10c()
     sources = {"flash_fwd": ("flash_fwd.cu", 149),
                "flash_bwd_dq": ("flash_bwd.cu", 277),
                "flash_bwd_dkv": ("flash_bwd.cu", 309)}
@@ -9041,7 +9736,7 @@ def main():
                         for row, r in mnist.items()})
         by_path.update({row: r["launches"][name]
                         for rows in (zoo, imagenet, optim, rand, gan, seq,
-                                     cflow, data, det, quant)
+                                     cflow, data, det, quant, a10c)
                         for row, r in rows.items()})
         kernels.append(dict(
             name=name, route="cuda",

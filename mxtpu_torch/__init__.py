@@ -2,8 +2,8 @@
 
 Counterpart of ``mxtpu/__init__.py``.  The port imports ``torch``, numpy
 and the standard library, never JAX and nothing of ``mxtpu``.  Its entry
-points run on the card unless the caller passes ``mx.cpu()`` or
-``device="cpu"``.
+points run on the card unless the caller passes ``mx.cpu()`` (or
+``device="cpu"``), or runs them under ``with mx.cpu():``.
 
 Ported so far:
 
@@ -57,7 +57,12 @@ Ported so far:
 * the detection ops; INT8 post-training quantization
   (``contrib.quantization``, on the ``subgraph`` framework, with its
   Conv+BN fold backend ``"TPU"``), the dgl graph ops, and the user's
-  Python ops (``operator``, ``nd.Custom``/``sym.Custom``).
+  Python ops (``operator``, ``nd.Custom``/``sym.Custom``);
+* ``Context`` with its ``with`` scope, ``cpu_pinned`` and
+  ``cpu_shared``; the dependency ``engine``; ``libinfo``, ``log`` and
+  ``util``; channels-last Convolution and Pooling; ``monitor``; the
+  executor's ``reshape``, ``warmup`` and ragged inference; and
+  ``model.FeedForward``.
 
 Importing the package starts no parameter-server role, whatever
 ``MXTPU_ROLE`` says: a launched server or scheduler runs
@@ -66,7 +71,12 @@ Importing the package starts no parameter-server role, whatever
 from . import base
 from .base import MXNetError, MemoryExhaustedError, RequestShedError
 from . import context
-from .context import cpu, gpu, num_gpus, current_context
+from .context import (Context, cpu, gpu, cpu_pinned, cpu_shared, num_gpus,
+                      current_context)
+from . import engine
+from . import log
+from . import util
+from . import libinfo
 from . import ops
 from . import amp
 from . import autograd
@@ -110,10 +120,12 @@ from . import rnn
 from . import parallel
 from . import serve
 from . import contrib
+from . import monitor
 from .fused_train import FusedTrainLoop
 
-__all__ = ["base", "context", "cpu", "gpu", "num_gpus", "current_context",
-           "ops",
+__all__ = ["base", "context", "Context", "cpu", "gpu", "cpu_pinned",
+           "cpu_shared", "num_gpus", "current_context", "engine", "log",
+           "util", "libinfo", "monitor", "ops",
            "amp", "autograd", "random", "seed", "ndarray", "nd", "NDArray",
            "symbol", "sym", "Symbol", "AttrScope", "name", "control_flow",
            "executor", "Executor", "subgraph", "operator", "contrib",

@@ -26,7 +26,9 @@ recorded result (torch's graph of the derivative), which a later
 ``backward`` or ``grad`` differentiates again.  ``Function`` is the
 custom differentiable function: ``forward`` and ``backward`` over
 NDArrays, run under ``pause()``, bridged to a
-``torch.autograd.Function``.
+``torch.autograd.Function``.  ``get_symbol`` raises, as the JAX
+package's does: a recorded computation becomes a graph through
+``hybridize()``.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training",
-           "mark_variables", "backward", "grad", "Function"]
+           "mark_variables", "backward", "grad", "get_symbol", "Function"]
 
 
 class _AGState(threading.local):
@@ -261,6 +263,10 @@ class _FunctionBridge(torch.autograd.Function):
                              "inputs" % (len(igrads), ctx.n_in))
         return (None,) + tuple(g._data if isinstance(g, NDArray) else g
                                for g in igrads)
+
+
+def get_symbol(x):
+    raise MXNetError("autograd.get_symbol is not supported; use hybridize()")
 
 
 class Function(object):

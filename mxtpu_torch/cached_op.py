@@ -86,7 +86,7 @@ class CachedOp(object):
         if len(aux_arrays) != len(self._aux_names):
             raise MXNetError("CachedOp expects %d aux arrays, got %d"
                              % (len(self._aux_names), len(aux_arrays)))
-        device = args[0].ctx
+        device = args[0]._data.device
         training = _ag.is_training()
         fn = self._graph_fn(device, training)
         with torch.set_grad_enabled(_ag.is_recording()):

@@ -6,18 +6,24 @@ Counterpart of the "Shape buckets" part of ``mxtpu/compile_cache.py``
 ``pow2`` (pad the leading batch dim up to the next power of two),
 ``mult:N`` (round up to a multiple of N), ``fixed:a,b,c`` (the smallest
 listed size that fits; larger batches run exact), ``1`` for ``pow2``,
-and ``0``/``off`` for no bucketing.  The XLA persistent cache of that
-module has no counterpart: PyTorch runs eagerly and compiles nothing
-per shape.
+and ``0``/``off`` for no bucketing; and the ragged-inference helpers
+``bucketing_enabled``, ``pad_leading`` and ``batch_output_mask``, with
+which the executor serves a batch of another size than it was bound at
+without a rebind.  The XLA persistent cache of that module has no
+counterpart: PyTorch runs eagerly and compiles nothing per shape.
 """
 from __future__ import annotations
 
 import functools
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
 
 from .base import MXNetError, getenv
 
-__all__ = ["get_bucket_policy", "bucket_batch", "bucket_set"]
+__all__ = ["get_bucket_policy", "bucketing_enabled", "bucket_batch",
+           "bucket_set", "pad_leading", "batch_output_mask"]
 
 
 def get_bucket_policy() -> Optional[str]:
@@ -27,6 +33,10 @@ def get_bucket_policy() -> Optional[str]:
     if spec in (None, "", "0", "off", "false", "False", "none"):
         return None
     return "pow2" if spec in ("1", "true", "True") else spec
+
+
+def bucketing_enabled() -> bool:
+    return get_bucket_policy() is not None
 
 
 @functools.lru_cache(maxsize=64)
@@ -79,3 +89,36 @@ def bucket_set(cap: int, spec: Optional[str] = None) -> List[int]:
     cap = max(1, int(cap))
     sizes = sorted({bucket_batch(n, spec) for n in range(1, cap + 1)})
     return [s for s in sizes if s <= cap] or [cap]
+
+
+def pad_leading(val: torch.Tensor, target: int) -> torch.Tensor:
+    """``val`` with zero rows appended to its leading dim up to
+    ``target``."""
+    n = val.shape[0]
+    if n == target:
+        return val
+    return F.pad(val, (0, 0) * (val.dim() - 1) + (0, target - n))
+
+
+def batch_output_mask(symbol, arg_names: Sequence[str],
+                      unpadded_shapes: Sequence[Tuple[int, ...]],
+                      padded_shapes: Sequence[Tuple[int, ...]]):
+    """Which outputs of the graph carry the (padded) batch dim, by shape
+    inference at both sizes: an output whose leading dim only happens to
+    equal the bucket must not be cut.  A list of bools (True: cut the
+    padding off), or None when inference cannot tell."""
+    try:
+        _, outs_u, _ = symbol.infer_shape_partial(
+            **dict(zip(arg_names, unpadded_shapes)))
+        _, outs_p, _ = symbol.infer_shape_partial(
+            **dict(zip(arg_names, padded_shapes)))
+    except Exception:
+        return None
+    if outs_u is None or outs_p is None:
+        return None
+    mask = []
+    for su, sp in zip(outs_u, outs_p):
+        if su is None or sp is None:
+            return None
+        mask.append(bool(su) and bool(sp) and su[0] != sp[0])
+    return mask

@@ -22,8 +22,23 @@ the JAX package.
 
 ``MXNET_BACKWARD_DO_MIRROR`` (or ``MXTPU_...``) wraps the training
 graph in :func:`apply_remat` under ``MXTPU_REMAT_POLICY`` (default
-``full``).  The graph passes, the inspect/health/perf/profiler hooks
-and bucketed dispatch are not ported.
+``full``).  The graph passes and the inspect/health/perf/profiler hooks
+are not ported.
+
+Ragged inference: with a bucket policy on (``MXTPU_SHAPE_BUCKETS``,
+``compile_cache``), ``forward(is_train=False, data=x)`` with an ``x``
+whose leading dim differs from the bound shape pads it with zero rows
+up to the policy's bucket, runs the graph at that size on the bound
+parameters, and cuts the padding off the outputs that carry the batch
+(``_forward_bucketed``); the bound arrays are not touched.  Where shape
+inference cannot tell which outputs carry the batch, it runs at the
+batch's own size.  ``warmup`` runs the inference graph once (and the
+training graph with its backward, when the executor has gradients) on
+zeros of the bound shapes, so that cuDNN's algorithm choice and the
+allocator's first blocks are not paid by the first real batch; it
+changes no bound value, aux state or random state.  ``reshape`` binds
+the symbol anew at other shapes, with the values of the arrays whose
+shapes stayed; ``set_monitor_callback`` keeps what a ``Monitor`` reads.
 
 Remat: ``jax.checkpoint`` with a policy becomes
 :func:`torch.utils.checkpoint.checkpoint` (non-reentrant) with a
@@ -198,6 +213,7 @@ class Executor(object):
         self._symbol = symbol
         self._ctx = resolve(ctx)
         self._arg_names = symbol.list_arguments()
+        self._arg_pos = {n: i for i, n in enumerate(self._arg_names)}
         self._aux_names = symbol.list_auxiliary_states()
         self.arg_arrays = arg_arrays
         self.grad_arrays = grad_arrays
@@ -221,6 +237,9 @@ class Executor(object):
                                          self._amp_dtype)
         # (leaf tensors, output tensors) of the last forward(is_train=True)
         self._pending = None
+        self._monitor_callback = None
+        # (batch, bucket, shapes) -> which outputs carry the batch
+        self._pad_masks: Dict[tuple, Optional[List[bool]]] = {}
 
     # -- binding entry points --------------------------------------------
     @staticmethod
@@ -290,6 +309,9 @@ class Executor(object):
         """Run the graph; ``kwargs`` are written into the named
         arguments first.  With ``is_train`` and arguments that want a
         gradient, the graph is kept for ``backward``."""
+        from . import compile_cache as _cc
+
+        ragged: Dict[int, torch.Tensor] = {}
         for name, val in kwargs.items():
             if name not in self.arg_dict:
                 raise MXNetError("unknown argument %r" % name)
@@ -297,9 +319,21 @@ class Executor(object):
                 torch.as_tensor(np.asarray(val)))
             dst = self.arg_dict[name]
             if src.shape != dst.shape:
+                if not is_train and len(src.shape) == len(dst.shape) \
+                        and src.shape[1:] == dst.shape[1:] \
+                        and _cc.bucketing_enabled():
+                    # the slot the graph reads (the last of a name)
+                    ragged[self._arg_pos[name]] = src._data.to(
+                        dst._data.device, dst._data.dtype)
+                    continue
                 raise MXNetError("shape mismatch for %r: %s vs bound %s"
                                  % (name, src.shape, dst.shape))
             dst._set_data(src._data)
+        if ragged:
+            self._pending = None
+            self.outputs = [NDArray(o) for o in
+                            self._forward_bucketed(ragged)]
+            return self.outputs
         aux_vals = [a._data for a in self.aux_arrays]
         if is_train and self._diff_idx:
             vals = [a._data for a in self.arg_arrays]
@@ -320,6 +354,75 @@ class Executor(object):
             self._write_aux(aux_new)
         self.outputs = [NDArray(o.detach()) for o in outs]
         return self.outputs
+
+    def _forward_bucketed(self, ragged: Dict[int, torch.Tensor]):
+        """The inference outputs for arguments whose leading dim differs
+        from the bound one: padded up to the bucket, run, and cut back
+        where an output carries the batch; at the batch's own size when
+        some output does not."""
+        from . import compile_cache as _cc
+
+        sizes = {v.shape[0] for v in ragged.values()}
+        if len(sizes) != 1:
+            raise MXNetError("ragged inputs disagree on leading batch "
+                             "dim: %s" % sorted(sizes))
+        b = sizes.pop()
+        bp = _cc.bucket_batch(b)
+        mask = self._pad_mask(ragged, b, bp) if bp != b else None
+        vals = [a._data for a in self.arg_arrays]
+        for i, v in ragged.items():
+            vals[i] = _cc.pad_leading(v, bp) if mask is not None else v
+        with torch.no_grad():
+            outs, _ = self._infer_fn(vals, [a._data for a in
+                                            self.aux_arrays])
+        if mask is not None:
+            outs = [o[:b] if m else o for o, m in zip(outs, mask)]
+        return outs
+
+    def _pad_mask(self, ragged, b: int, bp: int):
+        """Which outputs to cut when padding ``b`` rows to ``bp``
+        (cached); None when one of them does not carry the batch."""
+        from . import compile_cache as _cc
+
+        shapes_u = tuple((b,) + tuple(a.shape[1:]) if i in ragged
+                         else tuple(a.shape)
+                         for i, a in enumerate(self.arg_arrays))
+        key = (b, bp, shapes_u)
+        if key not in self._pad_masks:
+            shapes_p = tuple((bp,) + s[1:] if i in ragged else s
+                             for i, s in enumerate(shapes_u))
+            mask = _cc.batch_output_mask(self._symbol, self._arg_names,
+                                         shapes_u, shapes_p)
+            self._pad_masks[key] = mask if mask and all(mask) else None
+        return self._pad_masks[key]
+
+    def warmup(self, for_training: Optional[bool] = None):
+        """Run the inference graph, and the training graph with its
+        backward when the executor has gradients (or ``for_training``),
+        once on zeros of the bound shapes; the bound arrays, aux states
+        and random state stay as they were.  Returns self."""
+        from . import random as _rnd
+
+        if for_training is None:
+            for_training = bool(self._diff_idx)
+        state = _rnd.get_state() if self._has_rng else None
+        vals = [torch.zeros_like(a._data) for a in self.arg_arrays]
+        aux = [torch.zeros_like(a._data) for a in self.aux_arrays]
+        try:
+            with torch.no_grad():
+                self._infer_fn(vals, aux)
+            if for_training and self._diff_idx:
+                leaves = [vals[i].requires_grad_(True)
+                          for i in self._diff_idx]
+                with torch.enable_grad():
+                    outs, _ = self._train_fn(vals, aux)
+                    torch.autograd.grad(
+                        outs, leaves, [torch.ones_like(o) for o in outs],
+                        allow_unused=True)
+        finally:
+            if state is not None:
+                _rnd.set_state(state)
+        return self
 
     def backward(self, out_grads=None):
         """Write (or add) the gradients of the last training forward's
@@ -355,6 +458,35 @@ class Executor(object):
                 arr._set_data(val)
 
     # -- utilities --------------------------------------------------------
+    @property
+    def output_dict(self) -> Dict[str, NDArray]:
+        return dict(zip(self._symbol.list_outputs(), self.outputs))
+
+    def set_monitor_callback(self, callback, monitor_all: bool = False):
+        """Keep the statistic a ``Monitor`` installs; the monitor itself
+        reads the outputs (and with ``monitor_all`` the arguments and aux
+        states) after the forward."""
+        self._monitor_callback = callback
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False,
+                **kwargs) -> "Executor":
+        """A new executor of the same symbol, grad_reqs and dtypes at
+        the shapes ``kwargs`` give (the others as bound), holding this
+        one's values of the arrays whose shapes stayed."""
+        shapes = {n: a.shape for n, a in self.arg_dict.items()}
+        shapes.update(kwargs)
+        new = Executor._simple_bind(
+            self._symbol, self._ctx, dict(zip(self._arg_names,
+                                              self._grad_req)),
+            {n: a.dtype for n, a in self.arg_dict.items()}, shapes)
+        for n, a in self.arg_dict.items():
+            if new.arg_dict[n].shape == a.shape:
+                a.copyto(new.arg_dict[n])
+        for n, a in self.aux_dict.items():
+            if new.aux_dict[n].shape == a.shape:
+                a.copyto(new.aux_dict[n])
+        return new
+
     def copy_params_from(self, arg_params: Dict[str, NDArray],
                          aux_params: Optional[Dict[str, NDArray]] = None,
                          allow_extra_params: bool = False):

@@ -26,7 +26,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..base import MXNetError, np_dtype
-from ..context import current_context, resolve
+from ..context import as_context, current_context, resolve
 from ..ndarray.ndarray import NDArray, array as nd_array, zeros as nd_zeros
 from .. import initializer as _init_mod
 
@@ -169,7 +169,7 @@ class Parameter(object):
 
     def data(self, ctx=None) -> NDArray:
         self._check_initialized()
-        if ctx is None or resolve(ctx) == self._data[0].ctx:
+        if ctx is None or resolve(ctx) == self._data[0]._data.device:
             return self._data[0]
         raise MXNetError("Parameter %s is not initialized on %s"
                          % (self.name, ctx))
@@ -183,7 +183,7 @@ class Parameter(object):
         if self._grad is None:
             raise MXNetError("Parameter %s has grad_req='null'; no gradient"
                              % self.name)
-        if ctx is None or resolve(ctx) == self._data[0].ctx:
+        if ctx is None or resolve(ctx) == self._data[0]._data.device:
             return self._grad[0]
         raise MXNetError("no gradient of %s on %s" % (self.name, ctx))
 
@@ -195,7 +195,7 @@ class Parameter(object):
 
     def list_ctx(self):
         if self._data is None and self._deferred_init:
-            return list(self._deferred_init[1])
+            return [as_context(c) for c in self._deferred_init[1]]
         self._check_initialized()
         return [d.ctx for d in self._data]
 

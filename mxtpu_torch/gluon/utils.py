@@ -1,9 +1,10 @@
 """Gluon utilities of the PyTorch port (counterpart of
-``mxtpu/gluon/utils.py``): ``split_data``, ``split_and_load`` and
-``clip_global_norm``.  ``download`` is not ported: the port reads
-files from disk."""
+``mxtpu/gluon/utils.py``): ``split_data``, ``split_and_load``,
+``clip_global_norm`` and ``check_sha1``.  ``download`` raises, as the
+JAX package's does: the port reads its files from disk."""
 from __future__ import annotations
 
+import hashlib
 import math
 import warnings
 from typing import List
@@ -13,7 +14,8 @@ import torch
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray, array as nd_array
 
-__all__ = ["split_data", "split_and_load", "clip_global_norm"]
+__all__ = ["split_data", "split_and_load", "clip_global_norm",
+           "check_sha1", "download"]
 
 
 def split_data(data: NDArray, num_slice: int, batch_axis=0,
@@ -58,3 +60,21 @@ def clip_global_norm(arrays: List[NDArray], max_norm: float,
             for a in arrays:
                 a._data.mul_(scale)
     return total
+
+
+def check_sha1(filename, sha1_hash) -> bool:
+    """Whether the file's SHA-1 digest is ``sha1_hash`` (hex)."""
+    sha1 = hashlib.sha1()
+    with open(filename, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            sha1.update(chunk)
+    return sha1.hexdigest() == sha1_hash
+
+
+def download(url, path=None, overwrite=False, sha1_hash=None, retries=5,
+             verify_ssl=True):
+    """Raises: the port fetches nothing over the network; place the file
+    on disk and pass its path instead."""
+    raise MXNetError(
+        "download() is unavailable: this environment has no network egress. "
+        "Place files locally and pass the path instead.")

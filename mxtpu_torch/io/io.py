@@ -4,15 +4,13 @@
 ``CSVIter``, ``LibSVMIter``, ``MNISTIter`` and ``create``).  Batches
 are made on the host and become NDArrays (CSR arrays for
 ``LibSVMIter``) on ``ctx`` (default: the card) as they are taken.
-``PrefetchingIter`` runs its producer on a thread of its own (the JAX
-package's runs on its dependency engine), joined at ``reset`` and
-``close``."""
+``PrefetchingIter`` runs its producer tasks on the dependency engine
+(``mxtpu_torch/engine.py``), as the JAX package's does."""
 from __future__ import annotations
 
 import gzip
 import queue
 import struct
-import threading
 from collections import namedtuple
 
 import numpy as np
@@ -294,22 +292,29 @@ class ResizeIter(DataIter):
 
 class PrefetchingIter(DataIter):
     """The batches of one or more iterators (merged into one batch a
-    step), taken ahead of the consumer by a producer thread, at most
-    ``prefetch_depth`` of them waiting.  ``reset`` stops and joins the
-    producer before it resets the iterators; ``close`` stops it for
-    good.  An error in the producer is raised by ``next``."""
+    step), taken ahead of the consumer by producer tasks on the
+    dependency engine (``engine.get_engine()``), one batch a task, at
+    most ``prefetch_depth`` of them ahead.  The tasks write one engine
+    variable, so they run in order: under the threaded engine on its
+    worker threads, beside the consumer; under ``NaiveEngine`` each at
+    its push.  ``reset`` and ``close`` wait for every task pushed; an
+    error in a task is raised by ``next``."""
 
     def __init__(self, iters, rename_data=None, rename_label=None,
                  prefetch_depth=2):
+        from .. import engine as _engine_mod
+
         if not isinstance(iters, (list, tuple)):
             iters = [iters]
         super().__init__(iters[0].batch_size)
         self.iters = iters
         self.rename_data = rename_data
         self.rename_label = rename_label
+        self._engine = _engine_mod.get_engine()
+        self._var = self._engine.new_var()
         self._depth = max(1, int(prefetch_depth))
-        self._thread = None
-        self._start()
+        self._queue = queue.Queue()
+        self._prime()
 
     @property
     def provide_data(self):
@@ -327,51 +332,41 @@ class PrefetchingIter(DataIter):
                      for d in i.provide_label]
                     for r, i in zip(self.rename_label, self.iters)], [])
 
-    def _produce(self, q, stop):
-        """One epoch: a list of batches (one of each iterator) at a time,
-        then None (the end) or the error raised."""
-        def put(item):
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.05)
-                    return True
-                except queue.Full:
-                    pass
-            return False
+    def _produce_one(self):
+        """One task: a batch of every iterator onto the queue, or None
+        (the end), or the error raised."""
+        try:
+            batches = [i.next() for i in self.iters]
+        except StopIteration:
+            self._queue.put(None)
+            return
+        except Exception as e:  # raised again by next()
+            self._queue.put(e)
+            return
+        self._queue.put(batches)
 
-        while not stop.is_set():
-            try:
-                batches = [i.next() for i in self.iters]
-            except StopIteration:
-                put(None)
-                return
-            except Exception as e:  # raised again by next()
-                put(e)
-                return
-            if not put(batches):
-                return
+    def _schedule(self):
+        self._engine.push(self._produce_one, mutable_vars=[self._var])
 
-    def _start(self):
-        self._queue = queue.Queue(maxsize=self._depth)
-        self._stop = threading.Event()
+    def _prime(self):
         self._seen_end = False
-        self._thread = threading.Thread(
-            target=self._produce, args=(self._queue, self._stop),
-            name="PrefetchingIter", daemon=True)
-        self._thread.start()
+        for _ in range(self._depth):
+            self._schedule()
 
     def close(self):
-        """Stop the producer and join it."""
-        if self._thread is not None:
-            self._stop.set()
-            self._thread.join()
-            self._thread = None
+        """Wait for every task pushed and drop what they made."""
+        self._engine.wait_for_var(self._var)
+        while True:
+            try:
+                self._queue.get_nowait()
+            except queue.Empty:
+                break
 
     def reset(self):
         self.close()
         for i in self.iters:
             i.reset()
-        self._start()
+        self._prime()
 
     def __next__(self):
         if self._seen_end:
@@ -382,6 +377,7 @@ class PrefetchingIter(DataIter):
             if got is None:
                 raise StopIteration
             raise got
+        self._schedule()  # keep prefetch_depth batches in flight
         if len(got) == 1:
             return got[0]
         return DataBatch(

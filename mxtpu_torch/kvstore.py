@@ -347,7 +347,7 @@ class KVStoreDist(KVStoreDevice):
                 if d.stype != "default":
                     raise MXNetError("pull into %s output: use "
                                      "row_sparse_pull" % d.stype)
-                d._set_data(src.to(d.ctx))
+                d._set_data(src.to(d._data.device))
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
         """Only the rows ``row_ids`` cross the wire."""

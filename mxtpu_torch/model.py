@@ -13,7 +13,12 @@ device for a name without ``dist`` other than ``tpu`` (``local``,
 store (``dist_sync``, ``dist_async``...), with the optimizer on the
 store unless a ``local`` store's largest parameter passes 16M
 elements.  The CRC manifest of the JAX package's atomic checkpoints is
-not written, and is not needed to read one.
+not written, and is not needed to read one (reading it,
+``read_checkpoint_meta``, comes with A17).
+
+``FeedForward`` is the legacy estimator over ``module.Module``:
+``fit``/``predict``/``score`` on data iterators, ``save``/``load`` of
+checkpoints, on ``ctx`` (default: the current context).
 """
 from __future__ import annotations
 
@@ -22,11 +27,13 @@ from collections import namedtuple
 import numpy as np
 
 from .base import MXNetError
+from .context import current_context
 from .ndarray import ndarray as nd_mod
 from . import kvstore as kvs
 from . import symbol as sym_mod
 
-__all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint"]
+__all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint",
+           "FeedForward"]
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
@@ -126,3 +133,83 @@ def load_checkpoint(prefix: str, epoch: int, ctx=None):
         elif tp == "aux":
             aux_params[name] = v
     return symbol, arg_params, aux_params
+
+
+class FeedForward(object):
+    """The legacy estimator: a ``Module`` made at ``fit`` from the data
+    iterator's names, trained for ``num_epoch`` epochs (1 when None)
+    with ``optimizer`` and ``initializer`` (``Uniform(0.01)`` when
+    None), from ``arg_params``/``aux_params`` when given."""
+
+    def __init__(self, symbol, ctx=None, num_epoch=None, epoch_size=None,
+                 optimizer="sgd", initializer=None, numpy_batch_size=128,
+                 arg_params=None, aux_params=None, begin_epoch=0,
+                 **kwargs):
+        from .initializer import Uniform
+
+        self.symbol = symbol
+        self.ctx = list(ctx) if isinstance(ctx, (list, tuple)) else \
+            [ctx or current_context()]
+        self.num_epoch = num_epoch
+        self.epoch_size = epoch_size
+        self.optimizer = optimizer
+        self.initializer = initializer or Uniform(0.01)
+        self.numpy_batch_size = numpy_batch_size
+        self.arg_params = arg_params
+        self.aux_params = aux_params
+        self.begin_epoch = begin_epoch
+        self.kwargs = kwargs
+        self._module = None
+
+    def fit(self, X, y=None, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None,
+            kvstore="local", logger=None, optimizer_params=None):
+        from .module import Module
+
+        mod = Module(self.symbol,
+                     data_names=[d[0] for d in X.provide_data],
+                     label_names=[l[0] for l in X.provide_label],
+                     context=self.ctx)
+        mod.fit(X, eval_data=eval_data, eval_metric=eval_metric,
+                epoch_end_callback=epoch_end_callback,
+                batch_end_callback=batch_end_callback, kvstore=kvstore,
+                optimizer=self.optimizer,
+                optimizer_params=optimizer_params or
+                {"learning_rate": 0.01},
+                initializer=self.initializer,
+                arg_params=self.arg_params, aux_params=self.aux_params,
+                begin_epoch=self.begin_epoch,
+                num_epoch=self.num_epoch or 1)
+        self._module = mod
+        self.arg_params, self.aux_params = mod.get_params()
+        return self
+
+    def predict(self, X, num_batch=None):
+        """The outputs over ``X`` as numpy arrays (one array for one
+        output)."""
+        if self._module is None:
+            raise MXNetError("fit() first")
+        outs = self._module.predict(X, num_batch=num_batch)
+        return outs.asnumpy() if not isinstance(outs, list) else \
+            [o.asnumpy() for o in outs]
+
+    def score(self, X, eval_metric="acc", num_batch=None):
+        """The metric's value over ``X``."""
+        if self._module is None:
+            raise MXNetError("fit() first")
+        return self._module.score(X, eval_metric, num_batch=num_batch)[0][1]
+
+    def save(self, prefix, epoch=None):
+        save_checkpoint(prefix, epoch if epoch is not None else
+                        (self.num_epoch or 0), self.symbol,
+                        self.arg_params or {}, self.aux_params or {})
+
+    @staticmethod
+    def load(prefix, epoch, ctx=None, **kwargs):
+        """A FeedForward from a checkpoint, to train on from ``epoch``."""
+        symbol, arg_params, aux_params = load_checkpoint(
+            prefix, epoch, ctx=ctx[0] if isinstance(ctx, (list, tuple))
+            else ctx)
+        return FeedForward(symbol, ctx=ctx, arg_params=arg_params,
+                           aux_params=aux_params, begin_epoch=epoch,
+                           **kwargs)

@@ -1,7 +1,7 @@
 """BaseModule of the PyTorch port: the high-level train and predict
-loop (counterpart of ``fit``, ``score``, ``predict``,
-``forward_backward`` and ``set_params`` in
-``mxtpu/module/base_module.py``)."""
+loop (counterpart of ``fit`` with its ``monitor``, ``score``,
+``predict``, ``iter_predict``, ``prepare``, ``forward_backward`` and
+``set_params`` in ``mxtpu/module/base_module.py``)."""
 from __future__ import annotations
 
 import logging
@@ -35,6 +35,20 @@ class BaseModule(object):
     def symbol(self):
         return self._symbol
 
+    @property
+    def output_shapes(self):
+        raise NotImplementedError
+
+    def install_monitor(self, mon):
+        raise NotImplementedError
+
+    def get_input_grads(self, merge_multi_context=True):
+        raise NotImplementedError
+
+    def prepare(self, data_batch, sparse_row_id_fn=None):
+        """A hook run before each batch's forward (the reference pulls
+        row-sparse weights there); nothing to do here."""
+
     def forward_backward(self, data_batch):
         self.forward(data_batch, is_train=True)
         self.backward()
@@ -51,12 +65,30 @@ class BaseModule(object):
         for nbatch, eval_batch in enumerate(eval_data):
             if num_batch is not None and nbatch == num_batch:
                 break
+            self.prepare(eval_batch)
             self.forward(eval_batch, is_train=False)
             self.update_metric(eval_metric, eval_batch.label)
             for cb in _as_list(batch_end_callback):
                 cb(BatchEndParam(epoch=epoch, nbatch=nbatch,
                                  eval_metric=eval_metric, locals=locals()))
         return eval_metric.get_name_value()
+
+    def iter_predict(self, eval_data, num_batch=None, reset=True,
+                     sparse_row_id_fn=None):
+        """Yield (outputs without the last batch's padding, batch
+        number, batch) over ``eval_data``."""
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("bind() and init_params() first")
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.prepare(eval_batch, sparse_row_id_fn=sparse_row_id_fn)
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            yield ([out[0:out.shape[0] - pad] for out in self.get_outputs()],
+                   nbatch, eval_batch)
 
     def predict(self, eval_data, num_batch=None, merge_batches=True,
                 reset=True, always_output_list=False):
@@ -72,6 +104,7 @@ class BaseModule(object):
         for nbatch, eval_batch in enumerate(eval_data):
             if num_batch is not None and nbatch == num_batch:
                 break
+            self.prepare(eval_batch)
             self.forward(eval_batch, is_train=False)
             pad = eval_batch.pad or 0
             output_list.append([NDArray(out._data[:out.shape[0] - pad].clone())
@@ -93,17 +126,18 @@ class BaseModule(object):
             begin_epoch=0, num_epoch=None, validation_metric=None,
             monitor=None):
         """The training loop: bind, init_params, init_optimizer, then
-        forward/backward/update over ``train_data`` each epoch.
-        ``monitor`` must be None (monitors are not ported)."""
+        forward/backward/update over ``train_data`` each epoch; a
+        ``monitor`` is installed after the bind, armed before each batch
+        and printed after it."""
         from ..initializer import Uniform
 
         if num_epoch is None:
             raise MXNetError("num_epoch required for fit")
-        if monitor is not None:
-            raise MXNetError("monitors are not ported (ROADMAP A10c)")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer or Uniform(0.01),
                          arg_params=arg_params, aux_params=aux_params,
                          allow_missing=allow_missing, force_init=force_init)
@@ -116,9 +150,14 @@ class BaseModule(object):
             tic = time.time()
             eval_metric.reset()
             for nbatch, data_batch in enumerate(train_data):
+                if monitor is not None:
+                    monitor.tic()
+                self.prepare(data_batch)
                 self.forward_backward(data_batch)
                 self.update()
                 self.update_metric(eval_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 for cb in _as_list(batch_end_callback):
                     cb(BatchEndParam(epoch=epoch, nbatch=nbatch,
                                      eval_metric=eval_metric,

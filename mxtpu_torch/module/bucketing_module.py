@@ -9,8 +9,10 @@ on first use with ``shared_module`` set to the default one, so every
 bucket's executor holds the same parameter, gradient and aux tensors,
 and ``borrow_optimizer`` gives it the same optimizer, updater and
 states.  ``forward``/``backward``/``update`` run the current bucket;
-``fit`` is ``BaseModule.fit``.  Monitors and ``get_input_grads`` are not
-ported.
+``fit`` is ``BaseModule.fit``.  A monitor is installed on every bucket's
+executor, those bound later too.  ``save_checkpoint`` writes the
+default bucket's symbol and the shared parameters, and ignores
+``save_optimizer_states``, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ __all__ = ["BucketingModule"]
 class BucketingModule(BaseModule):
     def __init__(self, sym_gen, default_bucket_key=None, logger=logging,
                  context=None, work_load_list=None, fixed_param_names=None,
-                 state_names=None):
+                 state_names=None, group2ctxs=None):
         super().__init__(logger=logger)
         if default_bucket_key is None:
             raise MXNetError("default_bucket_key required")
@@ -39,10 +41,12 @@ class BucketingModule(BaseModule):
         self._context = context if context is not None else current_context()
         self._fixed_param_names = fixed_param_names
         self._state_names = state_names
+        self._group2ctxs = group2ctxs
         self._buckets: Dict[Any, Module] = {}
         self._curr_module: Optional[Module] = None
         self._curr_bucket_key = None
         self._params_dirty = False
+        self._monitor = None
 
     def _reset_bind(self):
         self.binded = False
@@ -55,7 +59,8 @@ class BucketingModule(BaseModule):
         return Module(symbol, data_names, label_names, logger=self.logger,
                       context=self._context,
                       fixed_param_names=self._fixed_param_names,
-                      state_names=self._state_names)
+                      state_names=self._state_names,
+                      group2ctxs=self._group2ctxs)
 
     @property
     def default_module(self) -> Module:
@@ -80,6 +85,10 @@ class BucketingModule(BaseModule):
     @property
     def label_shapes(self):
         return self._curr_module.label_shapes
+
+    @property
+    def output_shapes(self):
+        return self._curr_module.output_shapes
 
     @property
     def symbol(self):
@@ -138,6 +147,8 @@ class BucketingModule(BaseModule):
             module.bind(data_shapes, label_shapes, self.for_training,
                         self.inputs_need_grad,
                         shared_module=self.default_module)
+            if self._monitor is not None:
+                module.install_monitor(self._monitor)
             if self.optimizer_initialized:
                 module.borrow_optimizer(self.default_module)
             self._buckets[bucket_key] = module
@@ -179,14 +190,23 @@ class BucketingModule(BaseModule):
     def get_outputs(self, merge_multi_context=True):
         return self._curr_module.get_outputs(merge_multi_context)
 
+    def get_input_grads(self, merge_multi_context=True):
+        return self._curr_module.get_input_grads(merge_multi_context)
+
     def update_metric(self, eval_metric, labels, pre_sliced=False):
         self._curr_module.update_metric(eval_metric, labels, pre_sliced)
 
+    def install_monitor(self, mon):
+        if not self.binded:
+            raise MXNetError("bind() first")
+        self._monitor = mon
+        for mod in self._buckets.values():
+            mod.install_monitor(mon)
+
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
-        """The default bucket's symbol and the shared parameters."""
-        if save_optimizer_states:
-            raise MXNetError("optimizer-state files are not ported "
-                             "(ROADMAP A10c)")
+        """The default bucket's symbol and the shared parameters
+        (``save_optimizer_states`` is ignored, as in the JAX
+        package)."""
         arg_p, aux_p = self.get_params()
         save_checkpoint(prefix, epoch, self.default_module.symbol, arg_p,
                         aux_p)

@@ -8,8 +8,10 @@ bound arrays, and exposes the parameter, gradient and aux arrays as
 [per-parameter][per-device] lists, as the JAX package's does.  A group
 bound with a ``shared_group`` (``BucketingModule``'s buckets) takes that
 group's parameter, gradient and aux arrays for its own: every bucket's
-executor holds the same tensors.  Slicing a batch over several devices
-is not ported.
+executor holds the same tensors.  ``forward_ragged`` hands an inference
+batch of another size (its data and, when it has them, its labels) to
+the executor's bucketed forward instead of a rebind.  Slicing a batch
+over several devices is not ported.
 """
 from __future__ import annotations
 
@@ -131,6 +133,55 @@ class DataParallelExecutorGroup(object):
             self._copy_in(data_batch.label, self.label_names)
         for ex in self.execs:
             ex.forward(is_train=is_train)
+
+    def _ragged_slots(self, data_batch):
+        """(name, array) of the batch's data, and of its labels when it
+        has them (a graph that reads its labels sees this batch's)."""
+        pairs = list(zip(self.data_names, data_batch.data))
+        labels = getattr(data_batch, "label", None)
+        if labels:
+            pairs += list(zip(self.label_names, labels))
+        return pairs
+
+    def can_forward_ragged(self, data_batch) -> bool:
+        """Whether the executor's bucketed forward can take this batch:
+        a bucket policy is on and every slot has one leading dim, with
+        the bound trailing dims."""
+        from .. import compile_cache as _cc
+
+        if len(self.execs) != 1 or not _cc.bucketing_enabled():
+            return False
+        ex = self.execs[0]
+        leading = set()
+        for name, arr in self._ragged_slots(data_batch):
+            if name not in ex.arg_dict:
+                return False
+            bound = ex.arg_dict[name].shape
+            if len(arr.shape) != len(bound) or len(arr.shape) == 0 or \
+                    tuple(arr.shape[1:]) != tuple(bound[1:]):
+                return False
+            leading.add(arr.shape[0])
+        return len(leading) == 1
+
+    def forward_ragged(self, data_batch):
+        """Inference over a batch of another size, without a rebind."""
+        ex = self.execs[0]
+        ex.forward(is_train=False, **{
+            name: arr if isinstance(arr, NDArray)
+            else NDArray(torch.as_tensor(arr))
+            for name, arr in self._ragged_slots(data_batch)})
+
+    def warmup(self):
+        for ex in self.execs:
+            ex.warmup()
+
+    def get_input_grads(self, merge_multi_context: bool = True):
+        return [self.execs[0].grad_dict.get(name)
+                for name in self.data_names]
+
+    def install_monitor(self, mon):
+        for ex in self.execs:
+            mon.install(ex)
 
     def backward(self, out_grads=None):
         if not self.for_training:

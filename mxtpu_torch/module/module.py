@@ -7,16 +7,22 @@ initializer, by name), ``init_optimizer`` makes the optimizer with
 ``forward``/``backward``/``update`` run a step, ``get_params``/
 ``set_params``, ``get_outputs``, ``save_checkpoint`` and ``load`` (with
 the optimizer's states, ``prefix-%04d.states``, as the JAX package
-writes them), ``save_optimizer_states``/``load_optimizer_states``;
+writes them), ``save_optimizer_states``/``load_optimizer_states``,
+``output_shapes``, ``get_input_grads``, ``install_monitor`` and
+``warmup``;
 ``bind(shared_module=...)`` and ``borrow_optimizer`` let
 ``BucketingModule``'s buckets share one set of parameters and one
 optimizer.  ``context=None`` is the card.  ``init_optimizer(kvstore=)``
 takes a store object or name (``model._create_kvstore``); over a
 ``dist_*`` store the optimizer runs on the servers, ``update`` pushes
 the gradients and pulls the weights back, and a ``_sync`` store scales
-``rescale_grad`` by the number of workers.  Several devices,
-``load_latest`` (the JAX package's checkpoints carry a CRC manifest
-that the port does not write: A17), monitors and the
+``rescale_grad`` by the number of workers.  An inference batch of
+another size goes through the executor's bucketed forward when a bucket
+policy is on (``MXTPU_SHAPE_BUCKETS``), with no rebind; otherwise, and
+in training, the module rebinds at the batch's shapes.  ``group2ctxs``
+(and ``bind``'s ``group2ctx``) may only name the module's one device.
+Several devices, ``load_latest`` (the JAX package's checkpoints carry a
+CRC manifest that the port does not write: A17) and the
 tune/sharding/health/telemetry hooks are not ported.
 """
 from __future__ import annotations
@@ -37,6 +43,7 @@ from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
                      save_checkpoint)
 from ..ndarray.ndarray import NDArray
 from .. import optimizer as opt_mod
+from ..symbol.symbol import check_group2ctx
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
 
@@ -47,13 +54,16 @@ class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
                  context=None, work_load_list=None, fixed_param_names=None,
-                 state_names=None):
+                 state_names=None, group2ctxs=None):
         super().__init__(logger=logger)
         if context is None:
             context = [current_context()]
         if not isinstance(context, (list, tuple)):
             context = [context]
         self._context = [resolve(c) for c in context]
+        for g2c in (group2ctxs if isinstance(group2ctxs, (list, tuple))
+                    else [group2ctxs]):
+            check_group2ctx(g2c, self._context[0])
         self._symbol = symbol
         self._data_names = list(data_names or [])
         self._label_names = list(label_names or [])
@@ -75,6 +85,7 @@ class Module(BaseModule):
         self._kvstore = None
         self._update_on_kvstore = False
         self._updater = None
+        self._monitor = None
 
     @staticmethod
     def load(prefix, epoch, load_optimizer_states=False, **kwargs):
@@ -156,6 +167,15 @@ class Module(BaseModule):
         if not self.binded:
             raise MXNetError("not bound")
         return self._exec_group.label_shapes
+
+    @property
+    def output_shapes(self):
+        if not self.binded:
+            raise MXNetError("not bound")
+        shapes = self.symbol.infer_shape(
+            **{d.name: d.shape for d in
+               self.data_shapes + (self.label_shapes or [])})[1]
+        return list(zip(self._output_names, shapes))
 
     # -- params -------------------------------------------------------------
     def get_params(self):
@@ -318,12 +338,22 @@ class Module(BaseModule):
 
     # -- execution ----------------------------------------------------------
     def forward(self, data_batch, is_train=None):
-        """Copy the batch in and run the graph; a batch of another shape
-        rebinds first (the parameters carried over)."""
+        """Copy the batch in and run the graph; an inference batch of
+        another shape goes through the bucketed forward when it can,
+        else the module rebinds first (the parameters carried over)."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("bind() and init_params() first")
         curr_shapes = [d.shape for d in self._exec_group.data_shapes]
         new_shapes = [tuple(a.shape) for a in data_batch.data]
+        train = self.for_training if is_train is None else is_train
+        if curr_shapes != new_shapes and not train \
+                and self._exec_group.can_forward_ragged(data_batch):
+            try:
+                self._exec_group.forward_ragged(data_batch)
+                return
+            except Exception:
+                self.logger.debug("bucketed forward failed; rebinding",
+                                  exc_info=True)
         if curr_shapes != new_shapes:
             new_dshapes = [DataDesc(d.name, s) for d, s in
                            zip(self._exec_group.data_shapes, new_shapes)]
@@ -335,12 +365,28 @@ class Module(BaseModule):
         self._exec_group.forward(data_batch, is_train)
 
     def reshape(self, data_shapes, label_shapes=None):
+        """Rebind at other shapes, the parameters carried over; a
+        monitor follows the new executors."""
         self._sync_params_from_devices()
+        old = set(map(id, self._exec_group.execs)) \
+            if self._exec_group else set()
         arg_p, aux_p = self._arg_params, self._aux_params
         self.bind(data_shapes, label_shapes, for_training=self.for_training,
                   inputs_need_grad=self.inputs_need_grad, force_rebind=True)
         if arg_p is not None:
             self._exec_group.set_params(arg_p, aux_p)
+        if self._monitor is not None:
+            self._monitor.exes = [e for e in self._monitor.exes
+                                  if id(e) not in old]
+            self._exec_group.install_monitor(self._monitor)
+
+    def warmup(self):
+        """Run the bound executors' graphs once on zeros
+        (``Executor.warmup``)."""
+        if not self.binded:
+            raise MXNetError("bind() first")
+        self._exec_group.warmup()
+        return self
 
     def backward(self, out_grads=None):
         if not (self.binded and self.params_initialized):
@@ -365,6 +411,17 @@ class Module(BaseModule):
 
     def get_outputs(self, merge_multi_context=True):
         return self._exec_group.get_outputs(merge_multi_context)
+
+    def get_input_grads(self, merge_multi_context=True):
+        if not self.inputs_need_grad:
+            raise MXNetError("bind with inputs_need_grad=True")
+        return self._exec_group.get_input_grads(merge_multi_context)
+
+    def install_monitor(self, mon):
+        if not self.binded:
+            raise MXNetError("bind() first")
+        self._monitor = mon
+        self._exec_group.install_monitor(mon)
 
     def update_metric(self, eval_metric, labels, pre_sliced=False):
         self._exec_group.update_metric(eval_metric, labels, pre_sliced)

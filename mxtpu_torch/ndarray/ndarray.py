@@ -1,8 +1,8 @@
 """NDArray of the PyTorch port: the imperative tensor.
 
 Counterpart of ``mxtpu/ndarray/ndarray.py``.  An NDArray holds one
-``torch.Tensor`` (``_data``) on a device; its ``ctx`` is that tensor's
-``torch.device``.  Every operator call goes through
+``torch.Tensor`` (``_data``) on a device; its ``ctx`` is the
+``Context`` of that tensor's device.  Every operator call goes through
 :func:`imperative_invoke`, which runs the registered op on the tensors
 (with grad enabled only under ``autograd.record()``).  Writes into an
 array (``a[:] = x``, ``copyto``, the optimizer and the executor) copy
@@ -36,7 +36,8 @@ import torch
 
 from ..base import (MXNetError, _Null, dtype_of_torch, np_dtype,
                     shape2tuple, torch_dtype)
-from ..context import resolve
+from .. import context as _context
+from ..context import Context, as_context, place, resolve
 from ..ops import registry as _reg
 from .. import autograd as _ag
 
@@ -109,8 +110,21 @@ class NDArray(object):
         return self._data.dim()
 
     @property
-    def ctx(self) -> torch.device:
-        return self._data.device
+    def ctx(self) -> Context:
+        """The array's context: ``gpu(i)``, ``cpu(0)``, or
+        ``cpu_pinned(0)``/``cpu_shared(0)`` for a page-locked or shared
+        host tensor (a tensor on another torch device, such as ``meta``
+        in shape inference, gives its ``torch.device``)."""
+        dev = self._data.device
+        if dev.type == "cuda":
+            return Context("gpu", dev.index or 0)
+        if dev.type != "cpu":
+            return dev
+        if self._data.is_shared():
+            return Context("cpu_shared", 0)
+        if torch.cuda.is_available() and self._data.is_pinned():
+            return Context("cpu_pinned", 0)
+        return Context("cpu", 0)
 
     context = ctx
 
@@ -219,10 +233,11 @@ class NDArray(object):
         if isinstance(other, NDArray):
             other._set_data(self._data)
             return other
-        return NDArray(self._data.detach().to(resolve(other), copy=True))
+        return NDArray(place(self._data.detach().to(resolve(other),
+                                                    copy=True), other))
 
     def as_in_context(self, ctx) -> "NDArray":
-        if resolve(ctx) == self.ctx:
+        if as_context(ctx) == self.ctx:
             return self
         return self.copyto(ctx)
 
@@ -309,7 +324,8 @@ class NDArray(object):
         if isinstance(value, NDArray):
             value = value._data
         elif not isinstance(value, torch.Tensor):
-            value = torch.as_tensor(np.asarray(value), device=self.ctx)
+            value = torch.as_tensor(np.asarray(value),
+                                    device=self._data.device)
         with torch.no_grad():
             if not axes:
                 self._data[key] = value.to(self._data.dtype)
@@ -593,7 +609,7 @@ def imperative_invoke(op_name: str, *inputs, out=None,
     device = None
     for x in inputs:
         if isinstance(x, NDArray):
-            device = x.ctx
+            device = x._data.device
             break
     tensors = []
     for x in inputs:
@@ -605,6 +621,7 @@ def imperative_invoke(op_name: str, *inputs, out=None,
             tensors.append(array(x, ctx=device if device is not None
                                  else ctx)._data)
     if not tensors:
+        ctx = _context.default_ctx() if ctx is None else ctx
         device = resolve(ctx)
         attrs["device"] = device
     elif device is None:
@@ -626,7 +643,8 @@ def imperative_invoke(op_name: str, *inputs, out=None,
             outs = (embedding_sparse_grad(*tensors),)
         else:
             outs = _reg.invoke(opdef, tensors, attrs, gen)
-    results = [NDArray(_unshared(o, tensors)) for o in outs]
+    results = [NDArray(_unshared(o, tensors) if tensors else place(o, ctx))
+               for o in outs]
     if not _full_outputs:
         results = results[:opdef.n_visible_outputs(attrs)]
     if out is not None:
@@ -650,7 +668,7 @@ def array(source_array, ctx=None, dtype=None) -> NDArray:
     becomes float32); lists and scalars default to float32."""
     if isinstance(source_array, NDArray):
         res = source_array.copy() if ctx is None \
-            or resolve(ctx) == source_array.ctx \
+            or as_context(ctx) == source_array.ctx \
             else source_array.as_in_context(ctx)
         if dtype is not None and res.dtype != np_dtype(dtype):
             res = res.astype(dtype)
@@ -663,7 +681,8 @@ def array(source_array, ctx=None, dtype=None) -> NDArray:
     a = np.asarray(source_array)
     if str(dtype) != "bfloat16":
         a = a.astype(np_dtype(dtype), copy=False)
-    return NDArray(_from_numpy(a, resolve(ctx), dtype))
+    ctx = _context.default_ctx() if ctx is None else ctx
+    return NDArray(place(_from_numpy(a, resolve(ctx), dtype), ctx))
 
 
 def zeros(shape, ctx=None, dtype=None, **kwargs) -> NDArray:

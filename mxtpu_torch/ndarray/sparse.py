@@ -209,7 +209,7 @@ def _device_of(ctx, *sources):
         return resolve(ctx)
     for s in sources:
         if isinstance(s, NDArray):
-            return s.ctx
+            return s._data.device
         if isinstance(s, torch.Tensor):
             return s.device
     return resolve(None)
@@ -497,7 +497,7 @@ def retain(arr: RowSparseNDArray, row_ids) -> RowSparseNDArray:
     """The stored rows of ``arr`` whose ids are in ``row_ids``."""
     if not isinstance(arr, RowSparseNDArray):
         raise MXNetError("retain expects row_sparse")
-    rids = torch.unique(_index_tensor(row_ids, arr.ctx))
+    rids = torch.unique(_index_tensor(row_ids, arr._data.device))
     stored = arr._aux[0]
     if not stored.numel() or not rids.numel():
         return RowSparseNDArray(_zero_rows(arr.shape, arr._data),
@@ -513,16 +513,17 @@ def retain_rows_into(src: NDArray, row_ids, dst) -> None:
     ``src`` into ``dst``.  A row-sparse ``dst`` holds exactly those rows;
     a dense ``dst`` gets them in place over zeros, every other row
     written too."""
-    rids = _unique_rows(row_ids, src.ctx, src.shape[0])
+    rids = _unique_rows(row_ids, src._data.device, src.shape[0])
     rows = src._data.detach().index_select(0, rids)
     if isinstance(dst, RowSparseNDArray):
-        dst._assign(RowSparseNDArray(rows.to(dst.ctx), (rids.to(dst.ctx),),
+        dev = dst._data.device
+        dst._assign(RowSparseNDArray(rows.to(dev), (rids.to(dev),),
                                      src.shape))
     elif isinstance(dst, NDArray):
         with torch.no_grad():
             dst._data.zero_()
-            dst._data.index_copy_(0, rids.to(dst.ctx),
-                                  rows.to(dst.ctx, dst._data.dtype))
+            dst._data.index_copy_(0, rids.to(dst._data.device),
+                                  rows.to(dst._data.device, dst._data.dtype))
     else:
         raise MXNetError("bad row_sparse_pull target %r" % type(dst))
 
@@ -531,14 +532,16 @@ def set_rows_into(rows: np.ndarray, data: np.ndarray, dst) -> None:
     """Write already-gathered host rows into ``dst``: a row-sparse target
     takes them as they are; a dense one gets them over zeros."""
     order = np.argsort(rows, kind="stable")
-    rids = _index_tensor(np.asarray(rows)[order], dst.ctx)
+    rids = _index_tensor(np.asarray(rows)[order], dst._data.device)
     vals = torch.from_numpy(np.ascontiguousarray(np.asarray(data)[order]))
     if isinstance(dst, RowSparseNDArray):
-        dst._assign(RowSparseNDArray(vals.to(dst.ctx), (rids,), dst.shape))
+        dst._assign(RowSparseNDArray(vals.to(dst._data.device), (rids,),
+                                     dst.shape))
     elif isinstance(dst, NDArray):
         with torch.no_grad():
             dst._data.zero_()
-            dst._data.index_copy_(0, rids, vals.to(dst.ctx, dst._data.dtype))
+            dst._data.index_copy_(0, rids, vals.to(dst._data.device,
+                                                     dst._data.dtype))
     else:
         raise MXNetError("bad row_sparse_pull target %r" % type(dst))
 
@@ -549,13 +552,13 @@ def add(lhs, rhs):
     if isinstance(lhs, RowSparseNDArray) and isinstance(rhs, RowSparseNDArray):
         if lhs.shape != rhs.shape:
             raise MXNetError("shape mismatch")
-        li, ri = lhs._aux[0], rhs._aux[0].to(lhs.ctx)
+        li, ri = lhs._aux[0], rhs._aux[0].to(lhs._data.device)
         rows = torch.unique(torch.cat([li, ri]))
         out = torch.zeros((rows.numel(),) + tuple(lhs.shape[1:]),
-                          dtype=lhs._data.dtype, device=lhs.ctx)
+                          dtype=lhs._data.dtype, device=lhs._data.device)
         out.index_add_(0, torch.searchsorted(rows, li), lhs._data.detach())
         out.index_add_(0, torch.searchsorted(rows, ri),
-                       rhs._data.detach().to(lhs.ctx))
+                       rhs._data.detach().to(lhs._data.device))
         return RowSparseNDArray(out, (rows,), lhs.shape)
     lhs = lhs.todense() if isinstance(lhs, BaseSparseNDArray) else lhs
     rhs = rhs.todense() if isinstance(rhs, BaseSparseNDArray) else rhs

@@ -11,7 +11,8 @@ the softmax family, ``Dropout``, the output heads with their own
 gradients (``SoftmaxOutput``, the three regression outputs,
 ``SVMOutput``, ``MakeLoss``), ``CTCLoss``, the Sequence ops and the
 small contrib ops, with the reference's names, attrs and NCHW/OIHW
-layouts.  Convolution, Deconvolution
+layouts, and the channels-last ``layout`` (NWC, NHWC, NDHWC) of
+Convolution and Pooling.  Convolution, Deconvolution
 and the products are torch's calls (cuDNN and cuBLAS on the card, float32
 with TF32 off: ``registry.float32_numerics``), as the JAX package
 leaves them to XLA; a bf16 or
@@ -60,6 +61,7 @@ libraries accumulate.
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -84,10 +86,40 @@ def _norm_tuple(v, n, default):
     return tuple(v)
 
 
-def _check_layout(layout, ns):
-    if layout and str(layout).upper() != "NC" + _SPATIAL[ns]:
-        raise MXNetError("layout %r is not ported (NC%s only)"
-                         % (layout, _SPATIAL[ns]))
+_CL_FORMAT = {2: torch.channels_last, 3: torch.channels_last_3d}
+
+
+def _channels_last(layout, ns) -> bool:
+    """True for ``N<spatial>C`` (NWC, NHWC, NDHWC), False for
+    ``NC<spatial>`` or no layout; any other raises."""
+    lay = str(layout or "").upper()
+    if lay in ("", "NC" + _SPATIAL[ns]):
+        return False
+    if lay == "N" + _SPATIAL[ns] + "C":
+        return True
+    raise MXNetError("layout %r: NC%s or N%sC only"
+                     % (layout, _SPATIAL[ns], _SPATIAL[ns]))
+
+
+def _env_channels_last() -> bool:
+    """``MXTPU_CONV_LAYOUT=NHWC``: an NCHW convolution runs on
+    channels-last memory (same values, NCHW shapes)."""
+    return os.environ.get("MXTPU_CONV_LAYOUT", "").upper() == "NHWC"
+
+
+def _to_nc(x, ns):
+    """An N<spatial>C tensor as NC<spatial>: for 2 and 3 spatial dims a
+    permuted view, which is NCHW in torch's channels-last memory format;
+    for one (no such format) a copy."""
+    x = x.permute(0, ns + 1, *range(1, ns + 1))
+    return x.contiguous() if ns == 1 else x
+
+
+def _from_nc(x, ns):
+    """The inverse of ``_to_nc``: a channels-last NC<spatial> result is
+    a contiguous N<spatial>C tensor after the permute, with no copy."""
+    x = x.permute(0, *range(2, ns + 2), 1)
+    return x.contiguous() if ns == 1 else x
 
 
 # ---------------------------------------------------------------------------
@@ -116,21 +148,35 @@ def _convolution(data, weight, *maybe_bias, kernel=(), stride=(), dilate=(),
                  pad=(), num_filter=0, num_group=1, no_bias=False,
                  workspace=1024, layout=None, cudnn_tune=None,
                  cudnn_off=False):
+    """``layout="NHWC"`` (NWC, NDHWC) takes and gives channels-last data
+    with the OIHW weight, as the JAX package's does: the data is viewed
+    as NCHW in channels-last memory and the weight put in that format,
+    so the convolution runs on cuDNN's NHWC kernels and the result's
+    permute back is NHWC with no copy."""
     ns = len(kernel)
-    _check_layout(layout, ns)
+    cl = _channels_last(layout, ns)
+    x = _to_nc(data, ns) if cl else data
+    w = weight
+    fmt = _CL_FORMAT.get(ns)
+    if fmt is not None and (cl or _env_channels_last()):
+        x = x.contiguous(memory_format=fmt)
+        w = w.contiguous(memory_format=fmt)
     bias = maybe_bias[0] if maybe_bias and not no_bias else None
     conv = functools.partial(_CONV[ns], stride=_norm_tuple(stride, ns, 1),
                              padding=_norm_tuple(pad, ns, 0),
                              dilation=_norm_tuple(dilate, ns, 1),
                              groups=num_group)
-    if data.device.type == "cpu" and data.dtype in _LOWP:
+    if x.device.type == "cpu" and x.dtype in _LOWP:
         # products of low-precision inputs accumulate in float32 and
         # round once, as XLA's and cuDNN's do (torch's CPU kernel rounds
         # more); the bias is added after that rounding, as the JAX
         # package's add and torch's cuDNN path add it
-        out = conv(data.float(), weight.float()).to(data.dtype)
-        return out if bias is None else out + bias.view((1, -1) + (1,) * ns)
-    return conv(data, weight, bias)
+        out = conv(x.float(), w.float()).to(x.dtype)
+        if bias is not None:
+            out = out + bias.view((1, -1) + (1,) * ns)
+    else:
+        out = conv(x, w, bias)
+    return _from_nc(out, ns) if cl else out
 
 
 _CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
@@ -195,8 +241,13 @@ def _pool_pads(in_sz, k, s, p, convention):
 def _pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
              pad=(), pooling_convention="valid", count_include_pad=True,
              p_value=2, cudnn_off=False, layout=None):
+    """``layout="NHWC"`` (NWC, NDHWC) pools channels-last data, viewed
+    as NCHW in channels-last memory as Convolution does."""
     ns = data.ndim - 2
-    _check_layout(layout, ns)
+    if _channels_last(layout, ns):
+        return _from_nc(_pooling(
+            _to_nc(data, ns), kernel, pool_type, global_pool, stride, pad,
+            pooling_convention, count_include_pad, p_value), ns)
     axes = tuple(range(2, data.ndim))
     if global_pool:
         if pool_type == "max":

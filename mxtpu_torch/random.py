@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .base import getenv_int
+from .context import torch_device
 
 __all__ = ["seed", "uniform", "normal", "randint", "randn", "exponential",
            "poisson", "gamma", "negative_binomial",
@@ -44,7 +45,7 @@ def generator(device) -> torch.Generator:
     time it is asked for (a random seed is chosen, once, when none was
     set)."""
     global _seed_value
-    dev = torch.device(device)
+    dev = torch_device(device)
     with _lock:
         gen = _generators.get(dev)
         if gen is None:

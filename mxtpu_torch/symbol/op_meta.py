@@ -105,12 +105,17 @@ register_meta("FullyConnected", OpMeta(_bias_inputs, param_shapes=_fc_shapes))
 
 
 def _conv_shapes(shapes, attrs):
+    """The OIHW weight's shape, the input channels read from the
+    layout's C axis (the last for NWC/NHWC/NDHWC; the JAX package reads
+    ``data[1]`` whatever the layout)."""
     data = shapes[0]
     if data is None:
         return {}
     nf = int(attrs["num_filter"])
     g = int(attrs.get("num_group", 1))
-    out = {1: (nf, data[1] // g) + tuple(attrs["kernel"])}
+    layout = str(attrs.get("layout") or "").upper()
+    c = data[-1] if layout.endswith("C") else data[1]
+    out = {1: (nf, c // g) + tuple(attrs["kernel"])}
     if not attrs.get("no_bias"):
         out[2] = (nf,)
     return out

@@ -141,6 +141,24 @@ def _node_attrs(node) -> Dict[str, str]:
     return d
 
 
+def check_group2ctx(group2ctx, ctx):
+    """A ``group2ctx`` (ctx_group name -> context) that places every
+    group on the bind's device is accepted; one that asks for several
+    devices raises, as in the JAX package: the graph runs on one
+    device."""
+    if not group2ctx:
+        return
+    from ..context import as_context, current_context
+
+    distinct = {str(as_context(c)) for c in group2ctx.values()}
+    distinct.add(str(as_context(ctx if ctx is not None
+                                else current_context())))
+    if len(distinct) > 1:
+        raise NotImplementedError(
+            "group2ctx with multi-device placement (%s) is not supported: "
+            "the graph runs on one device" % sorted(distinct))
+
+
 class Symbol(object):
     """Immutable handle to one or more output entries of the graph."""
 
@@ -455,20 +473,23 @@ class Symbol(object):
 
     # -- binding ------------------------------------------------------------
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
-                    **kwargs):
+                    group2ctx=None, **kwargs):
         """Bind with arrays made from the shapes in ``kwargs`` on
-        ``ctx`` (default: the card)."""
+        ``ctx`` (default: the card); ``group2ctx`` may only name that
+        device."""
         from ..executor import Executor
         from ..subgraph import apply_bind_hook
 
+        check_group2ctx(group2ctx, ctx)
         return Executor._simple_bind(apply_bind_hook(self), ctx, grad_req,
                                      type_dict, kwargs)
 
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
-             aux_states=None):
+             aux_states=None, group2ctx=None):
         from ..executor import Executor
         from ..subgraph import apply_bind_hook
 
+        check_group2ctx(group2ctx, ctx)
         return Executor._bind(apply_bind_hook(self), ctx, args, args_grad,
                               grad_req, aux_states)
 

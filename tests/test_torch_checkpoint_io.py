@@ -197,17 +197,27 @@ def test_prefetching_iter_matches_the_reference_and_joins_its_threads():
                                data_name="d2", label_name="l2", **kw)],
             rename_data=[{"data": "a"}, {"d2": "b"}])
 
-    t, j = _iter_pair(prefetch)
-    assert [d.name for d in t.provide_data] == ["a", "b"] == \
-        [d.name for d in j.provide_data]
-    threads_before = _prefetch_threads()
-    assert t._thread.is_alive() and t._thread in threads_before
-    _same_batches(_batches(t), _batches(j))
-    old = t._thread
-    t.reset()
-    assert not old.is_alive()
-    t.close()
-    assert t._thread is None and _prefetch_threads() == []
+    # the port's producer tasks run on a threaded engine of the test's
+    # own, whose worker threads are joined at its close
+    eng = tmx.engine.ThreadedEngine(num_threads=2)
+    prev = tmx.engine._engine
+    tmx.engine.set_engine(eng)
+    try:
+        t, j = _iter_pair(prefetch)
+        assert [d.name for d in t.provide_data] == ["a", "b"] == \
+            [d.name for d in j.provide_data]
+        assert t._engine is eng
+        _same_batches(_batches(t), _batches(j))
+        t.reset()
+        _same_batches(_batches(t), _batches(j))
+        t.close()
+        assert t._queue.empty()
+        eng.wait_for_all()
+        assert eng.num_outstanding() == 0
+    finally:
+        tmx.engine.set_engine(prev)
+        eng.close()
+    assert _prefetch_threads() == []
 
 
 def test_prefetching_iter_raises_the_producers_error():
