@@ -503,6 +503,34 @@ Phases, each of which fails the run (non-zero exit) on any error:
    first call after it, then batches of 1, 37, 64, 100 and 128, each
    against an exact forward of that batch (``RAGGED_TOL``), with no
    bind while serving.  No flash kernel may launch.
+24. spmd   -- the SPMD half of several devices, every shard on this one
+   card (meshes that repeat ``cuda:0``: one controller drives every
+   shard, and its cross-device copies are same-device copies, so no
+   interconnect is measured).  Rows ``spmd_ring_sp2_causal`` and the
+   other three of sp 2 and 4, causal and not: global (B 8, H 8, T 1024,
+   D 128) bf16 split over the sequence, ``ring_attention`` on the
+   shards (the forward kernel with the LSE per kept block, merged in
+   f32; ``flash_bwd_dq``/``flash_bwd_dkv`` per kept pair with the
+   global LSE and delta) against the plain ring on the card and against
+   the unsharded ``flash_attention``, output and dq/dk/dv within
+   ``RING_TOL`` (tests/test_pallas_attention.py's bf16 bound) and a
+   relative L2 of ``BF16_REL_L2``; a causal call launches each kernel
+   sp(sp+1)/2 times, the other sp^2.  Each kernel is timed at the
+   sharded step's block shape (mb * H / tp, T / sp, 128) = (8, 512,
+   128).  Row ``spmd_step``: the train phase's model (``MODEL``,
+   ``remat="dots"``) at batch 8 on the mesh ``SPMD_AXES`` (dp 2, pp 2,
+   tp 2, sp 2: 16 shards), two microbatches, ZeRO-1 Adam at lr 1e-3,
+   3 steps on one batch; step 1 against the one-device step from the
+   same weights (loss, first moments, parameters: ``spmd_step_check``),
+   each device's moments 1/dp of its shard's (where ZeRO-1 splits
+   them), launches a step exact (``spmd_launches``), losses finite and
+   falling; ms a step, busy and idle share of a profiled step, peak
+   memory.  Row ``spmd_transformer_lm``:
+   ``examples/transformer_lm/train.py`` at its defaults (dp 2, tp 2,
+   sp 2, 60 steps) through ``tests/test_torch_example_port.py``'s
+   loader over ``[cuda:0] * 8``: it must print CONVERGED.  Row
+   ``spmd_microbench``: ``parallel.collectives.microbench`` (16 MB over
+   {dp 2, tp 4}), every collective's result checked.
 
 The line before the last is the card's name and power limit, the line
 before that the kernels' JSON record; the last line is
@@ -594,6 +622,7 @@ from mxtpu_torch import serve  # noqa: E402
 from mxtpu_torch import telemetry  # noqa: E402
 from mxtpu_torch.ops import flash_attention as fa  # noqa: E402
 from mxtpu_torch.ops import kernel_build as kb  # noqa: E402
+from mxtpu_torch.parallel import spmd  # noqa: E402
 from mxtpu_torch.parallel import transformer as tf  # noqa: E402
 
 KERNELS = {"flash_fwd": fa.FLASH_FWD, "flash_bwd_dq": fa.FLASH_BWD_DQ,
@@ -1413,7 +1442,8 @@ def breakdown(cfg, params, fwd, tokens):
         parts += [
             ("forward", 5, lambda: fwd(params, tokens)),
             ("attention block", 5, lambda: tf._attention(
-                cfg, x, lw["wq"], lw["wk"], lw["wv"], lw["wo"])),
+                cfg, tf._as_mesh("cuda"), [x],
+                *([lw[k]] for k in ("wq", "wk", "wv", "wo")))[0]),
             ("  flash kernel", 10, lambda: fa._flash_forward_cuda(
                 *qkv, 128 ** -0.5, True, False)),
             ("FFN block", 5, lambda: tf._dense_ffn(x, lw["w1"], lw["w2"])),
@@ -1439,10 +1469,10 @@ def phase_serve():
     launches during the served run."""
     cfg = tf.TransformerConfig(remat="none", **MODEL)
     T = cfg.max_len
-    params = tf.init_params(cfg, device="cuda", seed=0)
+    params = tf.init_params(cfg, "cuda", seed=0)
     log("[serve] %d parameters, %s" % (
         sum(p.numel() for p in params.values()), cfg))
-    fwd = tf.make_forward(cfg, device="cuda")
+    fwd = tf.make_forward(cfg, "cuda")
     dispatches = []
 
     def next_token(tokens):
@@ -1541,7 +1571,7 @@ def phase_serve():
     cpu_cfg = dataclasses.replace(cfg, dtype="float32")
     cpu_params = {k: v.float().cpu() for k, v in params.items()}
     t0 = time.monotonic()
-    ref = tf.make_forward(cpu_cfg, device="cpu")(cpu_params, x)[:, -1]
+    ref = tf.make_forward(cpu_cfg, "cpu")(cpu_params, x)[:, -1]
     ref = ref.numpy()
     got = first[0][:1]
     err = float(np.abs(got - ref).max())
@@ -1554,21 +1584,41 @@ def phase_serve():
     return launches
 
 
+def one_member(tree):
+    """A one-device tree of tensors as the transformer's per-coordinate
+    lists, each tensor the one member of its list."""
+    return {k: [v] for k, v in tree.items()}
+
+
+def loss_and_grads(cfg, params, tok, lab):
+    """The transformer's loss and gradients on the one device that holds
+    ``params`` (a tree of tensors): (loss, {name: gradient})."""
+    mesh = tf._as_mesh(next(iter(params.values())).device)
+    loss, grads = tf._loss_and_grads(cfg, mesh, 1)(one_member(params),
+                                                   [tok], [lab])
+    return loss, {k: g[0] for k, g in grads.items()}
+
+
 def step_breakdown(cfg, params, opt, tok, lab):
     """Device time (CUDA events) of one step's forward and loss, its
     backward and its Adam update, the parts of the port's step; the
     second of two runs."""
-    loss_fn = tf._build_loss_fn(cfg, 1)
+    mesh = tf._as_mesh("cuda")
+    loss_fn = tf._build_loss_fn(cfg, mesh, 1)
+    state = {"m": one_member(opt["m"]), "v": one_member(opt["v"]),
+             "t": [opt["t"]]}
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     for _ in range(2):
-        leaves = {n: p.detach().requires_grad_(True)
+        leaves = {n: [p.detach().requires_grad_(True)]
                   for n, p in params.items()}
         ev[0].record()
-        loss = loss_fn(leaves, tok, lab)
+        loss = loss_fn(leaves, [tok], [lab])[0]
         ev[1].record()
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        grads = torch.autograd.grad(loss, [x[0] for x in leaves.values()])
         ev[2].record()
-        tf._update(params, opt, dict(zip(leaves, grads)), "adam", 1e-3)
+        tf._adam_zero1(cfg, mesh, one_member(params), state,
+                       {n: [g] for n, g in zip(leaves, grads)}, 1e-3,
+                       (0.9, 0.999), 1e-8)
         ev[3].record()
         torch.cuda.synchronize()
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
@@ -1580,11 +1630,8 @@ def step_profile(cfg, params, opt, tok, lab, top=8):
     to the last, and the kernels with the most device time.  The
     profiler's own host work widens the window, so the idle share it
     gives is an upper bound."""
-    def step():
-        _, grads = tf._loss_and_grads(cfg, 1)(params, tok, lab)
-        tf._update(params, opt, grads, "adam", 1e-3)
-
-    spans = device_spans(step)
+    step, _ = tf.make_train_step(cfg, "cuda", lr=1e-3, optimizer="adam")
+    spans = device_spans(lambda: step(params, opt, tok, lab))
     if not spans:
         fail("train: the profiler saw no device time in a step")
     busy, window, heads = profile_summary(spans, top)
@@ -1616,15 +1663,15 @@ def cpu_step_check(cfg, tokens, labels):
     over two seeds (loss within 9e-5, gradients' relative L2 at most
     0.0104, in wq and wk), with margin."""
     small = dataclasses.replace(cfg, n_layers=2)
-    params = tf.init_params(small, device="cuda", seed=0)
+    params = tf.init_params(small, "cuda", seed=0)
     tok, lab = tokens[:1], labels[:1]
     t0 = time.monotonic()
-    loss, grads = tf._loss_and_grads(small, 1)(
-        params, torch.from_numpy(tok).cuda().long(),
-        torch.from_numpy(lab).cuda().long())
+    loss, grads = loss_and_grads(small, params,
+                                 torch.from_numpy(tok).cuda().long(),
+                                 torch.from_numpy(lab).cuda().long())
     ref_cfg = dataclasses.replace(small, dtype="float32", remat="none")
-    ref_loss, ref_grads = tf._loss_and_grads(ref_cfg, 1)(
-        {k: v.float().cpu() for k, v in params.items()},
+    ref_loss, ref_grads = loss_and_grads(
+        ref_cfg, {k: v.float().cpu() for k, v in params.items()},
         torch.from_numpy(tok).long(), torch.from_numpy(lab).long())
     d_loss = abs(loss.item() - ref_loss.item())
     rel = {k: ((grads[k].float().cpu() - ref_grads[k]).norm()
@@ -1646,10 +1693,10 @@ def phase_train(kernel_records):
     cfg = tf.TransformerConfig(remat="dots", **MODEL)
     B, T = 8, cfg.max_len
     torch.cuda.reset_peak_memory_stats()
-    params = tf.init_params(cfg, device="cuda", seed=0)
-    opt = tf.init_opt_state(cfg, device="cuda")
-    step, _ = tf.make_fused_train_steps(cfg, K_STEPS, device="cuda",
-                                        lr=1e-3, optimizer="adam")
+    params = tf.init_params(cfg, "cuda", seed=0)
+    opt = tf.init_opt_state(cfg, "cuda")
+    step, _ = tf.make_fused_train_steps(cfg, "cuda", K_STEPS, lr=1e-3,
+                                        optimizer="adam")
     rng = np.random.RandomState(0)
     toks = rng.randint(0, cfg.vocab, (K_STEPS, B, T)).astype(np.int32)
     labs = rng.randint(0, cfg.vocab, (K_STEPS, B, T)).astype(np.int32)
@@ -9602,6 +9649,406 @@ def phase_a10c():
     return rows
 
 
+SPMD_RING = (8, 8, 1024, 128)    # global (B, H, T, D) of the ring check
+SPMD_RING_SP = (2, 4)
+RING_TOL = dict(rtol=0.05, atol=0.05)   # tests/test_pallas_attention.py, bf16
+SPMD_AXES = {"dp": 2, "pp": 2, "tp": 2, "sp": 2}
+SPMD_BATCH, SPMD_MICRO, SPMD_STEPS, SPMD_LR = 8, 2, 3, 1e-3
+SPMD_LM_DEVICES = 8
+SPMD_DEVICE = torch.device("cuda", 0)   # the card every shard is on
+# the sharded step against the one-device step (bf16): the loss, the
+# first moments' relative L2 (0.1 * the gradient), the share of
+# parameters more than a bf16 ulp of each side apart (measured on the
+# CPU at a narrow width: 6.3e-4, 0.015, 0.9%;
+# tests/test_torch_spmd_step_c.py)
+SPMD_LOSS_TOL, SPMD_MOMENT_TOL, SPMD_MOVED_SHARE = 0.01, 0.03, 0.05
+
+
+def spmd_launches(cfg, mesh, n_micro):
+    """Kernel launches a sharded step makes: per microbatch, layer and
+    (dp, tp, ep) group, sp(sp+1)/2 causal ring blocks, each one launch
+    of each backward kernel and of the forward, twice under a remat
+    policy that recomputes it ("dots": the policy never sees the ctypes
+    launch)."""
+    sp = mesh.shape["sp"]
+    blocks = n_micro * cfg.n_layers * (mesh.size // sp // mesh.shape["pp"]) \
+        * sp * (sp + 1) // 2
+    return {"flash_fwd": blocks * (2 if cfg.remat != "none" else 1),
+            "flash_bwd_dq": blocks, "flash_bwd_dkv": blocks}
+
+
+def ring_errors(got, ref):
+    """Each tensor's errors against ``ref``: the largest, its share of
+    ``RING_TOL``'s bound, the relative L2; and whether all keep to the
+    bounds."""
+    errs = []
+    for a, b in zip(got, ref):
+        d = (a.float() - b.float())
+        errs.append(dict(
+            max_abs_err=d.abs().max().item(),
+            err_over_tol=(d.abs() / (RING_TOL["atol"] + RING_TOL["rtol"]
+                                     * b.float().abs())).max().item(),
+            rel_l2=(d.norm() / b.float().norm()).item()))
+    ok = all(e["err_over_tol"] <= 1.0 and e["rel_l2"] <= BF16_REL_L2
+             for e in errs)
+    return errs, ok
+
+
+def spmd_ring_check():
+    """The ring over ``[cuda:0] * sp`` at the global ``SPMD_RING``
+    shape, bf16, causal and not: the kernels against the plain ring and
+    the unsharded kernels; launches exact.  Returns the rows."""
+    import importlib
+
+    tra = importlib.import_module("mxtpu_torch.parallel.ring_attention")
+    gen = torch.Generator(device=SPMD_DEVICE).manual_seed(19)
+    D = SPMD_RING[3]
+    q, k, v, g = (torch.randn(SPMD_RING, device=SPMD_DEVICE, generator=gen)
+                  .to(torch.bfloat16) for _ in range(4))
+    scale = D ** -0.5
+    rows = {}
+    for sp in SPMD_RING_SP:
+        for causal in (True, False):
+            name = "spmd_ring_sp%d_%s" % (sp, "causal" if causal else "full")
+            whole = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+            def unsharded():
+                o = fa.flash_attention(*whole, causal=causal)
+                return [o] + list(torch.autograd.grad(o, whole, g))
+
+            def chunks(t, grad=True):
+                return [c.contiguous().requires_grad_(grad)
+                        for c in t.chunk(sp, 2)]
+
+            qs, ks, vs = chunks(q), chunks(k), chunks(v)
+            gs = chunks(g, False)
+
+            def ring():
+                outs = tra.ring_attention(qs, ks, vs, causal=causal)
+                grads = torch.autograd.grad(outs, qs + ks + vs, gs)
+                return [torch.cat(outs, 2)] + [
+                    torch.cat(grads[i * sp:(i + 1) * sp], 2)
+                    for i in range(3)]
+
+            def plain():
+                c = [[x.detach() for x in xs] for xs in (qs, ks, vs)]
+                outs, lses = tra._ring_forward_plain(*c, causal, scale)
+                grads = tra._ring_backward_plain(*c, outs, lses, gs, causal,
+                                                 scale)
+                return [torch.cat(outs, 2)] + [torch.cat(x, 2)
+                                               for x in grads]
+
+            ref = unsharded()
+            zero_launches()
+            got = ring()
+            torch.cuda.synchronize()
+            launches = read_launches()
+            want = sp * (sp + 1) // 2 if causal else sp * sp
+            if launches != {n: want for n in KERNELS}:
+                fail("spmd: %s launched %s, want %d of each"
+                     % (name, launches, want))
+            vs_plain, ok_plain = ring_errors(got, plain())
+            vs_whole, ok_whole = ring_errors(got, ref)
+            rows[name] = dict(
+                shape=list(SPMD_RING), sp=sp, causal=causal,
+                against_plain_ring=dict(zip(("o", "dq", "dk", "dv"),
+                                            vs_plain)),
+                against_unsharded=dict(zip(("o", "dq", "dk", "dv"),
+                                           vs_whole)),
+                ms=time_ms(ring, 3), plain_ms=time_ms(plain, 2),
+                unsharded_ms=time_ms(unsharded, 3),
+                launches=launches)
+            log("[spmd] " + json.dumps(rows[name]))
+            if not (ok_plain and ok_whole):
+                fail("spmd: the ring's kernels disagree: %s" % rows[name])
+    return rows
+
+
+QUEUED_TRIES = 3
+
+
+def queued_ms(fn, iters):
+    """The card's time per call of fn without the profiler: CUDA events
+    around ``iters`` calls queued behind a sleep kernel, so that the
+    card runs them back to back whatever the host's speed.  Gaps could
+    only lengthen it; (ms, whether the host had queued every call before
+    the sleep ended)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(int(4e9 * host_s) + 100000)  # about 2x host_s
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    queued_s = time.perf_counter() - t0
+    ev[2].record()
+    torch.cuda.synchronize()
+    return (ev[1].elapsed_time(ev[2]) / iters,
+            queued_s * 1e3 < ev[0].elapsed_time(ev[1]))
+
+
+def checked_queued_ms(fn, iters, bound):
+    """queued_ms of fn, measured again while a reading is at or under
+    the call's bound or the host fell behind the queue; (the first
+    valid reading or None, the refused readings).  The profiler's
+    readings of these small calls late in this script came out at a
+    third to a sixth of their times alone (runs 19.2, 19.5), so this
+    row does not use it."""
+    refused = []
+    for _ in range(QUEUED_TRIES):
+        t, held = queued_ms(fn, iters)
+        if held and t > bound:
+            return t, refused
+        refused.append(t)
+    return None, refused
+
+
+def spmd_blocks(cfg, mesh, batch, n_micro):
+    """Each kernel's device time at the sharded step's ring block,
+    (mb * H / tp, T / sp, D) bf16 (``checked_queued_ms``): the forward
+    with the LSE (causal, as on the diagonal), dq and dk/dv (causal),
+    beside their bounds and plain versions; SDPA's forward on the same
+    block for the forward, and SDPA's backward (forward and backward
+    minus forward, the main rows' convention) for the pair.  A refused
+    reading is printed as None beside the refused values."""
+    mb = batch // mesh.shape["dp"] // n_micro
+    bh = mb * cfg.n_heads // mesh.shape["tp"]
+    t = cfg.max_len // mesh.shape["sp"]
+    d = cfg.d_model // cfg.n_heads
+    gen = torch.Generator(device=SPMD_DEVICE).manual_seed(23)
+    q, k, v, g = (torch.randn(bh, t, d, device=SPMD_DEVICE, generator=gen)
+                  .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    out, lse = fa._flash_forward_cuda(q, k, v, scale, True, True)
+    launches = backward_launches(q, k, v, g, out, lse, scale, True)
+    launches["flash_fwd"] = lambda: fa._flash_forward_cuda(
+        q, k, v, scale, True, True)
+    plain = {"flash_fwd": lambda: fa._reference_attention_lse(
+        q, k, v, scale, True)}
+    plain["flash_bwd_dq"] = plain["flash_bwd_dkv"] = \
+        lambda: fa._flash_bwd_reference(q, k, v, g, out, lse, scale, True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (x.detach().view(1, bh, t, d).requires_grad_(True)
+                  for x in (q, k, v))
+    fwd_bound = attention_bound_ms(bh, t, t, d, q.dtype, True, True)[0]
+    lib = {"fwd": lambda: sdpa(q4, k4, v4, is_causal=True),
+           "both": lambda: torch.autograd.grad(
+               sdpa(q4, k4, v4, is_causal=True), (q4, k4, v4),
+               g.view(1, bh, t, d))}
+    lib_ms, lib_refused = {}, {}
+    for key, fn in lib.items():
+        # the forward's bound holds for both calls
+        lib_ms[key], lib_refused[key] = checked_queued_ms(fn, 50, fwd_bound)
+    sdpa_bwd = None if None in lib_ms.values() else \
+        lib_ms["both"] - lib_ms["fwd"]
+    blocks = {}
+    for name, launch in launches.items():
+        bound, by = (attention_bound_ms(bh, t, t, d, q.dtype, True, True)
+                     if name == "flash_fwd" else
+                     backward_bound_ms(name, bh, t, t, d, q.dtype, True))
+        dev, refused = checked_queued_ms(launch, 50, bound)
+        blocks[name] = dict(
+            shape="(%d,%d,%d)" % (bh, t, d), causal=True,
+            device_ms=dev, device_ms_refused=refused, ms=time_ms(launch, 50),
+            plain_ms=time_ms(plain[name], 5), bound_ms=bound, bound_by=by,
+            library_ms=lib_ms["fwd"] if name == "flash_fwd" else sdpa_bwd,
+            library_refused=lib_refused)
+    return blocks
+
+
+def spmd_step_check(cfg, one, one_opt, one_loss, params, opt, loss):
+    """Step 1 on the mesh against the one-device step from the same
+    weights: the loss, each first moment (relative L2), each parameter
+    (within 2 lr and a bf16 ulp of each side; the share further apart);
+    returns the readings."""
+    d_loss = abs(loss.item() - one_loss.item())
+    moments, moved, worst = {}, {}, 0.0
+    for n, t in one.items():
+        m1 = one_opt["m"][n]
+        m2 = spmd.gather(opt["m"][n]).reshape(m1.shape)
+        moments[n] = ((m2 - m1).norm() / m1.norm()).item()
+        a, b = spmd.gather(params[n]).reshape(t.shape).float(), t.float()
+        diff = (a - b).abs()
+        ulp = (a.abs() + b.abs()) * 2 ** -7 + 1e-6
+        worst = max(worst, (diff - 2 * SPMD_LR - ulp).max().item())
+        moved[n] = (diff > ulp).float().mean().item()
+    out = dict(loss=loss.item(), one_device_loss=one_loss.item(),
+               d_loss=d_loss, moment_rel_l2=moments,
+               share_beyond_ulp=moved, worst_excess=worst)
+    log("[spmd] step 1 on the mesh against the one-device step: "
+        + json.dumps(out))
+    if not (d_loss <= SPMD_LOSS_TOL and worst <= 0.0
+            and max(moments.values()) <= SPMD_MOMENT_TOL
+            and max(moved.values()) <= SPMD_MOVED_SHARE):
+        fail("spmd: the sharded step disagrees with the one-device step")
+    return out
+
+
+def spmd_moment_memory(cfg, mesh, opt):
+    """Each device's moment bytes: 1/dp of its parameter shard's moments
+    where ZeRO-1 splits them, all of them elsewhere."""
+    dp, zdims = mesh.shape["dp"], tf._zero1_dims(cfg, mesh)
+    specs = tf.param_specs(cfg)
+    per_device = []
+    for c in range(mesh.size):
+        held = whole = 0
+        for key in ("m", "v"):
+            for n, s in opt[key].items():
+                local = int(np.prod([x.stop - x.start for x in spmd._blocks(
+                    mesh, specs[n], s.shape)[c]])) * 4
+                whole += local
+                held += s.device_nbytes()[c]
+                want = local // dp if zdims[n] is not None else local
+                if s.device_nbytes()[c] != want:
+                    fail("spmd: %s %s holds %d bytes at %s, want %d"
+                         % (key, n, s.device_nbytes()[c], mesh.coords[c],
+                            want))
+        per_device.append((held, whole))
+    held, whole = per_device[0]
+    log("[spmd] moments a device: %.1f MB of its shard's %.1f MB (%.3f; "
+        "dp %d; every device alike: %s)"
+        % (held / 1e6, whole / 1e6, held / whole, dp,
+           len(set(per_device)) == 1))
+    return dict(moment_bytes=held, shard_moment_bytes=whole)
+
+
+def spmd_model_step():
+    """The full-width model on 16 shards of this card: step 1 against
+    the one-device step, then steps 2 and 3 timed and profiled."""
+    from mxtpu_torch.parallel import mesh as pmesh
+
+    cfg = tf.TransformerConfig(remat="dots", **MODEL)
+    mesh = pmesh.create_mesh(SPMD_AXES, devices=[SPMD_DEVICE] * int(
+        np.prod(list(SPMD_AXES.values()))))
+    rng = np.random.RandomState(19)
+    tok = rng.randint(0, cfg.vocab, (SPMD_BATCH, cfg.max_len)).astype(
+        np.int32)
+    lab = rng.randint(0, cfg.vocab, (SPMD_BATCH, cfg.max_len)).astype(
+        np.int32)
+    base = tf.init_params(cfg, SPMD_DEVICE, seed=0)
+    params = tf.shard_params(base, cfg, mesh)
+    opt = tf.init_opt_state(cfg, mesh)
+    one_step, _ = tf.make_train_step(cfg, SPMD_DEVICE, n_micro=SPMD_MICRO,
+                                     lr=SPMD_LR, optimizer="adam")
+    one, one_opt, one_loss = one_step(
+        base, tf.init_opt_state(cfg, SPMD_DEVICE), tok, lab)
+    step, info = tf.make_train_step(cfg, mesh, n_micro=SPMD_MICRO,
+                                    lr=SPMD_LR, optimizer="adam")
+    data = [spmd.device_put(x, info["data"]) for x in (tok, lab)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = spmd_launches(cfg, mesh, SPMD_MICRO)
+    losses, walls, launches = [], [], []
+    for i in range(SPMD_STEPS):
+        zero_launches()
+        t0 = time.monotonic()
+        if i == SPMD_STEPS - 1:
+            done = []
+            spans = device_spans(lambda: done.append(
+                step(params, opt, *data)), tries=1)
+            if len(done) != 1 or not spans:
+                fail("spmd: the profiler saw no device time in a step")
+            params, opt, loss = done[0]
+        else:
+            params, opt, loss = step(params, opt, *data)
+        losses.append(loss.item())   # a value fetch: synchronised
+        walls.append((time.monotonic() - t0) * 1e3)
+        launches.append(read_launches())
+        if i == 0:
+            check = spmd_step_check(cfg, one, one_opt, one_loss, params,
+                                    opt, loss)
+            del one, one_opt
+    peak = torch.cuda.max_memory_allocated()
+    memory = spmd_moment_memory(cfg, mesh, opt)
+    busy, window, heads = profile_summary(spans)
+    row = dict(mesh=SPMD_AXES, shards=mesh.size, batch=SPMD_BATCH,
+               n_micro=SPMD_MICRO, losses=losses, wall_ms=walls,
+               busy_ms=busy, window_ms=window, idle=1 - busy / window,
+               device_ops=len(spans), peak_bytes=peak, launches=launches[-1],
+               launches_by_step=launches, want_launches=want, check=check,
+               blocks=spmd_blocks(cfg, mesh, SPMD_BATCH, SPMD_MICRO),
+               **memory)
+    log("[spmd] %s: the 16-shard step (%s, batch %d, n_micro %d, ZeRO-1 "
+        "Adam): losses %s; wall ms a step %s (step 3 under the profiler); "
+        "step 3 device busy %.3f ms in a %.3f ms window (idle share at "
+        "most %.3f), %d device operations; peak %.1f MB; launches a step "
+        "%s; most device time: %s"
+        % (card(), SPMD_AXES, SPMD_BATCH, SPMD_MICRO,
+           " ".join("%.4f" % x for x in losses),
+           " ".join("%.1f" % x for x in walls), busy, window, row["idle"],
+           len(spans), peak / 1e6, launches[-1],
+           "; ".join("%s %.3f ms" % (n[:50], t / 1e3) for n, t in heads)))
+    log("[spmd] kernels at the ring's block: " + json.dumps(row["blocks"]))
+    if any(x != want for x in launches):
+        fail("spmd: launches a step %s, want %s" % (launches, want))
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail("spmd: losses not finite or not falling: %s" % losses)
+    return row
+
+
+def spmd_transformer_lm():
+    """examples/transformer_lm/train.py at its defaults over
+    ``[cuda:0] * 8``: it must print CONVERGED."""
+    ep = tests_module("test_torch_example_port")
+    out = io.StringIO()
+    zero_launches()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        ep.run_transformer_lm([], [SPMD_DEVICE] * SPMD_LM_DEVICES)
+    secs = time.monotonic() - t0
+    lines = out.getvalue().splitlines()
+    row = dict(seconds=secs, last_lines=lines[-3:],
+               launches=read_launches())
+    log("[spmd] transformer_lm on [cuda:0] * %d: %.1f s, %s, launches %s"
+        % (SPMD_LM_DEVICES, secs, " | ".join(lines[-3:]), row["launches"]))
+    if not lines or lines[-1] != "CONVERGED":
+        fail("spmd: transformer_lm did not converge: %s" % lines[-5:])
+    if not all(row["launches"].values()):
+        fail("spmd: transformer_lm launched %s" % row["launches"])
+    return row
+
+
+def spmd_microbench():
+    """``parallel.collectives.microbench`` over {dp 2, tp 4} on
+    ``[cuda:0] * 8``: every collective checked; its rates are of
+    same-device copies, which it says."""
+    from mxtpu_torch.parallel import collectives, mesh as pmesh
+
+    mesh = pmesh.create_mesh({"dp": 2, "tp": 4},
+                             devices=[SPMD_DEVICE] * 8)
+    zero_launches()
+    res = collectives.microbench(mesh, n_bytes=1 << 24, reps=5)
+    row = dict(results=res, launches=read_launches())
+    log("[spmd] collectives.microbench, 16 MB over {dp 2, tp 4} on one "
+        "card (same-device copies): " + json.dumps(res))
+    if not all(r["ok"] for a in res.values() for r in a.values()):
+        fail("spmd: a collective's result is wrong: %s" % res)
+    return row
+
+
+def phase_spmd():
+    """The SPMD half on one card: the ring rows, the 16-shard step, the
+    collectives' microbench and the example; returns the rows."""
+    t0 = time.monotonic()
+    rows = spmd_ring_check()
+    rows["spmd_microbench"] = spmd_microbench()
+    rows["spmd_step"] = spmd_model_step()
+    free_card()
+    rows["spmd_transformer_lm"] = spmd_transformer_lm()
+    log("[spmd] %s: launches by row %s; the phase took %.1f s; one card "
+        "holds every shard, so no interconnect is measured"
+        % (card(), {k: r["launches"] for k, r in rows.items()},
+           time.monotonic() - t0))
+    return rows
+
+
 # a process of the --parent comparison: the sparse and lm phases of the
 # checkout in its working directory, their rows printed as JSON
 PARENT_CODE = ("import json, sys; sys.argv = ['chip_smoke.py']; "
@@ -9714,6 +10161,7 @@ def main():
     det = phase_det()
     quant = phase_quant()
     a10c = phase_a10c()
+    spmd_rows = phase_spmd()
     sources = {"flash_fwd": ("flash_fwd.cu", 149),
                "flash_bwd_dq": ("flash_bwd.cu", 277),
                "flash_bwd_dkv": ("flash_bwd.cu", 309)}
@@ -9736,7 +10184,8 @@ def main():
                         for row, r in mnist.items()})
         by_path.update({row: r["launches"][name]
                         for rows in (zoo, imagenet, optim, rand, gan, seq,
-                                     cflow, data, det, quant, a10c)
+                                     cflow, data, det, quant, a10c,
+                                     spmd_rows)
                         for row, r in rows.items()})
         kernels.append(dict(
             name=name, route="cuda",
@@ -9746,7 +10195,8 @@ def main():
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             device_ms=rec["device_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-            library_ms=rec["library_ms"]))
+            library_ms=rec["library_ms"],
+            ring_block=spmd_rows["spmd_step"]["blocks"][name]))
     log(json.dumps({"kernels": kernels}))
     log(name_limit)
     log(json.dumps({"ok": True, "device": {

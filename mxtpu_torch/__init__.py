@@ -62,7 +62,12 @@ Ported so far:
   ``cpu_shared``; the dependency ``engine``; ``libinfo``, ``log`` and
   ``util``; channels-last Convolution and Pooling; ``monitor``; the
   executor's ``reshape``, ``warmup`` and ragged inference; and
-  ``model.FeedForward``.
+  ``model.FeedForward``;
+* meshes over several devices (a device may repeat: one card can hold
+  every shard), the eager collectives, ``sharding`` (``mx.shard``: the
+  plan and ``reshard``), ring attention at sp > 1 on the flash kernels,
+  and the TransformerLM's dp x pp x tp x sp step with ZeRO-1 Adam, one
+  controller driving every shard (``parallel.spmd``).
 
 Importing the package starts no parameter-server role, whatever
 ``MXTPU_ROLE`` says: a launched server or scheduler runs
@@ -118,6 +123,8 @@ from .cached_op import CachedOp
 from . import gluon
 from . import rnn
 from . import parallel
+from . import sharding
+from . import sharding as shard
 from . import serve
 from . import contrib
 from . import monitor
@@ -133,6 +140,7 @@ __all__ = ["base", "context", "Context", "cpu", "gpu", "cpu_pinned",
            "optimizer", "lr_scheduler",
            "model", "io", "kvstore", "kv", "metric", "callback",
            "module", "mod",
-           "cached_op", "gluon", "rnn", "parallel", "serve",
+           "cached_op", "gluon", "rnn", "parallel", "sharding", "shard",
+           "serve",
            "FusedTrainLoop",
            "MXNetError", "MemoryExhaustedError", "RequestShedError"]

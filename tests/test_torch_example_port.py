@@ -1,7 +1,9 @@
 """Loading `examples/image-classification/train_imagenet.py` and its
 helper packages (`common`, `symbols`) into the PyTorch port, as
 `chip_smoke.py`'s imagenet phase and `tests/test_torch_imagenet.py`
-run it.  The examples stay as they are: their source is read, each
+run it; and `examples/transformer_lm/train.py`, as `chip_smoke.py`'s
+spmd phase and `tests/test_torch_transformer_lm.py` run it
+(`run_transformer_lm`).  The examples stay as they are: their source is read, each
 import of the JAX package (indented ones included) is renamed to the
 port, `mx.tpu()`/`mx.num_tpus()` become `mx.gpu()`/`mx.num_gpus()`,
 `fit.py`'s device list without a TPU (the JAX package's CPU devices)
@@ -116,3 +118,44 @@ def run_train_imagenet(argv, port=True, trace=True):
         finally:
             sys.argv = saved_argv
     return trained[0]
+
+
+TRANSFORMER_LM = REPO / "examples" / "transformer_lm" / "train.py"
+# rewrites of train.py: imports of the JAX package, `import jax`, JAX's
+# device list, its device_put, and the mesh's devices
+TRANSFORMER_LM_REWRITES = (2, 1, 1, 1, 1)
+
+
+def transformer_lm_source():
+    """The source of `examples/transformer_lm/train.py` rewritten for the
+    port: its imports of the JAX package renamed, `import jax` made the
+    port's `spmd` (whose `device_put` takes the step's `"data"`
+    layout), and `jax.devices()` and the mesh's devices read from the
+    global `DEVICES` that :func:`run_transformer_lm` sets."""
+    src = TRANSFORMER_LM.read_text()
+    src, n = re.subn(r"^(\s*)(import|from) mxtpu\b", r"\1\2 mxtpu_torch",
+                     src, flags=re.M)
+    src, i = re.subn(r"^(\s*)import jax\n",
+                     r"\1from mxtpu_torch.parallel import spmd\n", src,
+                     flags=re.M)
+    src, d = re.subn(r"\bjax\.devices\(\)", "DEVICES", src)
+    src, p = re.subn(r"\bjax\.device_put\(", "spmd.device_put(", src)
+    src, m = re.subn(r"\bcreate_mesh\(\{", "create_mesh(devices=DEVICES, "
+                     "shape={", src)
+    if (n, i, d, p, m) != TRANSFORMER_LM_REWRITES:
+        raise AssertionError("transformer_lm/train.py: rewrites %s, not %s"
+                             % ((n, i, d, p, m), TRANSFORMER_LM_REWRITES))
+    return src
+
+
+def run_transformer_lm(argv, devices):
+    """``train.py argv`` run as ``__main__`` on the port, its mesh over
+    ``devices`` (such as ``[torch.device("cpu")] * 8``)."""
+    saved_argv = sys.argv
+    sys.argv = [str(TRANSFORMER_LM)] + [str(a) for a in argv]
+    try:
+        exec(compile(transformer_lm_source(), str(TRANSFORMER_LM), "exec"),
+             {"__name__": "__main__", "__file__": str(TRANSFORMER_LM),
+              "DEVICES": list(devices)})
+    finally:
+        sys.argv = saved_argv

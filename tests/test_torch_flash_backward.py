@@ -11,6 +11,8 @@ the plain backward.  The CUDA kernels themselves run only on the card:
 `chip_smoke.py` holds them against the plain backward there, at the
 bounds used here for bf16.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -282,7 +284,8 @@ def test_square_ring_attention_differentiates_through_the_function(
     q/k, reaches the autograd Function: its backward runs the plain
     backward once on the CPU (the kernels on the card), and the
     gradients equal autograd through the plain forward."""
-    from mxtpu_torch.parallel import ring_attention as tra
+    # the module (the package's `ring_attention` is the function)
+    tra = importlib.import_module("mxtpu_torch.parallel.ring_attention")
 
     calls = []
     ref = tfa._flash_bwd_reference

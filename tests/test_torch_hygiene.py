@@ -104,7 +104,7 @@ def test_entry_points_without_a_device_need_a_card(monkeypatch, tmp_path):
                  lambda: ttf.init_opt_state(cfg),
                  lambda: ttf.make_train_step(cfg),
                  lambda: ttf.make_train_step(cfg, optimizer="adam"),
-                 lambda: ttf.make_fused_train_steps(cfg, 2),
+                 lambda: ttf.make_fused_train_steps(cfg, None, 2),
                  lambda: tmesh.create_mesh(),
                  lambda: context.resolve("cuda")):
         with pytest.raises(MXNetError, match="no CUDA device"):
@@ -192,6 +192,39 @@ def test_the_import_check_covers_slice_17():
     for mod in ("ops/quantization", "ops/dgl", "ops/custom_op", "operator",
                 "subgraph", "contrib/__init__", "contrib/quantization"):
         assert os.path.join("mxtpu_torch", mod + ".py") in names, mod
+
+
+def test_the_import_check_covers_slice_19():
+    names = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for mod in ("parallel/mesh", "parallel/spmd", "parallel/collectives",
+                "parallel/ring_attention", "parallel/transformer",
+                "sharding/__init__", "sharding/plan", "sharding/reshard",
+                "sharding/zero1"):
+        assert os.path.join("mxtpu_torch", mod + ".py") in names, mod
+
+
+def test_the_mesh_entry_points_need_a_card(monkeypatch):
+    """Without a device the mesh and the sharded entry points run on the
+    card, and raise when there is none, whatever the default context."""
+    from mxtpu_torch.parallel import collectives
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ttf.TransformerConfig(vocab=16, d_model=16, n_heads=2,
+                                n_layers=1, d_ff=32, max_len=8,
+                                dtype="float32")
+    state = {"m": {}, "v": {}, "t": 0.0}
+    for call in (lambda: tmesh.create_mesh({"dp": 2}),
+                 lambda: ttf.opt_state_from_jax(state, cfg),
+                 lambda: ttf.make_fused_train_steps(cfg, None, 2),
+                 lambda: ttf.make_train_step(cfg, None, optimizer="adam"),
+                 lambda: ttf.init_opt_state(cfg, None)):
+        with pytest.raises(MXNetError, match="no CUDA device"):
+            call()
+    monkeypatch.setattr(context, "default_ctx", lambda: torch.device("cpu"))
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        tmesh.create_mesh()
+    with pytest.raises(MXNetError, match="no mesh"):
+        collectives.all_reduce(np.zeros((2, 2), np.float32))
 
 
 def _imports_torch(tree):

@@ -43,8 +43,8 @@ def _next_token_models():
     tcfg = ttf.TransformerConfig(**SMALL)
     tparams = ttf.params_from_jax({k: np.asarray(v)
                                    for k, v in jparams.items()},
-                                  tcfg, device="cpu")
-    tfwd = ttf.make_forward(tcfg, device="cpu")
+                                  tcfg, "cpu")
+    tfwd = ttf.make_forward(tcfg, "cpu")
 
     def jax_fn(toks):
         return np.asarray(jfwd(jparams, toks))[:, -1].astype(np.float32)

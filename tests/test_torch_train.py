@@ -28,6 +28,7 @@ from mxtpu_torch import executor as tex
 from mxtpu_torch.base import MXNetError
 from mxtpu_torch.ops import flash_attention as tfa
 from mxtpu_torch.parallel import transformer as ttf
+from mxtpu_torch.parallel.mesh import create_mesh as tcreate_mesh
 
 torch.set_num_threads(1)
 
@@ -57,8 +58,24 @@ def _setup(dtype="float32", remat="none", seed=0):
     jparams = jtf.init_params(jcfg, _mesh(), seed=seed)
     tparams = ttf.params_from_jax({k: np.asarray(v)
                                    for k, v in jparams.items()},
-                                  tcfg, device="cpu")
+                                  tcfg, "cpu")
     return jcfg, tcfg, jparams, tparams
+
+
+def _port_loss_and_grads(tcfg, tp, tok, lab):
+    """The port's `_loss_and_grads` on a one-device CPU mesh, its shard
+    lists of one member unwrapped: (loss, {name: gradient})."""
+    mesh = tcreate_mesh(devices=["cpu"])
+    loss, grads = ttf._loss_and_grads(tcfg, mesh, 1)(
+        {k: [v] for k, v in tp.items()}, [torch.as_tensor(tok).long()],
+        [torch.as_tensor(lab).long()])
+    return loss, {k: g[0] for k, g in grads.items()}
+
+
+def _port_xent(logits, labels):
+    """The port's `_sharded_xent` at tp = 1 over one CPU device."""
+    mesh = tcreate_mesh(devices=["cpu"])
+    return ttf._sharded_xent(mesh, [logits], [labels], logits.shape[-1])[0]
 
 
 def _np(x):
@@ -73,13 +90,13 @@ def _run_both(optimizer, dtype="float32", steps=3, remat="none"):
     tok, lab = _data()
     mesh = _mesh()
     jstep, sh = jtf.make_train_step(jcfg, mesh, lr=LR, optimizer=optimizer)
-    tstep, info = ttf.make_train_step(tcfg, device="cpu", lr=LR,
+    tstep, info = ttf.make_train_step(tcfg, "cpu", lr=LR,
                                       optimizer=optimizer)
     assert info["device"] == torch.device("cpu")
     jtok, jlab = (jax.device_put(a, sh["data"]) for a in (tok, lab))
     if optimizer == "adam":
         jo, to = jtf.init_opt_state(jcfg, mesh), \
-            ttf.init_opt_state(tcfg, device="cpu")
+            ttf.init_opt_state(tcfg, "cpu")
     out = []
     for _ in range(steps):
         if optimizer == "sgd":
@@ -132,8 +149,7 @@ def test_first_step_gradients_match_jax():
         jax.value_and_grad(jtf._build_loss_fn(jcfg, mesh, 1)), mesh=mesh,
         in_specs=(specs, data, data), out_specs=(P(), specs)))
     jl, jg = vg(jp, tok, lab)
-    tl, tg = ttf._loss_and_grads(tcfg, 1)(tp, torch.from_numpy(tok).long(),
-                                         torch.from_numpy(lab).long())
+    tl, tg = _port_loss_and_grads(tcfg, tp, tok, lab)
     np.testing.assert_allclose(tl.item(), float(jl), rtol=2e-5)
     assert set(tg) == set(jg)
     for name, g in tg.items():
@@ -183,9 +199,9 @@ def test_fused_steps_equal_single_steps_and_match_jax():
     K = 3
     jcfg, tcfg, jp, tp = _setup()
     toks, labs = _data(1, (K, B, T))
-    single, _ = ttf.make_train_step(tcfg, device="cpu", lr=LR,
+    single, _ = ttf.make_train_step(tcfg, "cpu", lr=LR,
                                     optimizer="adam")
-    fused, info = ttf.make_fused_train_steps(tcfg, K, device="cpu", lr=LR)
+    fused, info = ttf.make_fused_train_steps(tcfg, "cpu", K, lr=LR)
     assert info["k_steps"] == K and info["optimizer"] == "adam"
     tp2 = {k: v.clone() for k, v in tp.items()}
     to, to2 = ttf.init_opt_state(tcfg, "cpu"), ttf.init_opt_state(tcfg, "cpu")
@@ -212,14 +228,14 @@ def test_fused_steps_equal_single_steps_and_match_jax():
 def test_fused_sgd_and_argument_errors():
     _, tcfg, _, tp = _setup()
     toks, labs = _data(2, (2, B, T))
-    fused, _ = ttf.make_fused_train_steps(tcfg, 2, device="cpu",
+    fused, _ = ttf.make_fused_train_steps(tcfg, "cpu", 2,
                                           optimizer="sgd")
     tp, losses = fused(tp, toks, labs)
     assert losses.shape == (2,) and torch.isfinite(losses).all()
-    for bad in (lambda: ttf.make_fused_train_steps(tcfg, 0, device="cpu"),
-                lambda: ttf.make_train_step(tcfg, device="cpu",
+    for bad in (lambda: ttf.make_fused_train_steps(tcfg, "cpu", 0),
+                lambda: ttf.make_train_step(tcfg, "cpu",
                                             optimizer="rmsprop"),
-                lambda: ttf.make_fused_train_steps(tcfg, 2, device="cpu",
+                lambda: ttf.make_fused_train_steps(tcfg, "cpu", 2,
                                                    optimizer="rmsprop")):
         with pytest.raises(MXNetError):
             bad()
@@ -233,7 +249,7 @@ def test_n_micro_splits_the_batch_into_equal_loss():
     tok, lab = _data()
     results = []
     for n_micro in (1, 2):
-        step, _ = ttf.make_train_step(tcfg, device="cpu", n_micro=n_micro,
+        step, _ = ttf.make_train_step(tcfg, "cpu", n_micro=n_micro,
                                       lr=LR)
         params, loss = step({k: v.clone() for k, v in tp.items()}, tok, lab)
         results.append((loss.item(), params))
@@ -241,7 +257,7 @@ def test_n_micro_splits_the_batch_into_equal_loss():
     for name in tp:
         torch.testing.assert_close(results[1][1][name], results[0][1][name],
                                    rtol=1e-5, atol=1e-7)
-    step, _ = ttf.make_train_step(tcfg, device="cpu", n_micro=3)
+    step, _ = ttf.make_train_step(tcfg, "cpu", n_micro=3)
     with pytest.raises(MXNetError, match="n_micro"):
         step(tp, tok, lab)
 
@@ -275,8 +291,7 @@ def _grads_recording(remat, monkeypatch):
     monkeypatch.setattr(tfa, "_flash_impl", counting)
     _, tcfg, _, tp = _setup(remat=remat)
     tok, lab = _data()
-    loss, grads = ttf._loss_and_grads(tcfg, 1)(
-        tp, torch.from_numpy(tok).long(), torch.from_numpy(lab).long())
+    loss, grads = _port_loss_and_grads(tcfg, tp, tok, lab)
     return loss, grads, decisions, len(forwards)
 
 
@@ -317,8 +332,8 @@ def test_remat_policies_keep_values_and_save_what_they_say(monkeypatch):
 
 @pytest.mark.parametrize("label_at", ["zero", "last", "outside"])
 def test_xent_matches_jax_sharded_xent(label_at):
-    """`_xent` against `_sharded_xent` at tp = 1 in a 1-device
-    shard_map, with labels at 0, at vocab - 1, and outside the vocab
+    """The port's `_sharded_xent` against the JAX package's, both at
+    tp = 1 on one device (JAX's in a shard_map), with labels at 0, at vocab - 1, and outside the vocab
     (picks no logit), in value and in gradient."""
     rng = np.random.RandomState(8)
     V = 32
@@ -336,7 +351,7 @@ def test_xent_matches_jax_sharded_xent(label_at):
         jax.grad(lambda lg, lab: jloss(lg, lab).sum()), mesh=mesh,
         in_specs=(P(), P()), out_specs=P()))
     lg = torch.from_numpy(logits).requires_grad_(True)
-    nll = ttf._xent(lg, torch.from_numpy(labels).long())
+    nll = _port_xent(lg, torch.from_numpy(labels).long())
     nll.sum().backward()
     np.testing.assert_allclose(nll.detach().numpy(),
                                np.asarray(jx(logits, labels)), **F32_TOL)
@@ -345,23 +360,22 @@ def test_xent_matches_jax_sharded_xent(label_at):
 
 
 def test_embedding_is_shared_by_the_forward_and_the_loss():
-    """`make_forward`'s logits are the loss's: one `_embed` and one
-    `_logits` for both (and an out-of-vocab token embeds as zeros in
+    """`make_forward`'s logits are the loss's: one `_pipeline` and one
+    `_head` for both (and an out-of-vocab token embeds as zeros in
     both)."""
     _, tcfg, _, tp = _setup()
     tok, lab = _data()
     tok[0, 5] = SMALL["vocab"] + 3
-    logits = ttf.make_forward(tcfg, device="cpu")(tp, tok)
-    ref = ttf._xent(logits.reshape(B * T, -1).float(),
-                    torch.from_numpy(lab).long().reshape(-1)).mean()
-    loss, _ = ttf._loss_and_grads(tcfg, 1)(tp, torch.from_numpy(tok).long(),
-                                          torch.from_numpy(lab).long())
+    logits = ttf.make_forward(tcfg, "cpu")(tp, tok)
+    ref = _port_xent(logits.reshape(B * T, -1).float(),
+                     torch.from_numpy(lab).long().reshape(-1)).mean()
+    loss, _ = _port_loss_and_grads(tcfg, tp, tok, lab)
     assert loss.item() == pytest.approx(ref.item(), rel=1e-6)
 
 
 def test_opt_state_layout():
     cfg = ttf.TransformerConfig(dtype="bfloat16", **SMALL)
-    opt = ttf.init_opt_state(cfg, device="cpu")
+    opt = ttf.init_opt_state(cfg, "cpu")
     shapes = ttf.param_shapes(cfg)
     assert set(opt) == {"m", "v", "t"}
     for key in ("m", "v"):

@@ -9,6 +9,8 @@ one `tests/test_parallel.py` holds the sharded forward to.  The JAX
 forward is run both on its plain route and with the Pallas flash kernel
 in interpreter mode.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -23,8 +25,10 @@ from mxtpu.parallel.mesh import (AXIS_DP, AXIS_EP, AXIS_PP, AXIS_SP,
                                  AXIS_TP, create_mesh, get_shard_map)
 from mxtpu_torch.base import MXNetError
 from mxtpu_torch.parallel import mesh as tmesh
-from mxtpu_torch.parallel import ring_attention as tra
 from mxtpu_torch.parallel import transformer as ttf
+
+# the module: the package's `ring_attention` is the function, as in mxtpu
+tra = importlib.import_module("mxtpu_torch.parallel.ring_attention")
 
 torch.set_num_threads(1)
 
@@ -51,8 +55,8 @@ def _both_forwards(dtype, seed=3):
     jout = np.asarray(jout.astype(jnp.float32))
     tparams = ttf.params_from_jax({k: np.asarray(v)
                                    for k, v in jparams.items()},
-                                  tcfg, device="cpu")
-    tout = ttf.make_forward(tcfg, device="cpu")(tparams, tokens)
+                                  tcfg, "cpu")
+    tout = ttf.make_forward(tcfg, "cpu")(tparams, tokens)
     assert tout.shape == (B, T, jcfg.vocab) and tout.dtype == tcfg.torch_dtype
     return jout, tout.float().numpy()
 
@@ -81,7 +85,7 @@ def test_params_from_jax_is_exact_for_bfloat16():
     jparams = {k: np.asarray(v) for k, v in
                jtf.init_params(jcfg, mesh, seed=1).items()}
     tparams = ttf.params_from_jax(jparams, ttf.TransformerConfig(
-        dtype="bfloat16", **SMALL), device="cpu")
+        dtype="bfloat16", **SMALL), "cpu")
     for name, arr in jparams.items():
         assert tparams[name].dtype == torch.bfloat16
         assert tparams[name].shape == arr.shape
@@ -90,14 +94,14 @@ def test_params_from_jax_is_exact_for_bfloat16():
     with pytest.raises(MXNetError, match="names"):
         ttf.params_from_jax({"embed": jparams["embed"]},
                             ttf.TransformerConfig(dtype="bfloat16", **SMALL),
-                            device="cpu")
+                            "cpu")
 
 
 def test_init_params_shapes_dtypes_and_seed():
     cfg = ttf.TransformerConfig(dtype="bfloat16", **SMALL)
-    a = ttf.init_params(cfg, device="cpu", seed=0)
-    b = ttf.init_params(cfg, device="cpu", seed=0)
-    c = ttf.init_params(cfg, device="cpu", seed=1)
+    a = ttf.init_params(cfg, "cpu", seed=0)
+    b = ttf.init_params(cfg, "cpu", seed=0)
+    c = ttf.init_params(cfg, "cpu", seed=1)
     jshapes = jtf.param_shapes(jtf.TransformerConfig(**SMALL), 1)
     assert ttf.param_shapes(cfg) == jshapes
     for name, shape in jshapes.items():
@@ -180,8 +184,8 @@ def test_rms_norm_casts_before_the_scale():
 
 def test_embedding_sums_in_param_dtype_and_masks_out_of_range_tokens():
     cfg = ttf.TransformerConfig(dtype="float32", **SMALL)
-    p = ttf.init_params(cfg, device="cpu", seed=2)
-    fwd = ttf.make_forward(cfg, device="cpu")
+    p = ttf.init_params(cfg, "cpu", seed=2)
+    fwd = ttf.make_forward(cfg, "cpu")
     toks = np.random.RandomState(2).randint(0, cfg.vocab, (1, 16))
     bad = toks.copy()
     bad[0, 3] = cfg.vocab + 5   # outside the vocab: embeds as zeros
@@ -228,7 +232,8 @@ def test_ring_attention_sp1_routes_to_flash_and_sp2_raises():
     got = tra.ring_attention(q, k, v, causal=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-4,
                                atol=2e-5)
-    with pytest.raises(NotImplementedError, match="A15"):
+    # a ring over sp = 2 takes the group's two shards as lists
+    with pytest.raises(MXNetError, match="as lists"):
         tra.ring_attention(q, k, v, causal=True, axis_size=2)
 
 
@@ -237,15 +242,19 @@ def test_ring_self_attention_matches_transformer_attention():
     g = torch.Generator().manual_seed(0)
     x = torch.randn(2, 16, 64, generator=g)
     ws = [torch.randn(64, 64, generator=g) * 0.125 for _ in range(4)]
+    mesh = tmesh.create_mesh(devices=["cpu"])
     torch.testing.assert_close(
         tra.ring_self_attention(x, *ws, n_heads=cfg.n_heads),
-        ttf._attention(cfg, x, *ws))
+        ttf._attention(cfg, mesh, [x], *([w] for w in ws))[0])
 
 
 def test_mesh_is_one_device():
     m = tmesh.create_mesh({tmesh.AXIS_DP: 1, tmesh.AXIS_TP: 1},
-                          device="cpu")
+                          devices=["cpu"])
     assert m.shape == {a: 1 for a in ("dp", "pp", "tp", "sp", "ep")}
     assert m.device == torch.device("cpu")
-    with pytest.raises(MXNetError, match="A15"):
-        tmesh.create_mesh({tmesh.AXIS_TP: 2}, device="cpu")
+    # one device holds no tp = 2 mesh; two (repeated) devices do
+    with pytest.raises(MXNetError, match="needs 2 devices, have 1"):
+        tmesh.create_mesh({tmesh.AXIS_TP: 2}, devices=["cpu"])
+    assert tmesh.create_mesh({tmesh.AXIS_TP: 2},
+                             devices=["cpu", "cpu"]).shape[tmesh.AXIS_TP] == 2
